@@ -1,0 +1,148 @@
+"""Plain PyTorch versions of the attention kernels.
+
+Counterpart of ``repro/kernels/ref.py``.  These are the correctness
+references the CUDA kernels are held to (``chip_smoke.py`` and the card
+tests), and the path every CPU tensor takes through
+:mod:`repro_torch.kernels.ops`.  Softmax runs in float32 whatever the
+input dtype, as in the kernels.
+
+Mask kinds:
+
+* ``causal``        — standard decoder mask
+* ``sliding``       — causal ∧ (q - k < window)
+* ``chunked``       — causal ∧ same-chunk(q, k)
+* ``bidirectional`` — none
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # large-negative instead of -inf: keeps fully-masked rows
+                 # (sliding windows near t=0, padded decode) NaN-free.
+
+
+def mask_fn(
+    kind: str,
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    *,
+    window: int = 0,
+    chunk: int = 0,
+) -> torch.Tensor:
+    """Boolean mask (True = attend) for positions q_pos x k_pos."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    if kind == "bidirectional":
+        return torch.ones(torch.broadcast_shapes(q.shape, k.shape),
+                          dtype=torch.bool, device=q.device)
+    causal = q >= k
+    if kind == "causal":
+        return causal
+    if kind == "sliding":
+        return causal & (q - k < window)
+    if kind == "chunked":
+        return causal & (torch.div(q, chunk, rounding_mode="floor")
+                         == torch.div(k, chunk, rounding_mode="floor"))
+    raise ValueError(f"unknown mask kind {kind!r}")
+
+
+def attention(
+    q: torch.Tensor,          # (B, Hq, Sq, D)
+    k: torch.Tensor,          # (B, Hkv, Sk, D)
+    v: torch.Tensor,          # (B, Hkv, Sk, Dv)
+    *,
+    kind: str = "causal",
+    window: int = 0,
+    chunk: int = 0,
+    scale: float | None = None,
+    q_offset: int = 0,
+    k_lengths: torch.Tensor | None = None,  # (B,) valid KV length (decode)
+) -> torch.Tensor:
+    """Grouped-query attention.
+
+    ``q_offset`` places the query block inside the global position space;
+    ``k_lengths`` masks cache tail slots.
+    """
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, Dv = v.shape
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    G = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+
+    qg = q.reshape(B, Hkv, G, Sq, D).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    m = mask_fn(kind, q_pos, k_pos, window=window, chunk=chunk)
+    if k_lengths is not None:
+        valid = k_pos[None, :] < k_lengths[:, None]            # (B, Sk)
+        m = m[None, :, :] & valid[:, None, :]
+        m = m[:, None, None]                                    # (B,1,1,Sq,Sk)
+    s = torch.where(m, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def prefill_attention(
+    q: torch.Tensor,          # (B, Hq, Sq, D) — one prefill chunk of queries
+    k: torch.Tensor,          # (B, Hkv, Sk, D) — prior cache ++ chunk keys
+    v: torch.Tensor,          # (B, Hkv, Sk, Dv)
+    q_pos: torch.Tensor,      # (B, Sq) absolute position of each query
+    k_pos: torch.Tensor,      # (B, Sk) absolute position of each key; < 0 = hole
+    *,
+    kind: str = "causal",
+    window: int = 0,
+    chunk: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention on explicit positions.
+
+    Masking is on *absolute* positions: causal within the chunk, full (or
+    windowed / chunk-local) against the prior cache; ``k_pos < 0`` marks
+    invalid slots.  A query row with no live key gets the mean of V over
+    all keys (uniform softmax over ``NEG_INF`` scores) — such rows are
+    padding and callers discard them.
+    """
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, Dv = v.shape
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    G = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+
+    qg = q.reshape(B, Hkv, G, Sq, D).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+
+    qp = q_pos[:, :, None]                       # (B, Sq, 1)
+    kp = k_pos[:, None, :]                       # (B, 1, Sk)
+    m = (qp >= kp) & (kp >= 0)
+    if kind == "sliding":
+        m &= (qp - kp) < window
+    elif kind == "chunked":
+        m &= (torch.div(qp, chunk, rounding_mode="floor")
+              == torch.div(kp, chunk, rounding_mode="floor"))
+    elif kind != "causal":
+        raise ValueError(f"prefill mask kind {kind!r}")
+    s = torch.where(m[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,          # (B, Hq, D) — one new token
+    k_cache: torch.Tensor,    # (B, Hkv, Smax, D)
+    v_cache: torch.Tensor,    # (B, Hkv, Smax, Dv)
+    lengths: torch.Tensor,    # (B,) valid entries per batch row
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-token decode against a (possibly padded) KV cache."""
+    out = attention(
+        q[:, :, None, :], k_cache, v_cache,
+        kind="bidirectional", scale=scale, k_lengths=lengths,
+    )
+    return out[:, :, 0, :]

@@ -1,0 +1,159 @@
+"""Decoder-only LM assembled from pattern stages.
+
+Counterpart of ``repro/models/transformer.py`` for attention layers.  The
+params and caches keep the reference's pytree — one stacked dict per
+stage of ``cfg.stages()`` — and the reference's ``scan`` over the stacked
+layer dim becomes a Python loop that hands each layer views of its slice.
+Caches are updated in place through those views.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    apply_embed,
+    apply_head,
+    apply_mlp,
+    apply_norm,
+    embed_defs,
+    head_defs,
+    mlp_defs,
+    norm_defs,
+)
+from repro_torch.models.sharding import stack_defs, tree_map
+
+#: layer codes ported so far; L/G/C (ring caches) wait for ROADMAP queue A
+ATTN_CODES = ("F",)
+
+
+# ---------------------------------------------------------------------------
+# Param defs
+# ---------------------------------------------------------------------------
+
+def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
+    if code not in ATTN_CODES:
+        raise NotImplementedError(
+            f"layer code {code!r} is not ported yet (ROADMAP queue A)"
+        )
+    if cfg.moe is not None and cfg.moe.is_moe_layer(layer_idx):
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue A)")
+    d = cfg.d_model
+    ff = cfg.d_ff
+    if cfg.moe is not None and cfg.moe.dense_d_ff:
+        ff = cfg.moe.dense_d_ff
+    return {
+        "attn_norm": norm_defs(d, cfg.norm),
+        "attn": attn.attention_defs(d, cfg.attention),
+        "mlp_norm": norm_defs(d, cfg.norm),
+        "mlp": mlp_defs(d, ff),
+    }
+
+
+def lm_defs(cfg: ArchConfig) -> dict:
+    defs = {
+        "embed": embed_defs(cfg.vocab, cfg.d_model),
+        "final_norm": norm_defs(cfg.d_model, cfg.norm),
+        "head": head_defs(cfg.vocab, cfg.d_model, cfg.tie_embeddings),
+        "stages": [],
+    }
+    for codes, count, start in cfg.stages():
+        stage = {
+            f"{j}{code}": _layer_defs(cfg, code, start + j)
+            for j, code in enumerate(codes)
+        }
+        defs["stages"].append(stack_defs(stage, count))
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Cache defs
+# ---------------------------------------------------------------------------
+
+def lm_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    caches = {"stages": []}
+    for codes, count, start in cfg.stages():
+        stage = {
+            f"{j}{code}": attn.cache_defs(batch, max_len, cfg.attention, code)
+            for j, code in enumerate(codes)
+        }
+        caches["stages"].append(stack_defs(stage, count))
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _apply_layer_step(cfg, code, lp, cache, x, lengths, mode, new_lens=None):
+    """prefill_at/decode step for one attention layer; returns x.
+
+    ``prefill_at`` is the serving engine's chunked batched prefill:
+    ``lengths`` carries each row's cache fill *offset* and ``new_lens`` how
+    many of the chunk's positions are real for that row (0 = untouched).
+    ``cache`` holds views of this layer's slice and is written in place.
+    """
+    h = apply_norm(lp["attn_norm"], x, cfg.norm)
+    if mode == "prefill_at":
+        out = attn.gqa_prefill_at(
+            lp["attn"], h, cache, lengths, new_lens, cfg.attention, code
+        )
+    elif mode == "decode":
+        out = attn.gqa_decode(lp["attn"], h, cache, lengths, cfg.attention, code)
+    else:
+        raise ValueError(f"step mode {mode!r}")
+    x = x + out
+    h = apply_norm(lp["mlp_norm"], x, cfg.norm)
+    return x + apply_mlp(lp["mlp"], h, cfg.act)
+
+
+def _run_stages_step(cfg, params, caches, x, lengths, mode, new_lens=None):
+    for (codes, count, start), stage_params, stage_cache in zip(
+        cfg.stages(), params["stages"], caches["stages"]
+    ):
+        for layer in range(count):
+            lp = tree_map(lambda t: t[layer], stage_params)
+            cache = tree_map(lambda t: t[layer], stage_cache)
+            for j, code in enumerate(codes):
+                key = f"{j}{code}"
+                x = _apply_layer_step(
+                    cfg, code, lp[key], cache[key], x, lengths, mode, new_lens
+                )
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def lm_prefill_at(params, tokens, caches, offsets, new_lens, cfg: ArchConfig):
+    """Chunked batched prefill: write one prompt chunk per row at an offset.
+
+    ``tokens`` (B, S) holds one chunk of each row's prompt; row ``b``
+    appends ``new_lens[b] <= S`` tokens at cache positions ``offsets[b]..``
+    (``new_lens == 0`` leaves the row's cache untouched).  Returns the
+    logits of each row's last *valid* chunk position — garbage for
+    ``new_lens == 0`` rows — and ``caches``, updated in place.
+    """
+    x = apply_embed(params["embed"], tokens)
+    x = _run_stages_step(cfg, params, caches, x, offsets, "prefill_at", new_lens)
+    last = torch.clamp(new_lens.long() - 1, 0, tokens.shape[1] - 1)
+    x = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = apply_head(params["head"], params["embed"], x)
+    return logits[:, 0], caches
+
+
+def lm_decode_step(params, tokens, caches, lengths, cfg: ArchConfig):
+    """One decode step; tokens (B,1); lengths (B,) current cache fill.
+
+    Returns (logits (B, vocab), caches updated in place).  The caller
+    advances lengths.
+    """
+    x = apply_embed(params["embed"], tokens)
+    x = _run_stages_step(cfg, params, caches, x, lengths, "decode")
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = apply_head(params["head"], params["embed"], x)
+    return logits[:, 0], caches
