@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
 
@@ -8,21 +8,37 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and build — the card's name and power limit, the torch/CUDA
    versions, and an ``nvcc`` build of every ``src/repro_torch/csrc/*.cu``;
 2. each CUDA kernel against its plain PyTorch version on the card, in
-   bfloat16 and float32, at the main path's shapes (yi-6b: 8 slots, 32/4
-   heads, head dim 128, 2048 cache slots, 256-token chunks), at G = 1
-   (olmo-1b: 16/16 heads) and at the smoke head dim, with ragged lengths,
-   tails off the tile, cache holes and rows that write nothing;
-3. yi-6b-smoke in float32 through ``Server`` on the card and on the CPU,
-   same weights: greedy tokens must be identical per request;
-4. full-width, full-depth yi-6b in bfloat16, weights drawn on the card
-   from a seeded generator: 16 requests (prompts of 128-1536 tokens, 64
-   new tokens each) through 8 slots, with each kernel's launch count
+   bfloat16 and float32.  Serving kernels at the serving path's shapes
+   (yi-6b: 8 slots, 32/4 heads, head dim 128, 2048 cache slots, 256-token
+   chunks), at G = 1 (olmo-1b: 16/16 heads) and at the smoke head dim,
+   with ragged lengths, tails off the tile, cache holes and rows that
+   write nothing.  The training attention kernel, forward and backward
+   (against ``torch.autograd.grad`` through the plain version), at the
+   olmo-1b training shape (4, 16, 2048, 128), a yi-6b GQA shape, the
+   sliding / chunked / bidirectional masks with ``q_offset > 0`` and
+   ``Sq != Sk``, the smoke head dim and a length off the tile;
+3. smoke parity on the card and on the CPU from the same weights:
+   yi-6b-smoke in float32 through ``Server`` (greedy tokens identical per
+   request), then olmo-1b-smoke and yi-6b-smoke in float32 for 3 AdamW
+   steps of the same batches (losses and grad norms within tolerance);
+4. serving: full-width, full-depth yi-6b in bfloat16, weights drawn on the
+   card from a seeded generator: 16 requests (prompts of 128-1536 tokens,
+   64 new tokens each) through 8 slots, with each kernel's launch count
    checked against 32 x the decode steps or prefill dispatches;
 5. times at the phase 4 shapes: each kernel, its plain version, the
    PyTorch library call for the same function (a yardstick the port never
    calls), and the least time the card could take; then a
    ``torch.profiler`` window over a few full-batch decode steps (wall
-   time, device-busy share, the kernels that take the device time).
+   time, device-busy share, the kernels that take the device time);
+6. training: full-width, full-depth olmo-1b in bfloat16 through
+   ``repro_torch.launch.train`` (weights from a seeded generator on the
+   card, ``remat="full"``, batch 4 x 2048 tokens of ``SyntheticLM`` seed
+   0, AdamW steps under ``Supervisor.run``): finite losses and grad norms,
+   no restart, and 2 x 16 forward and 16 backward attention launches per
+   step; step time, training tokens/s, peak memory, and a
+   ``torch.profiler`` window over one more step;
+7. times of the training attention kernels at the phase 6 shape, beside
+   their plain versions, SDPA and their bounds.
 
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
 name and power limit, and the device JSON.
@@ -56,8 +72,25 @@ F32_FLOPS_PER_S = 67e12
 TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2, row=0.1),
        "float32": dict(atol=3e-5, rtol=1e-5, row=1e-3)}
 
+#: gradients of the training attention kernel: f32 sums over up to 2048
+#: terms in another order (f32); bf16 products take P and dS rounded to
+#: bf16, as FlashAttention-2 does (bf16).  Same elementwise and row-RMS
+#: form as TOL, but a row's RMS is floored at the median row RMS: some
+#: gradient rows are 0 in exact arithmetic (causal query 0 sees only key 0,
+#: so its dS is 0) and keep a rounding-level error that does not shrink
+#: with them.  In bf16 a row's error may also exceed the limit by one ulp
+#: of its largest element (<= 2^-7 of it): both sides round f32 gradients
+#: that differ in the last bits, and a rounding flip on a row's largest
+#: element is one ulp there.
+GRAD_TOL = {"bfloat16": dict(atol=3e-2, rtol=3e-2, row=0.1, floor="median",
+                             ulp=2.0 ** -7),
+            "float32": dict(atol=1e-4, rtol=1e-4, row=1e-3, floor="median")}
+
 #: main-path shapes (yi-6b serving: ServeConfig(8, 2048, 256))
 YI = dict(B=8, Hq=32, Hkv=4, D=128, Smax=2048, chunk=256)
+
+#: training path (olmo-1b, batch 4 x 2048 tokens, 16/16 heads, head dim 128)
+OLMO_TRAIN = dict(B=4, Hq=16, Hkv=16, S=2048, D=128, steps=4)
 
 
 def log(msg: str) -> None:
@@ -72,7 +105,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_close(name, got, want, dtype_name, rows=None):
+def check_close(name, got, want, dtype_name, rows=None, tols=TOL):
     """Max abs error of ``got`` vs ``want`` over output rows (the last dim;
     optionally only the rows a mask selects); raises if any element is
     outside the elementwise tolerance or any row's max error exceeds the
@@ -83,16 +116,23 @@ def check_close(name, got, want, dtype_name, rows=None):
     if rows is not None:
         g, w = g[rows], w[rows]
     g, w = g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])
-    tol = TOL[dtype_name]
+    tol = tols[dtype_name]
     err = (g - w).abs()
     bad = err > tol["atol"] + tol["rtol"] * w.abs()
     rms = w.square().mean(-1).sqrt()
-    rel = err.amax(-1) / rms.clamp(min=1e-30)
+    if tol.get("floor") == "median":
+        rms = rms.clamp(min=float(rms.median()))
+    row_err = err.amax(-1) - tol.get("ulp", 0.0) * w.abs().amax(-1)
+    rel = row_err.clamp(min=0) / rms.clamp(min=1e-30)
+    worst = int(rel.argmax())
     max_err = float(err.max())
     log(f"  {name}: max_abs_err {max_err:.3e} (atol {tol['atol']}, rtol "
-        f"{tol['rtol']}); want's row RMS min {float(rms.min()):.3e} median "
+        f"{tol['rtol']}); want's row RMS{' (floored at the median)' if 'floor' in tol else ''}"
+        f" min {float(rms.min()):.3e} median "
         f"{float(rms.median()):.3e}; worst row err/RMS {float(rel.max()):.3e} "
-        f"(limit {tol['row']})")
+        f"(limit {tol['row']}; row {worst}: max err {float(err[worst].max()):.3e}, "
+        f"max |want| {float(w[worst].abs().max()):.3e}, RMS {float(rms[worst]):.3e}"
+        f"{', less one ulp of its largest element' if 'ulp' in tol else ''})")
     if not torch.isfinite(g).all() or bool(bad.any()):
         raise AssertionError(f"{name}: {int(bad.sum())} elements out of tolerance")
     if bool((rel > tol["row"]).any()):
@@ -471,32 +511,310 @@ def phase_times(launches, stats, plens, errs):
     pre = dict(ms=kern, plain_ms=plain, library_ms=lib, bytes=pbytes, flops=pflops)
 
     steps = max(stats["decode_steps"], 1)
-    rows = []
-    for name, src, replaces, rec, n in (
-        ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-         "src/repro/kernels/decode_attention.py:71", dec, "decode"),
-        ("prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
-         "src/repro/kernels/flash_attention.py:237", pre, "prefill"),
-    ):
-        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = rec["flops"] / BF16_FLOPS_PER_S * 1e3
-        row = {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[(n, "bfloat16")],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": rec["library_ms"],
-        }
-        rows.append(row)
-        log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}: {rec['bytes']} bytes, {rec['flops']} flops; "
-            f"f32 CUDA-core floor {rec['flops'] / F32_FLOPS_PER_S * 1e3:.4f} ms), "
-            f"{launches[name]} launches on the main path")
+    rows = [
+        kernel_row(name, src, replaces, rec, launches[name], errs[(n, "bfloat16")])
+        for name, src, replaces, rec, n in (
+            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:71", dec, "decode"),
+            ("prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
+             "src/repro/kernels/flash_attention.py:237", pre, "prefill"),
+        )
+    ]
     log(f"  decode_attention launches per decode step: "
         f"{launches['decode_attention'] / steps:g}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# training attention: checks, smoke training parity, the full run, times
+# ---------------------------------------------------------------------------
+
+def fa_live_rows(kind, kw, Sq, Sk, q_offset):
+    """(Sq,) bool: query rows with at least one live key under the mask."""
+    import torch
+
+    if kind == "bidirectional":
+        return torch.ones(Sq, dtype=torch.bool, device="cuda")
+    qp = q_offset + torch.arange(Sq, device="cuda")[:, None]
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    live = qp >= kp
+    if kind == "sliding":
+        live &= (qp - kp) < kw["window"]
+    elif kind == "chunked":
+        live &= (qp // kw["chunk"]) == (kp // kw["chunk"])
+    return live.any(-1)
+
+
+def fa_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, rows=None):
+    """q, k, v and a cotangent dout; dout is 0 on rows without a live key
+    (padding: the kernel gives 0 there, the plain version mean(V))."""
+    import torch
+
+    q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
+    dout = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda").to(dtype)
+    if rows is not None:
+        dout = dout * rows[:, None].to(dtype)
+    return q, k, v, dout
+
+
+def phase_train_kernels():
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    log("== phase 2b: training attention kernel, forward and backward, against "
+        "the plain version and autograd through it")
+    o = OLMO_TRAIN
+    cases = [
+        ("olmo-train", o["B"], o["Hq"], o["Hkv"], o["S"], o["S"], o["D"], 0, "causal", {}),
+        ("yi-gqa", 2, 32, 4, 1024, 1024, 128, 0, "causal", {}),
+        ("sliding", 2, 8, 2, 192, 320, 64, 128, "sliding", {"window": 64}),
+        ("chunked", 2, 8, 2, 192, 320, 64, 128, "chunked", {"chunk": 128}),
+        ("bidirectional", 2, 8, 2, 192, 320, 64, 128, "bidirectional", {}),
+        ("smoke", 2, 8, 1, 64, 64, 16, 0, "causal", {}),
+        ("ragged", 2, 16, 16, 1000, 1000, 128, 0, "causal", {}),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for tag, B, Hq, Hkv, Sq, Sk, D, q_off, kind, kw in cases:
+            rows = fa_live_rows(kind, kw, Sq, Sk, q_off)
+            q, k, v, dout = fa_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, rows)
+            mask = dict(kind=kind, q_offset=q_off, **kw)
+            out, lse = flash_attention(q, k, v, **mask)
+            grads = flash_attention_bwd(q, k, v, out, lse, dout, **mask)
+            torch.cuda.synchronize()
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            want = ref.attention(*qkv, **mask)
+            want_g = torch.autograd.grad(want, qkv, dout)
+            shape = f"B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D} q_offset{q_off} {kind}"
+            e_out = check_close(f"attention fwd {tag} {dn} {shape}", out,
+                                want.detach(), dn, rows[None, None].expand(B, Hq, Sq))
+            e_grad = max(
+                check_close(f"attention bwd {name} {tag} {dn}", g, w, dn,
+                            tols=GRAD_TOL)
+                for name, g, w in zip(("dq", "dk", "dv"), grads, want_g)
+            )
+            if tag == "olmo-train":
+                errs[("attention_fwd", dn)] = e_out
+                errs[("attention_bwd", dn)] = e_grad
+            del q, k, v, dout, out, lse, grads, qkv, want, want_g
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_train_parity():
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    log("== phase 3b: smoke training, float32, card against CPU")
+    # step 1 starts from the same weights: the losses differ only by the
+    # order of f32 sums.  Steps 2-3 start from weights that AdamW moved by
+    # up to lr per element, and m / sqrt(v) turns a near-zero gradient's
+    # rounding difference into a full-lr step, so their limit is looser.
+    tcfg = TrainConfig(remat="full", optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    for arch in ("olmo-1b", "yi-6b"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        bundle = ModelBundle(cfg)
+        params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+        batches = [next(data) for _ in range(3)]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            params = tree_map(lambda t: t.to(dev, copy=True), params_cpu)
+            opt = init_opt_state(params)
+            step = make_train_step(bundle, tcfg)
+            before = (flash_attention.launches, flash_attention_bwd.launches)
+            losses, gnorms = [], []
+            for b in batches:
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                params, opt, _, m = step(params, opt, None, batch)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            res[dev] = (losses, gnorms)
+            if dev == "cuda":
+                n = (flash_attention.launches - before[0],
+                     flash_attention_bwd.launches - before[1])
+                want = (2 * cfg.n_layers * 3, cfg.n_layers * 3)
+                if n != want:
+                    raise AssertionError(f"{arch}: attention launches {n} != {want}")
+        (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+        for i in range(3):
+            lim = 1e-5 if i == 0 else 1e-3
+            if abs(lc[i] - lp[i]) > lim * abs(lp[i]) or abs(gc[i] - gp[i]) > 1e-2 * abs(gp[i]):
+                raise AssertionError(f"{arch} step {i + 1}: card loss {lc[i]} grad norm "
+                                     f"{gc[i]} vs CPU {lp[i]} {gp[i]}")
+        log(f"  {arch}-smoke: losses card {lc} cpu {lp}; grad norms card {gc} cpu {gp}")
+
+
+def phase_train_full():
+    import logging
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.launch.train import parse_args, train
+
+    o = OLMO_TRAIN
+    cfg = get_config("olmo-1b")
+    log(f"== phase 6: training {cfg.name} bfloat16, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, "
+        f"batch {o['B']} x {o['S']}, remat full, {o['steps']} AdamW steps")
+    logging.basicConfig(level=logging.INFO, format="  %(message)s")
+    args = parse_args([
+        "--arch", "olmo-1b", "--steps", str(o["steps"]), "--batch", str(o["B"]),
+        "--seq", str(o["S"]), "--remat", "full", "--lr", "3e-4",
+        "--ckpt-dir", str(ROOT / "build" / "ckpt-chip-smoke"),
+        "--ckpt-every", "1000000", "--log-every", "1",
+    ])
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    out = train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"attention_fwd": flash_attention.launches,
+                "attention_bwd": flash_attention_bwd.launches}
+    steps = o["steps"]
+    if out["steps"] != steps or len(out["losses"]) != steps:
+        raise AssertionError(f"ran {out['steps']} steps, {len(out['losses'])} losses")
+    bad = [x for x in out["losses"] + out["grad_norms"] if not x == x or abs(x) == float("inf")]
+    if bad:
+        raise AssertionError(f"non-finite losses / grad norms {bad}")
+    if out["restarts"] != 0:
+        raise AssertionError(f"supervisor restarted {out['restarts']} times")
+    L = cfg.n_layers
+    if launches != {"attention_fwd": 2 * L * steps, "attention_bwd": L * steps}:
+        raise AssertionError(f"attention launches {launches}: want forward 2 x {L} x "
+                             f"{steps}, backward {L} x {steps}")
+    tokens = o["B"] * o["S"]
+    steady = statistics.median(out["step_s"][1:])
+    log(f"  {steps} steps in {wall:.2f} s (set-up included); losses {out['losses']}; "
+        f"grad norms {out['grad_norms']}")
+    log(f"  step times {[round(t, 4) for t in out['step_s']]} s; steady step "
+        f"{steady:.4f} s -> {tokens / steady:.1f} training tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {launches}")
+    return out, launches
+
+
+def profile_train(out):
+    """Where a training step's time goes: ``torch.profiler`` over one more
+    step of the phase 6 run (its state, the next SyntheticLM batch)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, make_train_step
+
+    o = OLMO_TRAIN
+    cfg = get_config("olmo-1b")
+    step = make_train_step(ModelBundle(cfg), TrainConfig(
+        remat="full", optimizer=AdamWConfig(lr=3e-4, warmup_steps=2)))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=o["S"], global_batch=o["B"]))
+    data.restore({"step": o["steps"], "seed": 0})
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+    st = out["state"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, m = step(st["params"], st["opt"], st["ef"], batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"  profiled step: loss {loss:.4f}, {wall * 1e3:.1f} ms wall, {busy:.1f} ms of "
+        f"device time ({100 * busy / (wall * 1e3):.1f} % busy)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:90]}")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy)
+
+
+def phase_train_times(launches, errs):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    o = OLMO_TRAIN
+    B, H, S, D = o["B"], o["Hq"], o["S"], o["D"]
+    log(f"== phase 7: training attention times at ({B}, {H}, {S}, {D}) causal bfloat16")
+    dt, isz = torch.bfloat16, 2
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sets = [fa_inputs(B, H, H, S, S, D, dt, gen) for _ in range(2)]   # 2 x 128 MB > L2
+    fwd_in = [(q, k, v) for q, k, v, _ in sets]
+    fwd = dict(
+        ms=time_ms(lambda q, k, v: flash_attention(q, k, v), fwd_in),
+        plain_ms=time_ms(lambda q, k, v: ref.attention(q, k, v), fwd_in, iters=2),
+        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), fwd_in),
+    )
+    bwd_in = []
+    for q, k, v, dout in sets:
+        out, lse = flash_attention(q, k, v)
+        bwd_in.append((q, k, v, out, lse, dout))
+    bwd_ms = time_ms(lambda *a: flash_attention_bwd(*a), bwd_in)
+    # the plain version's and SDPA's backward alone: autograd.grad over a
+    # forward taken once outside the timed window
+    q, k, v, dout = sets[0]
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    graph = ref.attention(*qkv)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout, retain_graph=True),
+                        [()], iters=2)
+    del graph
+    graph = F.scaled_dot_product_attention(*qkv, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout, retain_graph=True),
+                      [()])
+    del graph
+    pairs = B * H * S * (S + 1) // 2
+    qbytes = B * H * S * D * isz
+    bwd = dict(ms=bwd_ms, plain_ms=plain_bwd, library_ms=lib_bwd,
+               bytes=8 * qbytes + B * H * S * 4, flops=10 * D * pairs)
+    fwd.update(bytes=4 * qbytes + B * H * S * 4, flops=4 * D * pairs)
+    rows = []
+    for name, rec, replaces in (
+        ("attention_fwd", fwd, "src/repro/kernels/flash_attention.py:115"),
+        ("attention_bwd", bwd, "src/repro/kernels/ops.py:66"),
+    ):
+        rows.append(kernel_row(name, "src/repro_torch/csrc/flash_attention.cu",
+                               replaces, rec, launches[name], errs[(name, "bfloat16")]))
+    return rows
+
+
+def kernel_row(name, source, replaces, rec, launches, max_abs_err):
+    """One entry of the ``kernels`` JSON line; logs it."""
+    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = rec["flops"] / BF16_FLOPS_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": max_abs_err,
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": rec["library_ms"],
+    }
+    log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {rec['bytes']} bytes, {rec['flops']} flops; "
+        f"f32 CUDA-core floor {rec['flops'] / F32_FLOPS_PER_S * 1e3:.4f} ms), "
+        f"{launches} launches on the main path")
+    return row
 
 
 def main() -> int:
@@ -517,10 +835,19 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     errs = phase_kernels()
+    errs.update(phase_train_kernels())
     phase_smoke_parity()
+    phase_train_parity()
     launches, stats, plens, server = phase_full()
     rows = phase_times(launches, stats, plens, errs)
     profile_decode(server)
+    del server
+    torch.cuda.empty_cache()
+    out, train_launches = phase_train_full()
+    profile_train(out)
+    del out
+    torch.cuda.empty_cache()
+    rows += phase_train_times(train_launches, errs)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the ``repro`` serving stack for one NVIDIA H100.
+"""PyTorch/CUDA port of the ``repro`` train/serve stack for one NVIDIA H100.
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 module names so each counterpart is easy to find:
@@ -10,7 +10,14 @@ module names so each counterpart is easy to find:
 * :mod:`repro_torch.models` — the dense GQA decoder over dict pytrees;
 * :mod:`repro_torch.serve` — sampling, slot state, the executor and the
   continuous-batching :class:`~repro_torch.serve.Server`;
-* :mod:`repro_torch.convert` — carries reference weights across.
+* :mod:`repro_torch.optim`, :mod:`repro_torch.train` — AdamW with an f32
+  master and the train step;
+* :mod:`repro_torch.data`, :mod:`repro_torch.checkpoint`,
+  :mod:`repro_torch.runtime` — the synthetic data pipeline, checkpoints in
+  the reference's layout, the supervisor;
+* :mod:`repro_torch.launch` — the ``serve`` and ``train`` entry points;
+* :mod:`repro_torch.convert` — carries reference weights and train state
+  across.
 
 It imports ``torch`` and numpy only.  Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``; asking for CUDA without a card raises.

@@ -1,13 +1,20 @@
-"""Chunked-prefill GQA attention: the CUDA kernel and its wrapper.
+"""Blocked GQA attention: the CUDA kernels and their wrappers.
 
-Counterpart of ``repro/kernels/flash_attention.py`` — ``flash_prefill``
-only; ``flash_attention`` (full-sequence training attention) is still to
-be ported.  The kernel lives in ``repro_torch/csrc/prefill_attention.cu``
-and is built with ``nvcc`` on first use.  Unlike the Pallas kernel it
-reads keys from two sources — the prior cache and the chunk's own keys —
-so the model no longer concatenates them.  The plain version of the same
-function is :func:`repro_torch.kernels.ref.prefill_attention` over the
-concatenation.
+Counterpart of ``repro/kernels/flash_attention.py``:
+
+* :func:`flash_attention` — full-sequence attention for training and
+  whole-prompt prefill (``repro_torch/csrc/flash_attention.cu``), with
+  :func:`flash_attention_bwd`, its backward.  The plain version of the
+  same function is :func:`repro_torch.kernels.ref.attention`, and of the
+  backward ``torch.autograd.grad`` through it.
+* :func:`flash_prefill` — chunked-prefill attention on explicit positions
+  (``repro_torch/csrc/prefill_attention.cu``).  Unlike the Pallas kernel
+  it reads keys from two sources — the prior cache and the chunk's own
+  keys — so the model no longer concatenates them.  Its plain version is
+  :func:`repro_torch.kernels.ref.prefill_attention` over the
+  concatenation.
+
+Each kernel is built with ``nvcc`` on first use.
 """
 
 from __future__ import annotations
@@ -24,8 +31,142 @@ from repro_torch.kernels.decode_attention import (
 )
 
 MASK_KINDS = {"causal": 0, "sliding": 1, "chunked": 2}
+#: mask codes of the full-sequence kernel (csrc/flash_attention.cu)
+FA_MASK_KINDS = {"causal": 0, "sliding": 1, "chunked": 2, "bidirectional": 3}
 
 _fn = None
+_fa_fns = None
+
+
+def _fa_launchers():
+    global _fa_fns
+    if _fa_fns is None:
+        lib = _build.load("flash_attention")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fwd = lib.flash_attention_fwd_launch
+        fwd.argtypes = [P] * 5 + [I] * 11 + [ctypes.c_float, P]
+        fwd.restype = I
+        bwd = lib.flash_attention_bwd_launch
+        bwd.argtypes = [P] * 10 + [I] * 11 + [ctypes.c_float, P]
+        bwd.restype = I
+        _fa_fns = fwd, bwd
+    return _fa_fns
+
+
+def _fa_check(q, k, v, kind, window, chunk, name):
+    """Shapes (B, Hq, Sq, D) / (B, Hkv, Sk, D) x2 and the mask arguments;
+    raises on anything the kernel does not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {q.device}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if kind not in FA_MASK_KINDS:
+        raise ValueError(f"mask kind {kind!r}")
+    if kind == "sliding" and window <= 0:
+        raise ValueError("sliding mask needs window > 0")
+    if kind == "chunked" and chunk <= 0:
+        raise ValueError("chunked mask needs chunk > 0")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
+    if D not in SUPPORTED_D:
+        raise ValueError(f"head dim {D} not in {SUPPORTED_D}")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if min(B, Sq, Sk) <= 0 or max(B, Hq) > 65535:
+        raise ValueError(f"empty or oversized shape q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    check_operands({"q": q, "k": k, "v": v}, dtype=q.dtype, device=q.device)
+    return B, Hq, Hkv, Sq, Sk, D
+
+
+def flash_attention(
+    q: torch.Tensor,        # (B, Hq, Sq, D)
+    k: torch.Tensor,        # (B, Hkv, Sk, D)
+    v: torch.Tensor,        # (B, Hkv, Sk, D)
+    *,
+    kind: str = "causal",
+    window: int = 0,
+    chunk: int = 0,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on ``q``'s device and current stream.
+
+    Query ``i`` sits at position ``q_offset + i``, key ``j`` at ``j``.
+    Returns ``(out, lse)``: ``out`` (B, Hq, Sq, D) in q's dtype — 0 on a
+    row with no live key — and the row log-sum-exp of the scaled scores,
+    ``lse`` (B, Hq, Sq) float32, which the backward reads.
+    """
+    B, Hq, Hkv, Sq, Sk, D = _fa_check(q, k, v, kind, window, chunk,
+                                      "flash_attention")
+    scale = D ** -0.5 if scale is None else float(scale)
+    fwd, _ = _fa_launchers()
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        status = fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, DTYPE_CODES[q.dtype],
+            FA_MASK_KINDS[kind], int(window), int(chunk), int(q_offset), scale,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(status, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(
+    q, k, v, out, lse, dout, *,
+    kind: str = "causal",
+    window: int = 0,
+    chunk: int = 0,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels: ``(dq, dk, dv)`` of :func:`flash_attention`
+    for the cotangent ``dout``, from its ``out`` and ``lse``.
+
+    Two or three kernels on one stream — delta (the row sum of P * dP), dQ,
+    and dK/dV summed over each KV head's query heads inside one block —
+    counted as one launch of the backward.
+    """
+    B, Hq, Hkv, Sq, Sk, D = _fa_check(q, k, v, kind, window, chunk,
+                                      "flash_attention_bwd")
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (B, Hq, Sq):
+        raise ValueError(
+            f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
+            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}"
+        )
+    check_operands({"out": out, "dout": dout}, dtype=q.dtype, device=q.device)
+    check_operands({"lse": lse}, dtype=torch.float32, device=q.device)
+    scale = D ** -0.5 if scale is None else float(scale)
+    _, bwd = _fa_launchers()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        status = bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+            DTYPE_CODES[q.dtype], FA_MASK_KINDS[kind], int(window), int(chunk),
+            int(q_offset), scale, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(status, "flash_attention")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: launches of the forward / backward kernels since the last reset
+flash_attention.launches = 0
+flash_attention_bwd.launches = 0
 
 
 def _launcher():

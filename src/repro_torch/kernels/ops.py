@@ -1,10 +1,16 @@
 """The attention ops the model calls, dispatched on the tensors' device.
 
-Counterpart of ``repro/kernels/ops.py`` (``decode_attention`` and
-``prefill_attention``).  There is no ``backend`` knob: a CPU tensor takes
-the plain PyTorch version in :mod:`repro_torch.kernels.ref`, a CUDA tensor
-takes the hand-written CUDA kernel, and anything else raises.  There is no
-fallback from the kernel to the plain version.
+Counterpart of ``repro/kernels/ops.py`` (``attention``,
+``decode_attention`` and ``prefill_attention``).  There is no ``backend``
+knob: a CPU tensor takes the plain PyTorch version in
+:mod:`repro_torch.kernels.ref`, a CUDA tensor takes the hand-written CUDA
+kernel, and anything else raises.  There is no fallback from the kernel
+to the plain version.
+
+Gradients: on the CPU autograd differentiates the plain version, as the
+reference's ``jax.vjp`` differentiates its oracle.  On the card
+:func:`attention` is a :class:`torch.autograd.Function` whose forward and
+backward are both CUDA kernels.
 """
 
 from __future__ import annotations
@@ -13,13 +19,74 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import flash_decode
-from repro_torch.kernels.flash_attention import flash_prefill
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_prefill,
+)
 
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
     raise ValueError(f"no attention path for device {t.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA forward saves (q, k, v, out, lse); the backward launches the
+    CUDA backward.  Under ``checkpoint`` the saved tensors are those of the
+    recompute, whose forward launches the kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind, window, chunk, scale, q_offset):
+        mask = dict(kind=kind, window=window, chunk=chunk, scale=scale,
+                    q_offset=q_offset)
+        out, lse = flash_attention(q, k, v, **mask)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), **ctx.mask
+        )
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention(
+    q, k, v, *,
+    kind: str = "causal",
+    window: int = 0,
+    chunk: int = 0,
+    scale: float | None = None,
+    q_offset: int = 0,
+    k_lengths=None,
+):
+    """(B, Hq, Sq, D) x (B, Hkv, Sk, D) GQA attention with mask kinds.
+
+    A CUDA tensor takes the flash-attention kernels (``k_lengths`` is a
+    decode-only argument they do not take: it raises there).  A CPU tensor
+    takes the reference's dispatch: the chunked plain version from
+    ``Sq >= 2048`` without ``k_lengths``, else the plain version.
+    """
+    if _route(q) == "cuda":
+        if k_lengths is not None:
+            raise ValueError("the flash-attention kernel takes no k_lengths")
+        return _FlashAttention.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            kind, window, chunk, scale, q_offset,
+        )
+    if k_lengths is None and q.shape[2] >= 2048:
+        return ref.attention_chunked(
+            q, k, v, kind=kind, window=window, chunk=chunk,
+            scale=scale, q_offset=q_offset,
+        )
+    return ref.attention(
+        q, k, v, kind=kind, window=window, chunk=chunk,
+        scale=scale, q_offset=q_offset, k_lengths=k_lengths,
+    )
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, scale=None):

@@ -17,6 +17,7 @@ Mask kinds:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps fully-masked rows
                  # (sliding windows near t=0, padded decode) NaN-free.
@@ -85,6 +86,42 @@ def attention(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kind: str = "causal",
+    window: int = 0,
+    chunk: int = 0,
+    scale: float | None = None,
+    q_offset: int = 0,
+    block_q: int = 512,
+) -> torch.Tensor:
+    """Flash-style memory profile in plain PyTorch: loop over query blocks.
+
+    Identical math to :func:`attention`; the peak live intermediate is one
+    (B, H, block_q, Sk) score block instead of the full (Sq, Sk) matrix,
+    and each block is recomputed in the backward (``checkpoint``) instead
+    of saving every block's f32 probabilities.  The reference's mesh-aware
+    shrinking of ``block_q`` has no counterpart: the port runs on one
+    device.
+    """
+    Sq = q.shape[2]
+    bq = min(block_q, Sq)
+    assert Sq % bq == 0, (Sq, bq)
+
+    def one(qi, i):
+        return attention(qi, k, v, kind=kind, window=window, chunk=chunk,
+                         scale=scale, q_offset=q_offset + i * bq)
+
+    outs = [
+        checkpoint(one, q[:, :, i * bq:(i + 1) * bq], i, use_reentrant=False)
+        for i in range(Sq // bq)
+    ]
+    return torch.cat(outs, dim=2)
 
 
 def prefill_attention(

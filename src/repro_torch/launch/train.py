@@ -1,0 +1,123 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Counterpart of ``repro/launch/train.py`` on one device: model bundle, the
+synthetic data pipeline with prefetch, the train step and the supervisor
+with async checkpoints and straggler monitoring.  Runs on ``cuda`` unless
+``--device cpu`` is given (the smoke configs run end to end on a CPU);
+asking for CUDA without a card raises.
+
+Left out until ROADMAP A9 (mesh, runtime and placement): the reference's
+``--mesh``, ``--donor``, ``--remote-donor``, ``--policy``,
+``--calibration`` and ``--compress-pod-grads``.  The port trains under
+the ``hbm_resident`` placement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import pathlib
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.models.model_zoo import ModelBundle
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import Supervisor, SupervisorConfig
+from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+log = logging.getLogger("repro_torch.train")
+
+#: default checkpoint directory: build/ckpt at the repository root (git-ignored)
+DEFAULT_CKPT_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "ckpt"
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config (CPU-scale)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="full", choices=["none", "full", "dots"])
+    ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR),
+                    help="checkpoint directory (default: build/ckpt at the "
+                         "repository root)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    return ap.parse_args(argv)
+
+
+def train(args: argparse.Namespace) -> dict:
+    """Run the training loop; returns the losses, grad norms, step times
+    and the supervisor's restart count."""
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    bundle = ModelBundle(cfg)
+    tcfg = TrainConfig(
+        remat=args.remat,
+        n_microbatches=args.microbatches,
+        optimizer=AdamWConfig(lr=args.lr, warmup_steps=min(50, args.steps // 5 + 1)),
+    )
+    gen = torch.Generator(device=device).manual_seed(0)
+    params, opt_state, ef = init_train_state(bundle, gen, tcfg)
+    step_fn = make_train_step(bundle, tcfg)
+
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                  global_batch=args.batch))
+    it = Prefetcher(data)
+    ckpt = Checkpointer(args.ckpt_dir)
+    sup = Supervisor(ckpt, SupervisorConfig(checkpoint_every=args.ckpt_every))
+
+    state = {"params": params, "opt": opt_state, "ef": ef}
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+
+    def one_step(state, batch):
+        t0 = time.perf_counter()
+        # batches arrive as numpy on the prefetch thread; they move to the
+        # device here, on the training thread
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        p, o, e, metrics = step_fn(state["params"], state["opt"], state["ef"], batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise FloatingPointError(f"loss {loss}, grad norm {gnorm}")
+        out["losses"].append(loss)
+        out["grad_norms"].append(gnorm)
+        out["step_s"].append(time.perf_counter() - t0)
+        if len(out["losses"]) % args.log_every == 0:
+            log.info("step %d loss %.4f grad_norm %.3f (%.3f s)",
+                     len(out["losses"]), loss, gnorm, out["step_s"][-1])
+        return {"params": p, "opt": o, "ef": e}, metrics
+
+    try:
+        state, step = sup.run(state, one_step, it, args.steps,
+                              extra_state=lambda: {"data": data.state()})
+    finally:
+        it.close()
+    out.update(state=state, steps=step, restarts=sup.restarts,
+               stragglers=sup.monitor.summary())
+    losses = out["losses"]
+    log.info("done: %d steps, loss %.4f -> %.4f, restarts %d, straggler stats %s",
+             step, losses[0] if losses else float("nan"),
+             losses[-1] if losses else float("nan"), sup.restarts,
+             out["stragglers"])
+    return out
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    train(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,9 @@
-"""GQA attention blocks: param and cache defs, chunked prefill, decode.
+"""GQA attention blocks: param and cache defs, training, prefill, decode.
 
-Counterpart of the GQA half of ``repro/models/attention.py``; MLA, the
-training/full-prompt paths and the ring caches of sliding-window (``L``)
-and chunked (``C``) layers are still to be ported: every cache here holds
-``max_len`` slots, as a full-attention (``F``) layer's does.
+Counterpart of the GQA half of ``repro/models/attention.py``; MLA and the
+ring caches of sliding-window (``L``) and chunked (``C``) layers are
+still to be ported: every cache here holds ``max_len`` slots, as a
+full-attention (``F``) layer's does.
 
 The KV cache is updated **in place**: a layer receives per-layer views of
 the stacked cache tensors and writes through them.  That is the port's
@@ -128,6 +128,18 @@ def _gqa_project(params, x, spec, positions, code):
     return rope(q, positions, th), rope(k, positions, th), v
 
 
+def gqa_train(params, x, spec: AttentionSpec, code: str):
+    """Full-sequence attention; x (B,S,D)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _gqa_project(params, x, spec, positions, code)
+    o = ops.attention(
+        q, k, v,
+        kind=_mask_kind(code), window=spec.window, chunk=spec.chunk,
+    )
+    return _merge_heads(o, params["w_o"])
+
+
 def _ring_positions(offsets: torch.Tensor, size: int) -> torch.Tensor:
     """Absolute position held by each ring slot *before* a chunk append.
 
@@ -175,6 +187,23 @@ def _append_kv(cache, k_new, v_new, offsets, new_lens):
         old = buf[bidx, :, slot]                              # (B, W, H, D)
         fresh = new.transpose(1, 2)[bidx, src].to(buf.dtype)  # (B, W, H, D)
         buf[bidx, :, slot] = torch.where(take[:, :, None, None], fresh, old)
+
+
+def gqa_prefill(params, x, cache, spec: AttentionSpec, code: str):
+    """Whole-prompt attention + cache fill from position 0.
+
+    Returns the block output; ``cache`` is filled in place.
+    """
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _gqa_project(params, x, spec, positions, code)
+    o = ops.attention(
+        q, k, v,
+        kind=_mask_kind(code), window=spec.window, chunk=spec.chunk,
+    )
+    zeros = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    _append_kv(cache, k, v, zeros, zeros + S)
+    return _merge_heads(o, params["w_o"])
 
 
 def gqa_prefill_at(

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.sharding import Param
 
@@ -68,24 +69,94 @@ def head_defs(vocab: int, d: int, tied: bool) -> dict:
     return {"unembed": Param((d, vocab), ("embed", "vocab"))}
 
 
+class _HeadProduct(torch.autograd.Function):
+    """``x @ w`` of 16-bit operands on the card with float32 logits.
+
+    The forward is ``mm`` with ``out_dtype=float32`` (f32 accumulation, no
+    upcast of the (d, vocab) matrix); the backward feeds the f32 cotangent
+    to 16-bit products as a TPU's default-precision dot does.
+    """
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w.T, x2.T @ g
+
+
+def head_product(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(N, d) x (d, V) -> (N, V) float32 logits, accumulated in float32.
+
+    float32 operands multiply as they are; 16-bit ones go through
+    :class:`_HeadProduct` on the card and are upcast on the CPU, which has
+    no mixed-precision ``mm``.  Differentiable on every route.
+    """
+    if x2.dtype == torch.float32:
+        return x2 @ w.float()
+    if x2.device.type == "cuda":
+        return _HeadProduct.apply(x2, w)
+    return x2.float() @ w.float()
+
+
+def _head_weight(params: dict, embed_params: dict) -> torch.Tensor:
+    return params["unembed"] if "unembed" in params else embed_params["embedding"].T
+
+
 def apply_head(params: dict, embed_params: dict, x: torch.Tensor):
     """Final logits in float32, accumulated in float32.
 
-    A tied head reads ``embedding.T`` as a view.  On CUDA a 16-bit product
-    goes through ``mm`` with ``out_dtype=float32``, so the (vocab, d)
-    matrix is never upcast per step; the CPU has no such kernel and
-    upcasts instead.
+    A tied head reads ``embedding.T`` as a view; see :func:`head_product`.
     """
-    w = params["unembed"] if "unembed" in params else embed_params["embedding"].T
+    w = _head_weight(params, embed_params)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x2.dtype == torch.float32:
-        logits = x2 @ w.float()
-    elif x2.device.type == "cuda":
-        logits = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        logits = x2.float() @ w.float()
+    logits = head_product(x.reshape(-1, x.shape[-1]), w)
     return logits.reshape(*lead, w.shape[-1])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE; logits (B,S,V) f32, labels (B,S) int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def fused_cross_entropy(
+    params: dict,
+    embed_params: dict,
+    x: torch.Tensor,          # (B, S, d) final hidden states
+    labels: torch.Tensor,     # (B, S)
+    block: int = 512,
+) -> torch.Tensor:
+    """Head projection fused into a seq-chunked CE.
+
+    Never materializes the full (B, S, V) f32 logits: one (B, block, V)
+    slab lives at a time and is recomputed in the backward
+    (``checkpoint``).  The projection keeps the head in the model dtype
+    with f32 accumulation (:func:`head_product`).
+    """
+    w = _head_weight(params, embed_params)
+    B, S, d = x.shape
+    blk = min(block, S)
+    if S % blk:
+        blk = S
+
+    def one(xs, ls):
+        logits = head_product(xs.reshape(-1, d), w)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ls.reshape(-1, 1).long())[:, 0]
+        return torch.sum(logz - gold)
+
+    total = sum(
+        checkpoint(one, x[:, i:i + blk], labels[:, i:i + blk],
+                   use_reentrant=False)
+        for i in range(0, S, blk)
+    )
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Model bundle: one object per architecture, the serving entry points.
+"""Model bundle: one object per architecture, its train and serve entry points.
 
-Counterpart of ``repro/models/model_zoo.py``.  This slice serves dense
-decoders whose layers are all full-attention GQA (``F``); every other
-family or layer code raises ``NotImplementedError`` naming ROADMAP
+Counterpart of ``repro/models/model_zoo.py``.  The port trains and serves
+dense decoders whose layers are all full-attention GQA (``F``); every
+other family or layer code raises ``NotImplementedError`` naming ROADMAP
 queue A.
 """
 
@@ -58,6 +58,17 @@ class ModelBundle:
         )
 
     # -- compute entry points ---------------------------------------------
+    def train_loss(self, params, batch: dict, *, remat: str = "full"):
+        """(loss, {"ce", "aux"}) of ``batch`` (``tokens``, ``labels``)."""
+        return tf_mod.lm_loss(
+            params, batch["tokens"], batch["labels"], self.cfg, remat=remat
+        )
+
+    def prefill(self, params, batch: dict, caches):
+        """Fill ``caches`` (in place) from ``batch["tokens"]`` at position 0;
+        returns (last-token logits, caches)."""
+        return tf_mod.lm_prefill(params, batch["tokens"], caches, self.cfg)
+
     def prefill_at(self, params, batch: dict, caches, offsets):
         """Chunked batched prefill at per-row cache offsets.
 

@@ -46,13 +46,18 @@ class Param:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
-def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of nested dicts/lists/tuples."""
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts/lists/tuples.
+
+    With further trees, ``fn`` gets the leaves found at the same path in
+    each (dict entries by key, not by order).
+    """
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t) for t in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:

@@ -4,12 +4,21 @@ Counterpart of ``repro/models/transformer.py`` for attention layers.  The
 params and caches keep the reference's pytree — one stacked dict per
 stage of ``cfg.stages()`` — and the reference's ``scan`` over the stacked
 layer dim becomes a Python loop that hands each layer views of its slice.
-Caches are updated in place through those views.
+Caches are updated in place through those views.  In training the slices
+come from one ``unbind`` per stacked leaf, so each leaf's gradient is
+stacked once per step rather than scattered into a zero stack per layer.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
@@ -21,9 +30,10 @@ from repro_torch.models.layers import (
     embed_defs,
     head_defs,
     mlp_defs,
+    fused_cross_entropy,
     norm_defs,
 )
-from repro_torch.models.sharding import stack_defs, tree_map
+from repro_torch.models.sharding import stack_defs, tree_leaves, tree_map
 
 #: layer codes ported so far; L/G/C (ring caches) wait for ROADMAP queue A
 ATTN_CODES = ("F",)
@@ -33,11 +43,15 @@ ATTN_CODES = ("F",)
 # Param defs
 # ---------------------------------------------------------------------------
 
-def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
+def _check_code(code: str) -> None:
     if code not in ATTN_CODES:
         raise NotImplementedError(
             f"layer code {code!r} is not ported yet (ROADMAP queue A)"
         )
+
+
+def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
+    _check_code(code)
     if cfg.moe is not None and cfg.moe.is_moe_layer(layer_idx):
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue A)")
     d = cfg.d_model
@@ -87,16 +101,27 @@ def lm_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 # Layer application
 # ---------------------------------------------------------------------------
 
+def _apply_layer_train(cfg, code, lp, x):
+    _check_code(code)
+    h = apply_norm(lp["attn_norm"], x, cfg.norm)
+    x = x + attn.gqa_train(lp["attn"], h, cfg.attention, code)
+    h = apply_norm(lp["mlp_norm"], x, cfg.norm)
+    return x + apply_mlp(lp["mlp"], h, cfg.act)
+
+
 def _apply_layer_step(cfg, code, lp, cache, x, lengths, mode, new_lens=None):
-    """prefill_at/decode step for one attention layer; returns x.
+    """prefill/prefill_at/decode step for one attention layer; returns x.
 
     ``prefill_at`` is the serving engine's chunked batched prefill:
     ``lengths`` carries each row's cache fill *offset* and ``new_lens`` how
     many of the chunk's positions are real for that row (0 = untouched).
     ``cache`` holds views of this layer's slice and is written in place.
     """
+    _check_code(code)
     h = apply_norm(lp["attn_norm"], x, cfg.norm)
-    if mode == "prefill_at":
+    if mode == "prefill":
+        out = attn.gqa_prefill(lp["attn"], h, cache, cfg.attention, code)
+    elif mode == "prefill_at":
         out = attn.gqa_prefill_at(
             lp["attn"], h, cache, lengths, new_lens, cfg.attention, code
         )
@@ -107,6 +132,55 @@ def _apply_layer_step(cfg, code, lp, cache, x, lengths, mode, new_lens=None):
     x = x + out
     h = apply_norm(lp["mlp_norm"], x, cfg.norm)
     return x + apply_mlp(lp["mlp"], h, cfg.act)
+
+
+def _layer_slices(stage_params, count: int) -> list:
+    """Per-layer views of a stacked stage: one ``unbind`` per leaf."""
+    parts = [t.unbind(0) for t in tree_leaves(stage_params)]
+
+    def layer(i):
+        it = iter([p[i] for p in parts])
+        return tree_map(lambda _: next(it), stage_params)
+
+    return [layer(i) for i in range(count)]
+
+
+#: matmuls without batch dims — the ops whose outputs ``remat="dots"``
+#: keeps (``checkpoint_dots_with_no_batch_dims``); batched products and
+#: the attention kernel are recomputed
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _stage_body(cfg, codes, x, lp):
+    for j, code in enumerate(codes):
+        x = _apply_layer_train(cfg, code, lp[f"{j}{code}"], x)
+    return x
+
+
+def _run_stages_train(cfg, params, x, remat: str):
+    """Every layer in order; ``remat`` = none | full | dots."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {remat!r}")
+    for (codes, count, _), stage_params in zip(cfg.stages(), params["stages"]):
+        body = functools.partial(_stage_body, cfg, codes)
+        for lp in _layer_slices(stage_params, count):
+            if remat == "none":
+                x = body(x, lp)
+            elif remat == "full":
+                x = checkpoint(body, x, lp, use_reentrant=False)
+            else:
+                x = checkpoint(
+                    body, x, lp, use_reentrant=False,
+                    context_fn=functools.partial(
+                        create_selective_checkpoint_contexts, _save_dots),
+                )
+    return x, x.new_zeros((), dtype=torch.float32)
 
 
 def _run_stages_step(cfg, params, caches, x, lengths, mode, new_lens=None):
@@ -127,6 +201,42 @@ def _run_stages_step(cfg, params, caches, x, lengths, mode, new_lens=None):
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
+
+def lm_forward(params, tokens, cfg: ArchConfig, *, remat: str = "none"):
+    """Training-mode forward -> (logits (B, S, vocab) f32, aux_loss)."""
+    x = apply_embed(params["embed"], tokens)
+    x, aux = _run_stages_train(cfg, params, x, remat)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return apply_head(params["head"], params["embed"], x), aux
+
+
+def lm_loss(params, tokens, labels, cfg: ArchConfig, *,
+            remat: str = "full", aux_weight: float = 0.01):
+    """Mean next-token CE -> (loss, {"ce", "aux"}).
+
+    The forward runs up to the final hidden states; head and CE are fused
+    per sequence block, so the full (B, S, V) f32 logits never exist.
+    """
+    x = apply_embed(params["embed"], tokens)
+    x, aux = _run_stages_train(cfg, params, x, remat)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    loss = fused_cross_entropy(params["head"], params["embed"], x, labels)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def lm_prefill(params, tokens, caches, cfg: ArchConfig):
+    """Fill the caches from a prompt at position 0.
+
+    Returns (last-token logits (B, vocab), caches filled in place).
+    """
+    x = apply_embed(params["embed"], tokens)
+    lengths = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.int32,
+                         device=x.device)
+    x = _run_stages_step(cfg, params, caches, x, lengths, "prefill")
+    x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
+    logits = apply_head(params["head"], params["embed"], x)
+    return logits[:, 0], caches
+
 
 def lm_prefill_at(params, tokens, caches, offsets, new_lens, cfg: ArchConfig):
     """Chunked batched prefill: write one prompt chunk per row at an offset.

@@ -1,0 +1,5 @@
+from repro_torch.train.train_step import (  # noqa: F401
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+)

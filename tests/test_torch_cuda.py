@@ -19,7 +19,11 @@ import torch
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import flash_decode
-from repro_torch.kernels.flash_attention import flash_prefill
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_prefill,
+)
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.sharding import tree_leaves, tree_map
 
@@ -98,6 +102,75 @@ def test_prefill_kernel_matches_plain(kind, kw, dtype):
     torch.testing.assert_close(got.float()[rows], want.float()[rows], **TOL[dtype])
 
 
+def _live_rows(kind, kw, Sq, Sk, q_offset):
+    qp = q_offset + torch.arange(Sq, device="cuda")[:, None]
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    if kind == "bidirectional":
+        return torch.ones(Sq, dtype=torch.bool, device="cuda")
+    live = qp >= kp
+    if kind == "sliding":
+        live &= (qp - kp) < kw["window"]
+    elif kind == "chunked":
+        live &= (qp // kw["chunk"]) == (kp // kw["chunk"])
+    return live.any(-1)
+
+
+#: gradients: f32 sums over up to Sk terms in another order; bf16 grads
+#: are rounded once more than the plain version's f32 ones
+GRAD_TOL = {torch.bfloat16: dict(atol=3e-2, rtol=3e-2),
+            torch.float32: dict(atol=1e-4, rtol=1e-4)}
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,q_offset,kind,kw", [
+    (2, 4, 4, 128, 128, 128, 0, "causal", {}),
+    (1, 8, 2, 100, 100, 64, 0, "causal", {}),
+    (2, 8, 1, 77, 77, 16, 0, "causal", {}),
+    (1, 4, 2, 96, 160, 32, 64, "sliding", {"window": 40}),
+    (1, 4, 2, 96, 160, 32, 64, "chunked", {"chunk": 48}),
+    (1, 4, 2, 50, 90, 64, 7, "bidirectional", {}),
+])
+def test_flash_attention_fwd_bwd_match_plain(B, Hq, Hkv, Sq, Sk, D, q_offset,
+                                             kind, kw, dtype):
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    q = _randn(B, Hq, Sq, D, dtype=dtype, seed=8).requires_grad_()
+    k = _randn(B, Hkv, Sk, D, dtype=dtype, seed=9).requires_grad_()
+    v = _randn(B, Hkv, Sk, D, dtype=dtype, seed=10).requires_grad_()
+    dout = _randn(B, Hq, Sq, D, dtype=dtype, seed=11)
+    rows = _live_rows(kind, kw, Sq, Sk, q_offset)
+    dout = dout * rows[:, None].to(dtype)      # padding rows carry no gradient
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    got = ops.attention(q, k, v, kind=kind, q_offset=q_offset, **kw)
+    g_got = torch.autograd.grad(got, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+    want = ref.attention(q, k, v, kind=kind, q_offset=q_offset, **kw)
+    g_want = torch.autograd.grad(want, (q, k, v), dout)
+    torch.testing.assert_close(got.float()[:, :, rows], want.float()[:, :, rows],
+                               **TOL[dtype])
+    for a, b in zip(g_got, g_want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **GRAD_TOL[dtype])
+
+
+@requires_cuda
+def test_flash_attention_lse_and_dead_rows():
+    """lse is the row log-sum-exp of the scaled scores; a row with no live
+    key (sliding window before position 0) comes out 0."""
+    q = _randn(1, 2, 40, 32, dtype=torch.float32, seed=12)
+    k = _randn(1, 2, 64, 32, dtype=torch.float32, seed=13)
+    out, lse = flash_attention(q, k, k, kind="causal")
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * 32 ** -0.5
+    s = s.masked_fill(torch.arange(40, device="cuda")[:, None]
+                      < torch.arange(64, device="cuda")[None, :], float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-5, rtol=1e-5)
+    out, _ = flash_attention(q, k, k, kind="chunked", chunk=16, q_offset=-8)
+    torch.cuda.synchronize()
+    assert torch.all(out[:, :, :8] == 0)       # positions -8..-1: no live key
+
+
 @requires_cuda
 def test_kernels_refuse_what_they_do_not_take():
     q = torch.zeros(1, 2, 80, device="cuda", dtype=torch.bfloat16)
@@ -111,6 +184,16 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         c = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.bfloat16)
         flash_decode(q[..., :64].contiguous(), c.transpose(1, 2), c.transpose(1, 2), L)
+    x = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(x, x, x, kind="sliding")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(x[..., :48].contiguous(), x[..., :48].contiguous(),
+                        x[..., :48].contiguous())
+    with pytest.raises(TypeError):
+        flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="k_lengths"):
+        ops.attention(x, x, x, k_lengths=torch.ones(1, device="cuda"))
 
 
 @requires_cuda
@@ -143,3 +226,37 @@ def test_model_on_card_matches_cpu():
         assert torch.equal(a.argmax(-1), b.argmax(-1))
     for a, b in zip(tree_leaves(caches["cpu"]), tree_leaves(caches["cuda"])):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("remat,fwd_per_layer", [("none", 1), ("full", 2), ("dots", 2)])
+def test_train_loss_on_card_matches_cpu(remat, fwd_per_layer):
+    """A float32 smoke model's loss and grads on the card (flash-attention
+    forward and backward kernels) and on the CPU (plain attention), same
+    weights and batch; under remat the forward kernel runs again in the
+    backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tb = ModelBundle(dataclasses.replace(smoke_config("yi-6b"), dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, tb.cfg.vocab, (2, 40)).astype(np.int32))
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(d, copy=True).requires_grad_(), params)
+        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        loss, _ = tb.train_loss(p, {"tokens": toks.to(d), "labels": toks.to(d)},
+                                remat=remat)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        if d == "cuda":
+            torch.cuda.synchronize()
+            L = tb.cfg.n_layers
+            assert flash_attention.launches - f0 == fwd_per_layer * L
+            assert flash_attention_bwd.launches - b0 == L
+        out[d] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-5, rtol=1e-5)
+    # gradients leaf by leaf at 1e-3 x the leaf's largest |value|: the norm
+    # over 0.02-scale embeddings scales f32 rounding by ~1/RMS ~ 50 into the
+    # input-embedding rows (the CPU parity tests see the same against the
+    # reference), and the card sums in other orders than the CPU
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, w, atol=1e-3 * float(w.abs().max()), rtol=1e-4)
