@@ -38,7 +38,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    step; step time, training tokens/s, peak memory, and a
    ``torch.profiler`` window over one more step;
 7. times of the training attention kernels at the phase 6 shape, beside
-   their plain versions, SDPA and their bounds.
+   their plain versions, SDPA and their bounds;
+8. Mamba-2 serving.  (a) the SSD scan kernel against its plain versions
+   (the chunked oracle and the literal recurrence) in bfloat16 and float32
+   at the mamba2-780m serving shape (B 8, T 256, H 48, P 64, N 128) with a
+   nonzero initial state, at zamba2-1.2b's (H 64, P 64, N 64), at ragged T
+   (1, 100, 257), with rows whose dt is 0 past a per-row length and a row
+   whose dt is 0 throughout (its state must come back bit for bit);
+   (b) mamba2-smoke and zamba2-smoke in float32 through ``Server``, card
+   against CPU, with a slot reused by a 1-token prompt; (c) full-width,
+   full-depth mamba2-780m in bfloat16 serving phase 4's 16 requests
+   (``ssd_scan`` launches = 48 x prefill dispatches); (d) full-depth
+   zamba2-1.2b with 8 requests (per prefill dispatch 32 scans and 6
+   prefill-attention launches, 6 decode-attention launches per step);
+   (e) the scan's times at (c)'s shape and ``torch.profiler`` windows over
+   one mamba2 prefill dispatch and a few decode steps.
 
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
 name and power limit, and the device JSON.
@@ -91,6 +105,21 @@ YI = dict(B=8, Hq=32, Hkv=4, D=128, Smax=2048, chunk=256)
 
 #: training path (olmo-1b, batch 4 x 2048 tokens, 16/16 heads, head dim 128)
 OLMO_TRAIN = dict(B=4, Hq=16, Hkv=16, S=2048, D=128, steps=4)
+
+#: Mamba-2 serving path (mamba2-780m: ServeConfig(8, 2048, 256), 48 SSD
+#: heads of P 64, state N 128) and zamba2-1.2b's SSD widths
+MAMBA = dict(B=8, T=256, H=48, P=64, N=128)
+ZAMBA = dict(H=64, P=64, N=64)
+
+#: the SSD scan's y: bf16 as TOL (the kernel and the plain version round
+#: the same f32 sums, taken in other orders, once to bf16); f32 sums over
+#: up to 256 positions and 128 state entries of O(10) terms in other
+#: orders, and chunked at 32 against the plain version's 64-256, so its
+#: f32 limit is 1e-4 (row 1e-3 x RMS).  The f32 state is held to 1e-4 x the
+#: leaf's max |value| (the scale-aware bound of the reference's
+#: tests/test_serve_fastpath.py).
+SSD_TOL = {"bfloat16": TOL["bfloat16"],
+           "float32": dict(atol=1e-4, rtol=1e-4, row=1e-3)}
 
 
 def log(msg: str) -> None:
@@ -438,24 +467,42 @@ def time_ms(fn, inputs, reps=3, iters=10):
     ``reps``.  Host launch overhead is left out — a CUDA-event window
     around these calls would time the Python wrapper, not the card.  The
     calls cycle through ``inputs``, copies big enough that the 50 MB L2
-    does not hold them, so each call finds its operands cold."""
+    does not hold them, so each call finds its operands cold.
+
+    A profiler window now and then comes back with no device records at
+    all (seen once in a run of every phase); such a window is taken again,
+    up to three times, and a repetition that still has none is timed with
+    CUDA events instead, which adds the host's launch gaps and is logged."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
 
     for i in range(3):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
     per = []
     for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(*inputs[i % len(inputs)])
+        for _attempt in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if events:
+                per.append(sum(e.self_device_time_total for e in events) / 1e3 / iters)
+                break
+        else:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            run()
+            end.record()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if not events:
-            raise RuntimeError("torch.profiler recorded no device time")
-        per.append(sum(e.self_device_time_total for e in events) / 1e3 / iters)
+            per.append(start.elapsed_time(end) / iters)
+            log(f"  (torch.profiler recorded no device time three times: this "
+                f"repetition timed with CUDA events, {per[-1]:.4f} ms)")
     return statistics.median(per)
 
 
@@ -797,6 +844,300 @@ def phase_train_times(launches, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 serving: the SSD scan kernel, smoke parity, the full runs, times
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(B, T, H, P, N, dtype, gen, state=True):
+    """x, dt (softplus, scaled), A (negative), B, C and an initial state
+    whose entries are O(1), as a serving cache's are."""
+    import torch
+    import torch.nn.functional as F
+
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    x = (r(B, T, H, P) * 0.5).to(dtype)
+    dt = F.softplus(r(B, T, H) - 1.0) * 0.5
+    A = -torch.exp(r(H) * 0.5)
+    Bm, Cm = (r(B, T, N) * 0.5).to(dtype), (r(B, T, N) * 0.5).to(dtype)
+    h0 = r(B, H, P, N) if state else None
+    return x, dt, A, Bm, Cm, h0
+
+
+def check_state(name, got, want):
+    """The f32 state within 1e-4 x the leaf's max |value|."""
+    import torch
+
+    err = float((got - want).abs().max())
+    lim = 1e-4 * float(want.abs().max())
+    log(f"  {name}: max_abs_err {err:.3e} (limit {lim:.3e} = 1e-4 x max |want|)")
+    if not bool(torch.isfinite(got).all()) or err > lim:
+        raise AssertionError(f"{name}: state error {err} over {lim}")
+    return err
+
+
+def phase_ssd_kernels():
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    log("== phase 8a: the SSD scan kernel against its plain versions on the card")
+    m, z = MAMBA, ZAMBA
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        cases = [
+            ("mamba2", m["B"], m["T"], m["H"], m["P"], m["N"]),
+            ("zamba2", 4, m["T"], z["H"], z["P"], z["N"]),
+            ("T1", 3, 1, m["H"], m["P"], m["N"]),
+            ("T100", 2, 100, m["H"], m["P"], m["N"]),
+            ("T257", 2, 257, z["H"], z["P"], z["N"]),
+        ]
+        for tag, B, T, H, P, N in cases:
+            x, dt, A, Bm, Cm, h0 = ssd_inputs(B, T, H, P, N, dtype, gen)
+            if tag == "mamba2":
+                # rows 1..: dt is 0 past a per-row length (a prefill chunk's
+                # dead tail); row 0: dt is 0 throughout (an idle slot)
+                lens = torch.tensor([0, 256, 255, 1, 100, 37, 200, 129],
+                                    device="cuda")[:, None, None]
+                dt = torch.where(torch.arange(T, device="cuda")[None, :, None] < lens,
+                                 dt, 0.0)
+            shape = f"B{B} T{T} H{H} P{P} N{N}"
+            y, h = ssd_scan(x, dt, A, Bm, Cm, init_state=h0, return_state=True)
+            torch.cuda.synchronize()
+            chunk = 64 if T % 64 == 0 else T
+            want_y, want_h = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                                          init_state=h0, return_state=True)
+            e = check_close(f"ssd_scan y {tag} {dn} {shape}", y, want_y, dn,
+                            tols=SSD_TOL)
+            check_state(f"ssd_scan state {tag} {dn}", h, want_h)
+            if tag == "mamba2":
+                errs[("ssd_scan", dn)] = e
+                if not torch.equal(h[0], h0[0]):
+                    raise AssertionError("the dt == 0 row's state is not its "
+                                         "initial state bit for bit")
+                log("  dt == 0 row: final state == initial state, bit for bit")
+                seq = ref.ssd_scan_sequential(x, dt, A, Bm, Cm, init_state=h0)
+                check_close(f"ssd_scan y {tag} {dn} vs the literal recurrence",
+                            y, seq, dn, tols=SSD_TOL)
+                # the state written in place into the initial-state buffer
+                buf = h0.clone()
+                y2, _ = ssd_scan(x, dt, A, Bm, Cm, init_state=buf,
+                                 return_state=True, state_out=buf)
+                torch.cuda.synchronize()
+                if not (torch.equal(buf, h) and torch.equal(y2, y)):
+                    raise AssertionError("in-place state differs from a fresh buffer")
+                log("  state written in place == state in a fresh buffer")
+            del x, dt, A, Bm, Cm, h0, y, h, want_y, want_h
+    return errs
+
+
+def phase_ssm_parity():
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_map
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    log("== phase 8b: mamba2-smoke and zamba2-smoke float32, card against CPU")
+    for arch in ("mamba2-780m", "zamba2-1.2b"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        bundle = ModelBundle(cfg)
+        params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
+        params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+        rng = np.random.default_rng(2)
+        # 2 slots, 5 requests: the 1-token prompt lands in a reused slot
+        prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+                   for n in (9, 14, 1, 6, 11)]
+        tokens = {}
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            server = Server(bundle, ServeConfig(batch_slots=2, max_len=64,
+                                                prefill_chunk=4), params, device=dev)
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+            server.add_requests(reqs)
+            server.run_until_done(max_steps=300)
+            assert all(r.done and len(r.out_tokens) == 6 for r in reqs), dev
+            tokens[dev] = {r.rid: r.out_tokens for r in reqs}
+        if tokens["cuda"] != tokens["cpu"]:
+            raise AssertionError(f"{arch}: card/CPU greedy tokens differ: {tokens}")
+        log(f"  {cfg.name}: greedy tokens identical for {len(prompts)} requests: "
+            f"{tokens['cuda']}")
+
+
+def serve_full(arch, n_requests, max_prompt, new_tokens):
+    """Serve ``n_requests`` greedy requests (prompts of 128..max_prompt
+    tokens, numpy seed 0) through full-width, full-depth ``arch`` in bf16 on
+    ServeConfig(8, 2048, 256); counts reset just before the run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_prefill
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    cfg = get_config(arch)
+    bundle = ModelBundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    m = MAMBA
+    server = Server(bundle, ServeConfig(batch_slots=m["B"], max_len=2048,
+                                        prefill_chunk=m["T"]), params, device="cuda")
+    rng = np.random.default_rng(0)
+    plens = rng.integers(128, max_prompt + 1, size=n_requests)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=new_tokens) for i, n in enumerate(plens)]
+    server.add_requests(reqs)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = flash_decode.launches = flash_prefill.launches = 0
+    t0 = time.perf_counter()
+    server.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ssd_scan": ssd_scan.launches, "decode_attention": flash_decode.launches,
+                "prefill_attention": flash_prefill.launches}
+    st, tp = server.stats(), server.throughput()
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != new_tokens:
+            raise AssertionError(f"request {r.rid}: done={r.done}, "
+                                 f"{len(r.out_tokens)} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"request {r.rid}: token out of range")
+    logits, _ = bundle.decode_step(
+        params,
+        {"tokens": torch.zeros(m["B"], 1, dtype=torch.int32, device="cuda"),
+         "lengths": torch.full((m["B"],), 1600, dtype=torch.int32, device="cuda")},
+        server.engine.caches,
+    )
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    log(f"  served {len(reqs)} requests (prompts {int(plens.min())}-{int(plens.max())} "
+        f"tokens, {new_tokens} new each) in {wall:.2f} s: {st['decode_steps']} decode "
+        f"steps, {st['prefill_dispatches']} prefill dispatches; kernel launches {launches}")
+    log(f"  prefill {tp['prefill_tokens']} tokens at {tp['prefill_tps']:.1f} tok/s, "
+        f"decode {tp['decode_tokens']} tokens at {tp['decode_tps']:.1f} tok/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return server, params, launches, st
+
+
+def phase_mamba_full():
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-780m")
+    s = cfg.ssm
+    log(f"== phase 8c: {cfg.name} bfloat16, {cfg.n_layers} M layers, d_model "
+        f"{cfg.d_model}, {s.n_heads(cfg.d_model)} SSD heads x P {s.head_dim}, "
+        f"N {s.d_state}, vocab {cfg.vocab}")
+    server, params, launches, st = serve_full("mamba2-780m", 16, 1536, 64)
+    L = cfg.n_layers
+    if launches["ssd_scan"] != L * st["prefill_dispatches"]:
+        raise AssertionError(f"ssd_scan launches {launches} != {L} x "
+                             f"{st['prefill_dispatches']} prefill dispatches")
+    if launches["decode_attention"] or launches["prefill_attention"]:
+        raise AssertionError(f"attention kernels ran in an attention-free model: {launches}")
+    return server, params, launches
+
+
+def phase_zamba_full():
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2-1.2b")
+    codes = cfg.layer_codes()
+    log(f"== phase 8d: {cfg.name} bfloat16, {codes.count('M')} M layers and "
+        f"{codes.count('S')} applications of one shared attention block "
+        f"({cfg.attention.n_heads} x {cfg.attention.d_head} heads over width "
+        f"{2 * cfg.d_model}), d_model {cfg.d_model}")
+    server, params, launches, st = serve_full("zamba2-1.2b", 8, 1024, 32)
+    n_m, n_s = codes.count("M"), codes.count("S")
+    want = {"ssd_scan": n_m * st["prefill_dispatches"],
+            "prefill_attention": n_s * st["prefill_dispatches"],
+            "decode_attention": n_s * st["decode_steps"]}
+    if launches != want:
+        raise AssertionError(f"zamba2 launches {launches} != {want}")
+    del server, params
+    torch.cuda.empty_cache()
+
+
+def profile_window(label, fn, steps):
+    """``torch.profiler`` over ``steps`` calls of ``fn``: wall and device
+    time per call, the busy share, the kernels that take the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    n = sum(e.count for e in kernels) // steps
+    log(f"  {label}: {wall * 1e3:.2f} ms wall, {busy:.2f} ms of device time "
+        f"({100 * busy / (wall * 1e3):.1f} % busy), {n} kernel launches per call")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/call "
+            f"{e.count // steps:5d} launches/call  {e.key[:90]}")
+
+
+def phase_ssd_times(server, params, launches, errs):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    m = MAMBA
+    B, T, H, P, N = m["B"], m["T"], m["H"], m["P"], m["N"]
+    log(f"== phase 8e: ssd_scan times at (B {B}, T {T}, H {H}, P {P}, N {N}) bfloat16, "
+        "and mamba2-780m profile windows")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sets = [ssd_inputs(B, T, H, P, N, torch.bfloat16, gen) for _ in range(4)]  # > L2
+    kern = time_ms(lambda x, dt, A, Bm, Cm, h0: ssd_scan(
+        x, dt, A, Bm, Cm, init_state=h0, return_state=True, state_out=h0), sets)
+    plain = time_ms(lambda x, dt, A, Bm, Cm, h0: ref.ssd_scan(
+        x, dt, A, Bm, Cm, chunk=T, init_state=h0, return_state=True), sets, iters=2)
+    nbytes = (2 * B * T * H * P * 2          # x read, y written (bf16)
+              + 2 * B * H * P * N * 4        # state in and out (f32)
+              + B * T * H * 4 + H * 4        # dt, A (f32)
+              + 2 * B * T * N * 2)           # B, C (bf16)
+    Q = 32   # the kernel's chunk: C·Bᵀ and the masked product, h·C, the state update
+    flops = 2 * B * H * T * (Q * (N + P) + 2 * P * N)
+    rec = dict(ms=kern, plain_ms=plain, library_ms=None, bytes=nbytes, flops=flops)
+    row = kernel_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:90", rec, launches["ssd_scan"],
+                     errs[("ssd_scan", "bfloat16")])
+    del sets
+
+    # profile windows: one prefill dispatch (8 rows x 256 new tokens at
+    # offset 0) and decode steps (8 rows), on the phase 8c server's caches
+    bundle, caches = server.bundle, server.engine.caches
+    dev = "cuda"
+    toks = torch.randint(0, bundle.cfg.vocab, (B, T), generator=gen, device=dev,
+                         dtype=torch.int32)
+    full = torch.full((B,), T, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    profile_window("prefill dispatch (8 x 256 tokens, 48 layers)",
+                   lambda: bundle.prefill_at(params, {"tokens": toks, "new_lens": full},
+                                             caches, zeros), steps=2)
+    one = toks[:, :1].contiguous()
+    profile_window("decode step (8 rows, 48 layers)",
+                   lambda: bundle.decode_step(params, {"tokens": one, "lengths": full},
+                                              caches), steps=4)
+    return row
+
+
 def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     """One entry of the ``kernels`` JSON line; logs it."""
     t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -809,8 +1150,9 @@ def kernel_row(name, source, replaces, rec, launches, max_abs_err):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": rec["library_ms"],
     }
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
     log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"library {lib}, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}: {rec['bytes']} bytes, {rec['flops']} flops; "
         f"f32 CUDA-core floor {rec['flops'] / F32_FLOPS_PER_S * 1e3:.4f} ms), "
         f"{launches} launches on the main path")
@@ -836,13 +1178,20 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     errs.update(phase_train_kernels())
+    errs.update(phase_ssd_kernels())
     phase_smoke_parity()
     phase_train_parity()
+    phase_ssm_parity()
     launches, stats, plens, server = phase_full()
     rows = phase_times(launches, stats, plens, errs)
     profile_decode(server)
     del server
     torch.cuda.empty_cache()
+    server, params, ssm_launches = phase_mamba_full()
+    rows.append(phase_ssd_times(server, params, ssm_launches, errs))
+    del server, params
+    torch.cuda.empty_cache()
+    phase_zamba_full()
     out, train_launches = phase_train_full()
     profile_train(out)
     del out

@@ -36,6 +36,20 @@ def params_from_jax(tree, device=None, dtype=None) -> dict:
     return tree_map(lambda a: _leaf(a, dev, dtype), tree)
 
 
-def caches_from_jax(tree, device=None, dtype=None) -> dict:
-    """Tensor pytree from a numpy pytree of reference KV caches."""
-    return params_from_jax(tree, device, dtype)
+def caches_from_jax(tree, device=None, dtype=None, *, defs=None) -> dict:
+    """Tensor pytree from a numpy pytree of reference caches.
+
+    A cast needs the cache ``defs`` (``ModelBundle.cache_defs``, the same
+    structure): a leaf whose def pins its dtype — the SSM recurrent state's
+    float32 — keeps it, where a blanket cast to the model dtype would drop
+    the pin.
+    """
+    if dtype is None:
+        return params_from_jax(tree, device)
+    if defs is None:
+        raise ValueError(
+            "caches_from_jax with a dtype needs the cache defs, so that "
+            "float32-pinned leaves (the SSM state) stay float32"
+        )
+    dev = resolve_device(device)
+    return tree_map(lambda a, p: _leaf(a, dev, p.dtype or dtype), tree, defs)

@@ -1,7 +1,8 @@
-"""The attention ops the model calls, dispatched on the tensors' device.
+"""The attention and SSD ops the model calls, dispatched on the tensors' device.
 
 Counterpart of ``repro/kernels/ops.py`` (``attention``,
-``decode_attention`` and ``prefill_attention``).  There is no ``backend``
+``decode_attention``, ``prefill_attention``, ``ssd_scan`` and
+``ssd_decode_step``).  There is no ``backend``
 knob: a CPU tensor takes the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`, a CUDA tensor takes the hand-written CUDA
 kernel, and anything else raises.  There is no fallback from the kernel
@@ -10,7 +11,8 @@ to the plain version.
 Gradients: on the CPU autograd differentiates the plain version, as the
 reference's ``jax.vjp`` differentiates its oracle.  On the card
 :func:`attention` is a :class:`torch.autograd.Function` whose forward and
-backward are both CUDA kernels.
+backward are both CUDA kernels.  :func:`ssd_scan` has no backward
+kernel yet: a CUDA input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_prefill,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd_scan_kernel
 
 
 def _route(t: torch.Tensor) -> str:
@@ -123,3 +126,51 @@ def prefill_attention(
         q, k, v, q_pos, k_pos,
         kind=kind, window=window, chunk=chunk, scale=scale,
     )
+
+
+def ssd_scan(
+    x, dt, A, Bmat, Cmat, *,
+    chunk: int = 64,
+    init_state=None,
+    return_state: bool = False,
+    state_out=None,
+):
+    """(B, T, H, P) Mamba-2 chunked SSD scan, optionally carrying the state.
+
+    A CUDA tensor takes ``csrc/ssd_scan.cu`` with or without a state (the
+    reference runs its Pallas kernel only without one); a CPU tensor takes
+    :func:`ref.ssd_scan`.  ``state_out`` (with ``return_state``) receives
+    the final state in place and may be ``init_state`` itself: the serving
+    cache is updated without a copy.  The kernel has no backward yet, so a
+    CUDA input that requires grad raises.
+    """
+    if _route(x) == "cuda":
+        if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bmat, Cmat, init_state)
+        ):
+            raise NotImplementedError(
+                "ssd_scan has no backward kernel yet: training through "
+                "Mamba-2 layers on the card is the SSM-training slice "
+                "(ROADMAP A5)"
+            )
+        return ssd_scan_kernel(
+            x, dt, A, Bmat, Cmat, init_state=init_state,
+            return_state=return_state, chunk=chunk, state_out=state_out,
+        )
+    if state_out is not None and not return_state:
+        raise ValueError("state_out needs return_state=True")
+    out = ref.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk,
+                       init_state=init_state, return_state=return_state)
+    if state_out is None:
+        return out
+    y, state = out
+    state_out.copy_(state)
+    return y, state_out
+
+
+def ssd_decode_step(x, dt, A, Bvec, Cvec, state):
+    """One SSM recurrence step, (y, new_state).  Plain PyTorch on every
+    device: the reference has no Pallas kernel for it (ROADMAP B4 lists a
+    decode-step kernel as later work)."""
+    return ref.ssd_decode_step(x, dt, A, Bvec, Cvec, state)

@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention and SSD kernels.
 
 Counterpart of ``repro/kernels/ref.py``.  These are the correctness
 references the CUDA kernels are held to (``chip_smoke.py`` and the card
 tests), and the path every CPU tensor takes through
-:mod:`repro_torch.kernels.ops`.  Softmax runs in float32 whatever the
-input dtype, as in the kernels.
+:mod:`repro_torch.kernels.ops`.  Softmax and the SSD recurrence run in
+float32 whatever the input dtype, as in the kernels.
 
 Mask kinds:
 
@@ -183,3 +183,105 @@ def decode_attention(
         kind="bidirectional", scale=scale, k_lengths=lengths,
     )
     return out[:, :, 0, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) — arXiv:2405.21060
+# ---------------------------------------------------------------------------
+
+def ssd_scan(
+    x: torch.Tensor,      # (B, T, H, P)   inputs per head
+    dt: torch.Tensor,     # (B, T, H)      softplus-activated step sizes
+    A: torch.Tensor,      # (H,)           negative decay rates
+    Bmat: torch.Tensor,   # (B, T, N)      input projections (shared across heads)
+    Cmat: torch.Tensor,   # (B, T, N)      output projections
+    *,
+    chunk: int = 64,
+    init_state: torch.Tensor | None = None,   # (B, H, P, N)
+    return_state: bool = False,
+):
+    """Chunked SSD: O(T/c · c² + T·N), the paper's algorithm.
+
+    The recurrence (per head, channel p, state n):
+        h_t = exp(A·dt_t) · h_{t-1} + dt_t · B_t[n] · x_t[p]
+        y_t = Σ_n C_t[n] · h_t[p, n]
+
+    The intra-chunk term is a masked quadratic form (the attention dual);
+    the inter-chunk term carries the state.  All arithmetic is float32; y
+    comes back in x's dtype, the state in float32.
+    """
+    Bsz, T, H, Pdim = x.shape
+    N = Bmat.shape[-1]
+    assert T % chunk == 0, (T, chunk)
+    nc = T // chunk
+
+    xc = x.float().reshape(Bsz, nc, chunk, H, Pdim)
+    dtc = dt.float().reshape(Bsz, nc, chunk, H)
+    Bc = Bmat.float().reshape(Bsz, nc, chunk, N)
+    Cc = Cmat.float().reshape(Bsz, nc, chunk, N)
+
+    # per-position log decay a_t = A · dt_t (negative), inclusive cumsum
+    cum = torch.cumsum(A.float() * dtc, dim=2)                # (B,C,c,H)
+    # intra-chunk: L[i,j] = exp(cum_i - cum_j) for i >= j (decay j+1..i).
+    # Double-where: masked entries have cum_i - cum_j > 0 and exp would
+    # overflow; zeroing the exponent first keeps them (and a gradient) finite.
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))[None, None, :, :, None]
+    delta = torch.where(mask, cum[:, :, :, None, :] - cum[:, :, None, :, :], 0.0)
+    L = torch.where(mask, torch.exp(delta), 0.0)              # (B,C,c,c,H)
+
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)               # C_i · B_j
+    M = G[..., None] * L
+    y_intra = torch.einsum("bcijh,bcjh,bcjhp->bcihp", M, dtc, xc)
+
+    # chunk summaries: S_k[h,p,n] = Σ_j exp(cum_last - cum_j) dt_j x_j[p] B_j[n]
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)         # (B,C,c,H)
+    S = torch.einsum("bcjh,bcjh,bcjhp,bcjn->bchpn", decay_to_end, dtc, xc, Bc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,C,H)
+
+    # inter-chunk recurrence over the chunks (the reference's lax.scan)
+    h = (init_state.float() if init_state is not None
+         else x.new_zeros((Bsz, H, Pdim, N), dtype=torch.float32))
+    h_before = []
+    for c in range(nc):
+        h_before.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + S[:, c]
+    hb = torch.stack(h_before, dim=1)                         # (B,C,H,P,N)
+
+    # inter-chunk output: y_inter[i] = C_i · (exp(cum_i) · h_before)
+    y_inter = torch.einsum("bcin,bcih,bchpn->bcihp", Cc, torch.exp(cum), hb)
+
+    y = (y_intra + y_inter).reshape(Bsz, T, H, Pdim).to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_decode_step(
+    x: torch.Tensor,       # (B, H, P)
+    dt: torch.Tensor,      # (B, H)
+    A: torch.Tensor,       # (H,)
+    Bvec: torch.Tensor,    # (B, N)
+    Cvec: torch.Tensor,    # (B, N)
+    state: torch.Tensor,   # (B, H, P, N) float32
+):
+    """One recurrence step (the decode path).  Returns (y, new_state)."""
+    xf, dtf = x.float(), dt.float()
+    dec = torch.exp(A[None, :] * dtf)                         # (B,H)
+    add = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, Bvec.float())
+    new_state = state * dec[:, :, None, None] + add
+    y = torch.einsum("bn,bhpn->bhp", Cvec.float(), new_state)
+    return y.to(x.dtype), new_state
+
+
+def ssd_scan_sequential(x, dt, A, Bmat, Cmat, *, init_state=None):
+    """O(T) literal recurrence — the oracle's oracle."""
+    Bsz, T, H, Pdim = x.shape
+    N = Bmat.shape[-1]
+    h = (init_state.float() if init_state is not None
+         else x.new_zeros((Bsz, H, Pdim, N), dtype=torch.float32))
+    ys = []
+    for t in range(T):
+        y, h = ssd_decode_step(x[:, t], dt[:, t], A, Bmat[:, t], Cmat[:, t], h)
+        ys.append(y)
+    return torch.stack(ys, dim=1)

@@ -1,9 +1,11 @@
 """Model bundle: one object per architecture, its train and serve entry points.
 
 Counterpart of ``repro/models/model_zoo.py``.  The port trains and serves
-dense decoders whose layers are all full-attention GQA (``F``); every
-other family or layer code raises ``NotImplementedError`` naming ROADMAP
-queue A.
+dense decoders whose layers are all full-attention GQA (``F``), and serves
+the SSM and hybrid families whose layers are Mamba-2 (``M``) and Zamba-style
+shared GQA attention (``S``) — mamba2 and zamba2; their training waits for
+the SSM-training slice.  Every other family or layer code raises
+``NotImplementedError`` naming ROADMAP queue A.
 """
 
 from __future__ import annotations
@@ -24,19 +26,23 @@ class ModelBundle:
 
     def __post_init__(self):
         cfg = self.cfg
-        if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+        codes = set(cfg.layer_codes())
+        if cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                "port serves dense GQA decoders (ROADMAP queue A)"
+                "port serves dense GQA decoders, mamba2 and zamba2 "
+                "(ROADMAP queue A)"
             )
-        if cfg.attention is None or cfg.attention.kind != "gqa":
-            raise NotImplementedError(
-                f"{cfg.name}: only GQA attention is ported (ROADMAP queue A)"
-            )
-        if set(cfg.layer_codes()) != {"F"}:
+        if not codes <= set(tf_mod.LAYER_CODES):
             raise NotImplementedError(
                 f"{cfg.name}: layer pattern {cfg.layer_pattern!r} needs the "
                 "L/G/C layer codes, not ported yet (ROADMAP queue A)"
+            )
+        if codes & {"F", "S"} and (
+            cfg.attention is None or cfg.attention.kind != "gqa"
+        ):
+            raise NotImplementedError(
+                f"{cfg.name}: only GQA attention is ported (ROADMAP queue A)"
             )
 
     # -- defs ----------------------------------------------------------------
@@ -60,6 +66,11 @@ class ModelBundle:
     # -- compute entry points ---------------------------------------------
     def train_loss(self, params, batch: dict, *, remat: str = "full"):
         """(loss, {"ce", "aux"}) of ``batch`` (``tokens``, ``labels``)."""
+        if set(self.cfg.layer_codes()) & set(tf_mod.SSM_CODES):
+            raise NotImplementedError(
+                f"{self.cfg.name}: training through M/S layers is not ported "
+                "yet (ROADMAP A5: ssm_train and the ssd_scan backward kernel)"
+            )
         return tf_mod.lm_loss(
             params, batch["tokens"], batch["labels"], self.cfg, remat=remat
         )

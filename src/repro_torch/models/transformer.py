@@ -1,12 +1,16 @@
 """Decoder-only LM assembled from pattern stages.
 
-Counterpart of ``repro/models/transformer.py`` for attention layers.  The
+Counterpart of ``repro/models/transformer.py`` for full-attention (``F``),
+Mamba-2 (``M``) and Zamba-style shared-attention (``S``) layers.  The
 params and caches keep the reference's pytree — one stacked dict per
-stage of ``cfg.stages()`` — and the reference's ``scan`` over the stacked
-layer dim becomes a Python loop that hands each layer views of its slice.
-Caches are updated in place through those views.  In training the slices
-come from one ``unbind`` per stacked leaf, so each leaf's gradient is
-stacked once per step rather than scattered into a zero stack per layer.
+stage of ``cfg.stages()``, plus the model-level ``shared_attn`` block
+whose params every ``S`` layer reuses over concat(hidden, embedding
+output) — and the reference's ``scan`` over the stacked layer dim becomes
+a Python loop that hands each layer views of its slice.  Caches are
+updated in place through those views.  In training the slices come from
+one ``unbind`` per stacked leaf, so each leaf's gradient is stacked once
+per step rather than scattered into a zero stack per layer.  Training
+through ``M``/``S`` layers waits for the SSM-training slice.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_embed,
     apply_head,
@@ -33,10 +38,12 @@ from repro_torch.models.layers import (
     fused_cross_entropy,
     norm_defs,
 )
-from repro_torch.models.sharding import stack_defs, tree_leaves, tree_map
+from repro_torch.models.sharding import Param, stack_defs, tree_leaves, tree_map
 
 #: layer codes ported so far; L/G/C (ring caches) wait for ROADMAP queue A
-ATTN_CODES = ("F",)
+LAYER_CODES = ("F", "M", "S")
+#: layer codes the training path does not take yet (ROADMAP A5)
+SSM_CODES = ("M", "S")
 
 
 # ---------------------------------------------------------------------------
@@ -44,7 +51,7 @@ ATTN_CODES = ("F",)
 # ---------------------------------------------------------------------------
 
 def _check_code(code: str) -> None:
-    if code not in ATTN_CODES:
+    if code not in LAYER_CODES:
         raise NotImplementedError(
             f"layer code {code!r} is not ported yet (ROADMAP queue A)"
         )
@@ -52,9 +59,13 @@ def _check_code(code: str) -> None:
 
 def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
     _check_code(code)
+    d = cfg.d_model
+    if code == "M":
+        return {"norm": norm_defs(d, cfg.norm), "ssm": ssm_mod.ssm_defs(d, cfg.ssm)}
+    if code == "S":
+        return {}  # the shared block's params live at model level
     if cfg.moe is not None and cfg.moe.is_moe_layer(layer_idx):
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue A)")
-    d = cfg.d_model
     ff = cfg.d_ff
     if cfg.moe is not None and cfg.moe.dense_d_ff:
         ff = cfg.moe.dense_d_ff
@@ -64,6 +75,18 @@ def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
         "mlp_norm": norm_defs(d, cfg.norm),
         "mlp": mlp_defs(d, ff),
     }
+
+
+def _shared_block_defs(cfg: ArchConfig) -> dict:
+    """Zamba shared attention over concat(hidden, emb0) -> d_model out."""
+    dc = 2 * cfg.d_model
+    a = cfg.attention
+    defs = attn.attention_defs(dc, a)
+    defs["w_o"] = Param(
+        (a.n_heads, a.d_head, cfg.d_model), ("heads", "head_dim", "embed")
+    )
+    defs["norm"] = norm_defs(dc, cfg.norm)
+    return defs
 
 
 def lm_defs(cfg: ArchConfig) -> dict:
@@ -79,6 +102,8 @@ def lm_defs(cfg: ArchConfig) -> dict:
             for j, code in enumerate(codes)
         }
         defs["stages"].append(stack_defs(stage, count))
+    if "S" in cfg.layer_pattern:
+        defs["shared_attn"] = _shared_block_defs(cfg)
     return defs
 
 
@@ -87,12 +112,18 @@ def lm_defs(cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def lm_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """An ``M`` layer gets the (conv, ssm) state, an ``S`` layer a full
+    KV cache per application, an attention layer its KV cache."""
     caches = {"stages": []}
     for codes, count, start in cfg.stages():
-        stage = {
-            f"{j}{code}": attn.cache_defs(batch, max_len, cfg.attention, code)
-            for j, code in enumerate(codes)
-        }
+        stage = {}
+        for j, code in enumerate(codes):
+            if code == "M":
+                stage[f"{j}{code}"] = ssm_mod.ssm_cache_defs(batch, cfg.d_model, cfg.ssm)
+            else:
+                stage[f"{j}{code}"] = attn.cache_defs(
+                    batch, max_len, cfg.attention, "F" if code == "S" else code
+                )
         caches["stages"].append(stack_defs(stage, count))
     return caches
 
@@ -103,33 +134,59 @@ def lm_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 
 def _apply_layer_train(cfg, code, lp, x):
     _check_code(code)
+    if code in SSM_CODES:
+        raise NotImplementedError(
+            f"training through layer code {code!r} is not ported yet: it needs "
+            "ssm_train and a backward kernel for ssd_scan (ROADMAP A5)"
+        )
     h = apply_norm(lp["attn_norm"], x, cfg.norm)
     x = x + attn.gqa_train(lp["attn"], h, cfg.attention, code)
     h = apply_norm(lp["mlp_norm"], x, cfg.norm)
     return x + apply_mlp(lp["mlp"], h, cfg.act)
 
 
-def _apply_layer_step(cfg, code, lp, cache, x, lengths, mode, new_lens=None):
-    """prefill/prefill_at/decode step for one attention layer; returns x.
+def _attn_step(params, h, cache, lengths, spec, code, mode, new_lens):
+    if mode == "prefill":
+        return attn.gqa_prefill(params, h, cache, spec, code)
+    if mode == "prefill_at":
+        return attn.gqa_prefill_at(params, h, cache, lengths, new_lens, spec, code)
+    if mode == "decode":
+        return attn.gqa_decode(params, h, cache, lengths, spec, code)
+    raise ValueError(f"step mode {mode!r}")
+
+
+def _apply_layer_step(
+    cfg, code, lp, cache, x, emb0, lengths, shared, mode, new_lens=None
+):
+    """prefill/prefill_at/decode step for one layer; returns x.
 
     ``prefill_at`` is the serving engine's chunked batched prefill:
     ``lengths`` carries each row's cache fill *offset* and ``new_lens`` how
     many of the chunk's positions are real for that row (0 = untouched).
     ``cache`` holds views of this layer's slice and is written in place.
+    An ``S`` layer runs the ``shared`` block over concat(x, emb0).
     """
     _check_code(code)
+    if code == "M":
+        h = apply_norm(lp["norm"], x, cfg.norm)
+        if mode == "prefill":
+            out = ssm_mod.ssm_prefill(lp["ssm"], h, cache, cfg.d_model, cfg.ssm)
+        elif mode == "prefill_at":
+            out = ssm_mod.ssm_prefill_at(
+                lp["ssm"], h, cache, lengths, new_lens, cfg.d_model, cfg.ssm
+            )
+        elif mode == "decode":
+            out = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg.d_model, cfg.ssm)
+        else:
+            raise ValueError(f"step mode {mode!r}")
+        return x + out
+    if code == "S":
+        xin = apply_norm(shared["norm"], torch.cat([x, emb0], dim=-1), cfg.norm)
+        return x + _attn_step(shared, xin, cache, lengths, cfg.attention, "F",
+                              mode, new_lens)
     h = apply_norm(lp["attn_norm"], x, cfg.norm)
-    if mode == "prefill":
-        out = attn.gqa_prefill(lp["attn"], h, cache, cfg.attention, code)
-    elif mode == "prefill_at":
-        out = attn.gqa_prefill_at(
-            lp["attn"], h, cache, lengths, new_lens, cfg.attention, code
-        )
-    elif mode == "decode":
-        out = attn.gqa_decode(lp["attn"], h, cache, lengths, cfg.attention, code)
-    else:
-        raise ValueError(f"step mode {mode!r}")
-    x = x + out
+    x = x + _attn_step(lp["attn"], h, cache, lengths, cfg.attention, code,
+                       mode, new_lens)
     h = apply_norm(lp["mlp_norm"], x, cfg.norm)
     return x + apply_mlp(lp["mlp"], h, cfg.act)
 
@@ -184,6 +241,11 @@ def _run_stages_train(cfg, params, x, remat: str):
 
 
 def _run_stages_step(cfg, params, caches, x, lengths, mode, new_lens=None):
+    """Every layer in order.  ``emb0`` (the embedding output, only when the
+    pattern has ``S`` layers) and the shared block's params go into every
+    stage, as the reference's scans close over them."""
+    shared = params.get("shared_attn")
+    emb0 = x if "S" in cfg.layer_pattern else None
     for (codes, count, start), stage_params, stage_cache in zip(
         cfg.stages(), params["stages"], caches["stages"]
     ):
@@ -193,7 +255,8 @@ def _run_stages_step(cfg, params, caches, x, lengths, mode, new_lens=None):
             for j, code in enumerate(codes):
                 key = f"{j}{code}"
                 x = _apply_layer_step(
-                    cfg, code, lp[key], cache[key], x, lengths, mode, new_lens
+                    cfg, code, lp[key], cache[key], x, emb0, lengths, shared,
+                    mode, new_lens,
                 )
     return x
 

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_prefill,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.sharding import tree_leaves, tree_map
 
@@ -260,3 +261,141 @@ def test_train_loss_on_card_matches_cpu(remat, fwd_per_layer):
     # reference), and the card sums in other orders than the CPU
     for g, w in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(g, w, atol=1e-3 * float(w.abs().max()), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan kernel and the Mamba-2 path
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(B, T, H, P, N, dtype, seed, state=True):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    x = (r(B, T, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(r(B, T, H)) * 0.1
+    A = -torch.exp(r(H) * 0.5)
+    Bm, Cm = (r(B, T, N) * 0.5).to(dtype), (r(B, T, N) * 0.5).to(dtype)
+    h0 = r(B, H, P, N) if state else None
+    return x, dt, A, Bm, Cm, h0
+
+
+def _scaled(got, want, rel):
+    """|got - want| <= rel x max|want| + rel |want|: the scale-aware bound
+    of the reference's fast-path tests, for outputs and f32 states."""
+    w = want.float()
+    torch.testing.assert_close(got.float(), w, atol=rel * float(w.abs().max()),
+                               rtol=rel)
+
+
+#: y: bf16 rounds the kernel's f32 result once (<= 2^-8 relative) and the
+#: plain version rounds the same f32 sums in another order; f32 sums in
+#: another order.  The f32 state: 1e-4 x the leaf's max |value|.
+SSD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,P,N,state", [
+    (2, 256, 6, 64, 128, True),     # mamba2-780m's P, N
+    (2, 100, 4, 64, 64, True),      # zamba2-1.2b's P, N, ragged T
+    (3, 1, 2, 32, 16, True),        # the smoke P, N, one position
+    (2, 257, 3, 32, 32, False),     # one past a chunk, no state
+])
+def test_ssd_kernel_matches_plain(B, T, H, P, N, state, dtype):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, T, H, P, N, dtype, seed=T + N, state=state)
+    before = ssd_scan.launches
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=h0, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    want_y, want_h = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=T, init_state=h0,
+                                  return_state=True)
+    _scaled(y, want_y, SSD_TOL[dtype])
+    _scaled(h, want_h, 1e-4)
+    seq = ref.ssd_scan_sequential(x, dt, A, Bm, Cm, init_state=h0)
+    _scaled(y, seq, SSD_TOL[dtype])
+
+
+@requires_cuda
+def test_ssd_kernel_state_in_place_strided_and_zero_dt_rows():
+    """The state written into the init buffer itself; x, B, C as slices of
+    one conv output (as the model passes them); a row with dt = 0 keeps its
+    state bit for bit, a row with dt = 0 past 40 positions has the state of
+    those 40."""
+    B, T, H, P, N = 3, 90, 4, 64, 64
+    g = torch.Generator(device="cuda").manual_seed(21)
+    conv = torch.randn(B, T, H * P + 2 * N, generator=g, device="cuda") * 0.5
+    x = conv[..., :H * P].reshape(B, T, H, P)
+    Bm, Cm = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    _, dt, A, _, _, h0 = _ssd_inputs(B, T, H, P, N, torch.float32, seed=22)
+    dt[1] = 0.0
+    dt[2, 40:] = 0.0
+    want_y, want_h = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=T, init_state=h0,
+                                  return_state=True)
+    buf = h0.clone()
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=buf, return_state=True,
+                        state_out=buf)
+    torch.cuda.synchronize()
+    assert h is buf
+    _scaled(y, want_y, 1e-4)
+    _scaled(buf, want_h, 1e-4)
+    assert torch.equal(buf[1], h0[1])
+    _, h40 = ops.ssd_scan(x[2:, :40], dt[2:, :40], A, Bm[2:, :40], Cm[2:, :40],
+                          init_state=h0[2:].contiguous(), return_state=True)
+    _scaled(buf[2], h40[0], 1e-4)
+
+
+@requires_cuda
+def test_ssd_kernel_refuses_what_it_does_not_take():
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(1, 8, 2, 64, 128, torch.bfloat16, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        ops.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm)
+    x = x.detach()
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan(x[..., :48], dt, A, Bm, Cm)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, A, Bm.half(), Cm.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x, dt, A, Bm, Cm, init_state=h0.transpose(2, 3), return_state=True)
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_model_on_card_matches_cpu(arch):
+    """A float32 smoke model: prefill_at chunks then decode steps on the
+    card and on the CPU, same weights — same greedy tokens, close logits,
+    the caches at 1e-4 x each leaf's scale; one scan launch per M layer
+    per dispatch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    p = {"cpu": params, "cuda": tree_map(lambda t: t.cuda(), params)}
+    caches = {d: tb.init_cache(3, 32, device=d) for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, tb.cfg.vocab, (3, 6)).astype(np.int32)
+    nl = np.asarray([6, 3, 0], np.int32)
+    n_m = tb.cfg.layer_codes().count("M")
+    out = {}
+    for d in ("cpu", "cuda"):
+        t = lambda a: torch.from_numpy(np.array(a)).to(d)  # noqa: E731
+        before = ssd_scan.launches
+        lg, _ = tb.prefill_at(p[d], {"tokens": t(toks), "new_lens": t(nl)},
+                              caches[d], t(np.zeros(3, np.int32)))
+        seq = [lg[:2]]
+        tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+        for s in range(3):
+            lg, _ = tb.decode_step(p[d], {"tokens": tok, "lengths": t(nl + s)},
+                                   caches[d])
+            tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+            seq.append(lg)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert ssd_scan.launches - before == n_m
+        out[d] = [x.cpu() for x in seq]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+    for a, b in zip(tree_leaves(caches["cpu"]), tree_leaves(caches["cuda"])):
+        _scaled(b.cpu(), a, 1e-4)

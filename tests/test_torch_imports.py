@@ -53,6 +53,7 @@ def test_packages_import_without_building_or_jax():
         "import repro_torch.launch.serve, repro_torch.convert\n"
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.train\n"
         "import repro_torch.data, repro_torch.runtime, repro_torch.checkpoint\n"
+        "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._LIBS and not _build.BUILD_LOG\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
