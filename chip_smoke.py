@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the port's serving, training and measurement paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
 
@@ -52,7 +52,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    zamba2-1.2b with 8 requests (per prefill dispatch 32 scans and 6
    prefill-attention launches, 6 decode-attention launches per step);
    (e) the scan's times at (c)'s shape and ``torch.profiler`` windows over
-   one mamba2 prefill dispatch and a few decode steps.
+   one mamba2 prefill dispatch and a few decode steps;
+9. the paper's single-GPU study.  (a) ``blocked_matmul`` against its plain
+   version in bfloat16 and float32 at the reference test's three shapes,
+   4096^3 in both output dtypes and a non-square shape, and a tiling with
+   no instantiation refused; (b) the GEMM study through
+   ``repro_torch.benchmarks.bench_gemm`` (N = 16384 bf16, N = 8192 f32,
+   every tiling, ``torch.matmul`` beside it) with the kernel's launches
+   counted, then every call it timed (each tiling at N = 16384 bf16 and
+   N = 8192 f32, on the study's own inputs) against its plain version, and
+   the kernel's times at N = 16384; (c) ``bench_membw``, ``bench_copy``, ``bench_latency`` and
+   ``bench_managed_vs_system`` on device memory and pinned host memory
+   read in place, with sizes past the 50 MB L2, the membench kernels'
+   launches counted, each held against its plain version and timed;
+   (d) ``repro_torch.launch.calibrate`` on the card: ``build/
+   calibration.json``, the spec-vs-measured summary and the replay error
+   per term, a measured HBM bandwidth at most 1.05 x the spec, NVLink and
+   InfiniBand terms left at ``spec``.
 
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
 name and power limit, and the device JSON.
@@ -73,10 +89,17 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): device memory and bf16 tensor rate
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12
+
+def peaks():
+    """(device-memory bytes/s, bf16 tensor-core flops/s, f32 CUDA-core
+    flops/s): the H100 data sheet's dense peaks, read from the port's
+    hardware model so the kernel bounds and the model have one source."""
+    from repro_torch.core.hardware import SPEC_SYSTEM
+
+    c = SPEC_SYSTEM.chip
+    return (c.hbm_bandwidth, c.peak_flops_by_dtype["bfloat16"],
+            c.peak_flops_by_dtype["float32"])
+
 
 #: elementwise limit |got - want| <= atol + rtol |want|, and a limit on each
 #: output row's max error relative to that row's RMS in the plain version.
@@ -120,6 +143,19 @@ ZAMBA = dict(H=64, P=64, N=64)
 #: tests/test_serve_fastpath.py).
 SSD_TOL = {"bfloat16": TOL["bfloat16"],
            "float32": dict(atol=1e-4, rtol=1e-4, row=1e-3)}
+
+#: blocked_matmul against ref.matmul.  9a draws a ~ N(0, 1) and b ~ N(0, 1)
+#: / sqrt(K), so outputs have RMS ~1: an f32 output is the same products
+#: (a bf16 product is exact in f32) summed over K in another order, held to
+#: 1e-4 elementwise and a row's max error to 1e-3 x its RMS; a bf16 output
+#: is one rounding of those sums, TOL's bf16 limits (one ulp is under
+#: 2^-7 |element|).  9b's study inputs (bench_gemm.inputs) are scaled the
+#: same way.
+GEMM_TOL = {"bfloat16": TOL["bfloat16"],
+            "float32": dict(atol=1e-4, rtol=1e-4, row=1e-3)}
+
+#: the GEMM study's size on the card (bench_gemm: N = 16384, bf16)
+GEMM_N = 16384
 
 
 def log(msg: str) -> None:
@@ -1138,10 +1174,257 @@ def phase_ssd_times(server, params, launches, errs):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the paper's single-GPU study: the GEMM kernel, the memory benchmarks,
+# calibration
+# ---------------------------------------------------------------------------
+
+def gemm_inputs(M, N, K, dtype, gen):
+    import torch
+
+    a = torch.randn(M, K, generator=gen, device="cuda")
+    b = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
+    return a.to(dtype), b.to(dtype)
+
+
+def study_ms(fn, repeats=10):
+    """Milliseconds per call of ``fn`` on the card by the study's own method
+    (``repro_torch.core.membench.measure``: CUDA events around each call
+    after warm-up, the calls queued behind a spin kernel so each event pair
+    spans the card's time), mean of ``repeats``.  Phase 9 times its rows
+    this way: on an H100 80GB HBM3 at 700 W, ``torch.profiler`` put a 1 GiB
+    read at 0.2824 ms, 3.80 TB/s, faster than its HBM can deliver."""
+    from repro_torch.core.membench import measure
+
+    return measure(fn, warmup=2, repeats=repeats, device="cuda").mean_s * 1e3
+
+
+def phase_gemm_kernel():
+    """9a: blocked_matmul against ref.matmul at the reference test's three
+    shapes and tilings (the best supported tiling where the reference's
+    has no f32 instantiation), 4096^3 in both output dtypes and a
+    non-square shape, in bf16 and f32; a missing tiling must raise."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.blocked_matmul import best_tiling, blocked_matmul, supported
+
+    log("== phase 9a: blocked_matmul against its plain version on the card")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        isz = dtype.itemsize
+        cases = [
+            (256, 128, 512, (128, 128, 128), torch.float32),
+            (128, 128, 128, (128, 128, 128), torch.float32),
+            (512, 256, 256, (256, 128, 256), torch.float32),
+            (4096, 4096, 4096, None, torch.float32),
+            (4096, 4096, 4096, None, torch.bfloat16),
+            (1536, 640, 2304, None, dtype),
+        ]
+        for M, N, K, tiling, out in cases:
+            if tiling is None or not supported(*tiling, isz):
+                tiling = best_tiling(M, N, K, itemsize=isz)
+            a, b = gemm_inputs(M, N, K, dtype, gen)
+            got = ops.matmul(a, b, out_dtype=out, bm=tiling[0], bn=tiling[1],
+                             bk=tiling[2])
+            torch.cuda.synchronize()
+            on = str(out).split(".")[-1]
+            check_close(f"blocked_matmul {dn}->{on} ({M}, {N}, {K}) tiling {tiling}",
+                        got, ref.matmul(a, b, out_dtype=out), on, tols=GEMM_TOL)
+        a, b = gemm_inputs(512, 256, 512, dtype, gen)
+        for bad in ((64, 64, 64), (256, 128, 256) if isz == 4 else (128, 256, 32)):
+            before = blocked_matmul.launches
+            try:
+                blocked_matmul(a, b, bm=bad[0], bn=bad[1], bk=bad[2])
+            except ValueError as e:
+                if blocked_matmul.launches != before:
+                    raise AssertionError("a refused tiling launched") from e
+                log(f"  {dn} tiling {bad} refused: {str(e)[:60]}...")
+            else:
+                raise AssertionError(f"tiling {bad} has no instantiation but ran")
+
+
+def phase_gemm_study():
+    """9b: the GEMM study through bench_gemm (N = 16384 bf16, N = 8192 f32),
+    launches counted; then every call it timed (each tiling, on its own
+    inputs) against the plain version, and the kernel's times at N = 16384
+    bf16 beside the plain version's, torch.matmul's and the bound."""
+    import torch
+    from repro_torch.benchmarks import bench_gemm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.blocked_matmul import best_tiling, blocked_matmul
+
+    log("== phase 9b: the GEMM study (bench_gemm) on the card")
+    blocked_matmul.launches = 0
+    t0 = time.perf_counter()
+    bench_gemm.main("cuda")
+    torch.cuda.synchronize()
+    launches = blocked_matmul.launches
+    log(f"  bench_gemm took {time.perf_counter() - t0:.1f} s; blocked_matmul "
+        f"launches {launches}")
+    if launches == 0:
+        raise AssertionError("bench_gemm ran no blocked_matmul kernel")
+
+    dev = torch.device("cuda")
+    err = 0.0
+    for N, dtype in bench_gemm.SIZES["cuda"]:
+        dn = str(dtype).split(".")[-1]
+        a, b = bench_gemm.inputs(N, dtype, dev)
+        want = ref.matmul(a, b)
+        for bm, bn, bk in bench_gemm.tilings(N, dtype.itemsize):
+            got = ops.matmul(a, b, bm=bm, bn=bn, bk=bk)
+            torch.cuda.synchronize()
+            err = max(err, check_close(f"bench_gemm's blocked_matmul {dn} ({N}, {N}, {N}) "
+                                       f"tiling {(bm, bn, bk)}", got, want, dn,
+                                       tols=GEMM_TOL))
+            del got
+        del want
+        if N == GEMM_N and dtype == torch.bfloat16:
+            log(f"  blocked_matmul at the study's shape, default tiling "
+                f"{best_tiling(N, N, N)}")
+            kern = study_ms(lambda: ops.matmul(a, b), repeats=5)
+            plain = study_ms(lambda: ref.matmul(a, b), repeats=3)
+            lib = study_ms(lambda: torch.matmul(a, b), repeats=5)
+        del a, b
+        torch.cuda.empty_cache()
+    N = GEMM_N
+    rec = dict(ms=kern, plain_ms=plain, library_ms=lib, bytes=3 * N * N * 2,
+               flops=2 * N ** 3)
+    row = kernel_row("blocked_matmul", "src/repro_torch/csrc/blocked_matmul.cu",
+                     "src/repro/kernels/blocked_matmul.py:48", rec, launches, err)
+    log(f"  blocked_matmul {2 * N ** 3 / kern / 1e9:.1f} TFLOP/s, torch.matmul "
+        f"{2 * N ** 3 / lib / 1e9:.1f} TFLOP/s")
+    return row
+
+
+def phase_membench():
+    """9c: bench_membw, bench_copy, bench_latency and
+    bench_managed_vs_system on device memory and pinned host memory, sizes
+    past L2, with the membench kernels' launches counted; then each kernel
+    against its plain version at the largest shapes those runs give it,
+    and its times."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import (
+        bench_copy,
+        bench_latency,
+        bench_managed_vs_system,
+        bench_membw,
+    )
+    from repro_torch.kernels import membench, ref
+
+    log("== phase 9c: memory benchmarks on device and pinned host memory")
+    fns = (membench.stream_read, membench.stream_fill, membench.chase)
+    for fn in fns:
+        fn.launches = 0
+    for mod in (bench_membw, bench_copy, bench_latency, bench_managed_vs_system):
+        t0 = time.perf_counter()
+        log(f"  # ==== {mod.__name__.rsplit('.', 1)[-1]} ====")
+        mod.main("cuda")
+        torch.cuda.synchronize()
+        log(f"  # done in {time.perf_counter() - t0:.1f} s")
+    launches = {fn.__name__: fn.launches for fn in fns}
+    log(f"  membench launches: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a membench kernel never ran: {launches}")
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    n = max(bench_membw.CUDA_SIZES) // 4
+    x = torch.randn(n, generator=gen, device="cuda")
+    host = x.cpu().pin_memory()
+    errs = {}
+    for where, t in (("device", x), ("pinned_host", host)):
+        got, want = float(membench.stream_read(t)), float(ref.stream_read(t.cuda()))
+        lim = 1e-6 * float(t.abs().sum())     # f32 partial sums of ~1000 terms
+        log(f"  stream_read {where} {n} floats: {got:.6f} vs plain {want:.6f} "
+            f"(|err| {abs(got - want):.3e}, limit {lim:.3e})")
+        if not abs(got - want) <= lim:
+            raise AssertionError(f"stream_read on {where} disagrees")
+        errs.setdefault("stream_read", abs(got - want))
+    for where, t in (("device", x), ("pinned_host", host)):
+        membench.stream_fill(t, 3.0)
+        torch.cuda.synchronize()
+        if not bool((t == 3.0).all()):
+            raise AssertionError(f"stream_fill on {where} missed elements")
+    log("  stream_fill: every element written on device and pinned host memory")
+    errs["stream_fill"] = 0.0
+    m = max(bench_latency.CUDA_SIZES)
+    perm = torch.from_numpy(bench_latency.cyclic_permutation(m, np.random.default_rng(1)))
+
+    def start():
+        return torch.full((), 3, dtype=torch.int32, device="cuda")
+
+    for where, t in (("device", perm.cuda()), ("pinned_host", perm.pin_memory())):
+        got = int(membench.chase(t, bench_latency.CHAIN, start()))
+        want = int(ref.chase(t.cuda(), bench_latency.CHAIN, start()))
+        log(f"  chase {where} over {m * 4} B: ends at {got}, plain {want}")
+        if got != want:
+            raise AssertionError(f"chase on {where} disagrees")
+    errs["chase"] = 0.0
+
+    # times at those shapes, in device memory (1 GiB read and fill, the
+    # 256 MiB chase): kernel, plain version, one library call, bound
+    pd, pos = perm.cuda(), start()
+    rows = []
+    for name, kern_fn, plain_fn, lib_fn, nbytes, src_line in (
+        ("stream_read", lambda: membench.stream_read(x), lambda: ref.stream_read(x),
+         lambda: torch.sum(x), 4 * n + 8, "benchmarks/bench_membw.py:30"),
+        ("stream_fill", lambda: membench.stream_fill(x, 2.0),
+         lambda: ref.stream_fill(x, 2.0), lambda: x.fill_(2.0), 4 * n,
+         "benchmarks/bench_membw.py:31"),
+        ("chase", lambda: membench.chase(pd, bench_latency.CHAIN, pos),
+         lambda: ref.chase(pd, bench_latency.CHAIN, pos), None,
+         4 * bench_latency.CHAIN + 8, "benchmarks/bench_latency.py:22"),
+    ):
+        rec = dict(ms=study_ms(kern_fn), bytes=nbytes, flops=0,
+                   plain_ms=study_ms(plain_fn, repeats=3),
+                   library_ms=None if lib_fn is None else study_ms(lib_fn))
+        rows.append(kernel_row(name, "src/repro_torch/csrc/membench.cu", src_line,
+                               rec, launches[name], errs[name]))
+    log(f"  chase: {rows[-1]['ms'] / bench_latency.CHAIN * 1e6:.1f} ns per dependent "
+        f"load over {m * 4} B of device memory")
+    return rows
+
+
+def phase_calibrate():
+    """9d: calibration on the card through repro_torch.launch.calibrate:
+    the measured HBM read bandwidth may not exceed the spec by more than 5 %
+    (an L2-resident sweep would), PCIe is measured, NVLink and InfiniBand
+    keep spec provenance."""
+    from repro_torch.core.calibration import Calibration
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.launch import calibrate as launch_calibrate
+
+    log("== phase 9d: calibration on the card")
+    out = ROOT / "build" / "calibration.json"
+    t0 = time.perf_counter()
+    rc = launch_calibrate.main(["--out", str(out), "--report",
+                                str(ROOT / "build" / "replay_report.json")])
+    if rc != 0:
+        raise AssertionError(f"repro_torch.launch.calibrate exited {rc}")
+    cal = Calibration.load(out)
+    log(f"  calibration took {time.perf_counter() - t0:.1f} s; written to {out}")
+    spec = SPEC_SYSTEM.term_value("hbm_bandwidth")
+    hbm = cal.terms["hbm_bandwidth"].measured
+    log(f"  hbm_bandwidth measured {hbm / 1e9:.1f} GB/s = {hbm / spec:.3f} x spec; "
+        f"pcie_bandwidth measured {cal.terms['pcie_bandwidth'].measured / 1e9:.2f} GB/s")
+    if not hbm <= 1.05 * spec:
+        raise AssertionError(f"measured HBM bandwidth {hbm:.4g} B/s is over 1.05 x "
+                             f"the spec {spec:.4g} B/s: the sweep read L2")
+    system = cal.apply(SPEC_SYSTEM)
+    for term in ("ici_link_bandwidth", "ici_hop_latency", "dcn_bandwidth", "dcn_latency"):
+        if system.provenance_of(term) != "spec":
+            raise AssertionError(f"{term} is {system.provenance_of(term)} on one card")
+    for term, e in cal.replay.per_term_error().items():
+        log(f"  replay {term}: mean rel error {e.mean_rel_error:.4f}, max "
+            f"{e.max_rel_error:.4f} over {e.count} sweep points ({e.limiting_link})")
+
+
 def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     """One entry of the ``kernels`` JSON line; logs it."""
-    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = rec["flops"] / BF16_FLOPS_PER_S * 1e3
+    hbm_bytes_per_s, bf16_flops_per_s, f32_flops_per_s = peaks()
+    t_bytes = rec["bytes"] / hbm_bytes_per_s * 1e3
+    t_ops = rec["flops"] / bf16_flops_per_s * 1e3
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max_abs_err,
@@ -1154,7 +1437,7 @@ def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"library {lib}, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}: {rec['bytes']} bytes, {rec['flops']} flops; "
-        f"f32 CUDA-core floor {rec['flops'] / F32_FLOPS_PER_S * 1e3:.4f} ms), "
+        f"f32 CUDA-core floor {rec['flops'] / f32_flops_per_s * 1e3:.4f} ms), "
         f"{launches} launches on the main path")
     return row
 
@@ -1197,6 +1480,12 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
     rows += phase_train_times(train_launches, errs)
+    phase_gemm_kernel()
+    rows.append(phase_gemm_study())
+    torch.cuda.empty_cache()
+    rows += phase_membench()
+    torch.cuda.empty_cache()
+    phase_calibrate()
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

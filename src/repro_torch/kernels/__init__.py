@@ -1,3 +1,4 @@
-"""Attention kernels of the port: plain versions (``ref``), CUDA kernels
-(``decode_attention``, ``flash_attention``, sources in ``../csrc``), the
-``nvcc`` build step (``_build``) and the device-dispatching ``ops``."""
+"""Kernels of the port: plain versions (``ref``), CUDA kernels
+(``decode_attention``, ``flash_attention``, ``ssd_scan``,
+``blocked_matmul``, ``membench``; sources in ``../csrc``), the ``nvcc``
+build step (``_build``) and the device-dispatching ``ops``."""

@@ -1,8 +1,10 @@
-"""The attention and SSD ops the model calls, dispatched on the tensors' device.
+"""The attention, SSD and GEMM ops, dispatched on the tensors' device.
 
 Counterpart of ``repro/kernels/ops.py`` (``attention``,
-``decode_attention``, ``prefill_attention``, ``ssd_scan`` and
-``ssd_decode_step``).  There is no ``backend``
+``decode_attention``, ``prefill_attention``, ``ssd_scan``,
+``ssd_decode_step`` and ``matmul``), plus the memory microbenchmark ops
+(``stream_read``, ``stream_fill``, ``chase``), which take the device that
+reads: the card reads pinned host memory in place.  There is no ``backend``
 knob: a CPU tensor takes the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`, a CUDA tensor takes the hand-written CUDA
 kernel, and anything else raises.  There is no fallback from the kernel
@@ -19,7 +21,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import membench, ref
+from repro_torch.kernels.blocked_matmul import (
+    DEFAULT_BK,
+    DEFAULT_BM,
+    DEFAULT_BN,
+    blocked_matmul,
+)
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import (
     flash_attention,
@@ -174,3 +182,56 @@ def ssd_decode_step(x, dt, A, Bvec, Cvec, state):
     device: the reference has no Pallas kernel for it (ROADMAP B4 lists a
     decode-step kernel as later work)."""
     return ref.ssd_decode_step(x, dt, A, Bvec, Cvec, state)
+
+
+def matmul(
+    a, b, *,
+    out_dtype=None,
+    bm: int = DEFAULT_BM,
+    bn: int = DEFAULT_BN,
+    bk: int = DEFAULT_BK,
+):
+    """(M, K) x (K, N) product with f32 accumulation, cast to ``out_dtype``.
+
+    A CUDA tensor takes ``csrc/blocked_matmul.cu`` at the tiling (bm, bn,
+    bk), which must have an instantiation; a CPU tensor takes
+    :func:`ref.matmul`, which ignores the tiling, as the reference's
+    ``"ref"`` backend does.
+    """
+    if _route(a) == "cuda":
+        return blocked_matmul(a, b, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+    return ref.matmul(a, b, out_dtype=out_dtype)
+
+
+def _reader(x, device) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return "cuda"
+    if dev.type == "cpu" and x.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"{dev} cannot read a tensor on {x.device}")
+
+
+def stream_read(x, *, device):
+    """Sum of float32 ``x`` read once by ``device``: on ``cuda`` the read
+    kernel (``x`` in device memory or pinned host memory, read in place),
+    on ``cpu`` :func:`ref.stream_read`.  A float64 scalar."""
+    if _reader(x, device) == "cuda":
+        return membench.stream_read(x)
+    return ref.stream_read(x)
+
+
+def stream_fill(x, value: float, *, device):
+    """Every element of float32 ``x`` set to ``value`` by ``device``."""
+    if _reader(x, device) == "cuda":
+        return membench.stream_fill(x, value)
+    return ref.stream_fill(x, value)
+
+
+def chase(perm, steps: int, pos, *, device):
+    """Dependent-load chain ``idx = perm[idx]`` walked by ``device`` from
+    the index in ``pos`` and written back there: one thread of the card,
+    or on ``cpu`` :func:`ref.chase`."""
+    if _reader(perm, device) == "cuda":
+        return membench.chase(perm, steps, pos)
+    return ref.chase(perm, steps, pos)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention and SSD kernels.
+"""Plain PyTorch versions of the attention, SSD, GEMM and membench kernels.
 
 Counterpart of ``repro/kernels/ref.py``.  These are the correctness
 references the CUDA kernels are held to (``chip_smoke.py`` and the card
@@ -285,3 +285,35 @@ def ssd_scan_sequential(x, dt, A, Bmat, Cmat, *, init_state=None):
         y, h = ssd_decode_step(x[:, t], dt[:, t], A, Bmat[:, t], Cmat[:, t], h)
         ys.append(y)
     return torch.stack(ys, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Blocked matmul (the paper's GEMM study) and the memory microbenchmarks
+# ---------------------------------------------------------------------------
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """f32-accumulating matmul oracle: the product of the operands in f32,
+    cast to ``out_dtype`` (default: the operands' dtype)."""
+    out_dtype = out_dtype or a.dtype
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def stream_read(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` as a float64 scalar (the read kernel's result)."""
+    return x.sum(dtype=torch.float64)
+
+
+def stream_fill(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x`` with every element set to ``value``, in place."""
+    return x.fill_(value)
+
+
+def chase(perm: torch.Tensor, steps: int, pos: torch.Tensor) -> torch.Tensor:
+    """``idx = perm[idx]`` ``steps`` times from the index in ``pos`` (one
+    int32), the last index written back to ``pos``, which is returned.
+    Each step is a separate indexing op."""
+    p = perm.to(pos.device).long()
+    idx = pos.reshape(()).long()
+    for _ in range(steps):
+        idx = p[idx]
+    return pos.copy_(idx.reshape(pos.shape))

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import blocked_matmul as bmm
+from repro_torch.kernels import membench, ops, ref
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import (
     flash_attention,
@@ -399,3 +400,134 @@ def test_ssm_model_on_card_matches_cpu(arch):
         assert torch.equal(a.argmax(-1), b.argmax(-1))
     for a, b in zip(tree_leaves(caches["cpu"]), tree_leaves(caches["cuda"])):
         _scaled(b.cpu(), a, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the GEMM study's kernel and the memory microbenchmark kernels
+# ---------------------------------------------------------------------------
+
+#: outputs of RMS ~1 (b is scaled by 1/sqrt(K)): f32 sums over K terms in
+#: another order than the plain version's (f32 out, from either input
+#: dtype: a bf16 product is exact in f32); one bf16 rounding of the same f32
+#: sum, < 2^-7 relative (bf16 out)
+MM_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=1e-2),
+          torch.float32: dict(atol=1e-4, rtol=1e-4)}
+MM_CASES = [(t, dt, out) for t in bmm.TILINGS
+            for dt in (torch.float32, torch.bfloat16)
+            for out in (torch.float32, torch.bfloat16)
+            if bmm.supported(*t, dt.itemsize)]
+
+
+def _mm_inputs(M, N, K, dtype, seed):
+    a = _randn(M, K, dtype=torch.float32, seed=seed)
+    b = _randn(K, N, dtype=torch.float32, seed=seed + 1) * K ** -0.5
+    return a.to(dtype), b.to(dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("tiling,dtype,out_dtype", MM_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_blocked_matmul_matches_plain(tiling, dtype, out_dtype):
+    """Every instantiation, in both input and both output dtypes, against
+    the plain version on the same inputs; one launch through ops.matmul."""
+    bm, bn, bk = tiling
+    a, b = _mm_inputs(2 * bm, 2 * bn, 2 * bk, dtype, seed=20)
+    before = bmm.blocked_matmul.launches
+    got = ops.matmul(a, b, out_dtype=out_dtype, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert bmm.blocked_matmul.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (2 * bm, 2 * bn)
+    torch.testing.assert_close(got.float(), ref.matmul(a, b, out_dtype=out_dtype).float(),
+                               **MM_TOL[out_dtype])
+
+
+@requires_cuda
+def test_blocked_matmul_smem_and_refusals():
+    """Tilings without an instantiation, or whose tiles the traffic model
+    puts over 227 KB of shared memory (f32 at (256, 128, 256)), and shapes
+    off the tiling raise before any launch; every tiling the model puts
+    within 227 KB launches (test_blocked_matmul_matches_plain)."""
+    fits = {(t, dt) for t in bmm.TILINGS for dt in (4, 2)
+            if bmm.traffic_model(*t, *t, itemsize=dt)["smem_bytes"] <= 232_448}
+    assert {(t, dt.itemsize) for t, dt, _ in MM_CASES} == fits
+    a, b = _mm_inputs(512, 256, 512, torch.float32, seed=22)
+    before = bmm.blocked_matmul.launches
+    for kw in (dict(bm=64, bn=64, bk=64), dict(bm=256, bn=128, bk=256)):
+        with pytest.raises(ValueError, match="no instantiation"):
+            bmm.blocked_matmul(a, b, **kw)
+    with pytest.raises(ValueError, match="not a multiple"):
+        bmm.blocked_matmul(a[:384], b, bm=256)
+    with pytest.raises(TypeError):
+        bmm.blocked_matmul(a.half(), b.half(), bm=128, bn=128, bk=128)
+    assert bmm.blocked_matmul.launches == before
+
+
+@requires_cuda
+@pytest.mark.parametrize("where", ["cuda", "pinned"])
+def test_membench_read_and_fill(where):
+    """Fill then read n floats on the card or in pinned host memory read in
+    place: a sum of ones is n exactly, and a random buffer sums to the
+    plain version's f64 sum within f32 rounding.  Pageable host memory is
+    refused by the C side's pointer check."""
+    n = 2 ** 20 + 3                      # a tail past the 16-byte vectors
+    x = torch.empty(n, dtype=torch.float32, device="cuda" if where == "cuda" else "cpu")
+    if where == "pinned":
+        x = x.pin_memory()
+    before = (membench.stream_read.launches, membench.stream_fill.launches)
+    ops.stream_fill(x, 1.0, device="cuda")
+    total = ops.stream_read(x, device="cuda")
+    torch.cuda.synchronize()
+    assert float(total) == n
+    assert bool((x == 1.0).all())
+    assert (membench.stream_read.launches, membench.stream_fill.launches) == (
+        before[0] + 1, before[1] + 1)
+    r = _randn(n, dtype=torch.float32, seed=23).to(x.device)
+    r = r.pin_memory() if where == "pinned" else r
+    got = float(ops.stream_read(r, device="cuda"))
+    want = float(ref.stream_read(r))
+    assert abs(got - want) <= 1e-5 * float(r.abs().sum())
+    with pytest.raises(RuntimeError, match="membench"):
+        membench.stream_read(torch.ones(1024))
+
+
+@requires_cuda
+def test_membench_reads_on_two_streams_keep_their_own_sums():
+    """Reads queued on two streams at once each sum their own buffer: the
+    count of finished blocks that picks the last block is each call's own."""
+    n = 2 ** 24
+    xs = [torch.full((n,), v, device="cuda") for v in (1.0, 2.0)]
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    sums = ([], [])
+    for _ in range(20):
+        for x, st, out in zip(xs, streams, sums):
+            with torch.cuda.stream(st):
+                out.append(membench.stream_read(x))
+    torch.cuda.synchronize()
+    assert [[float(t) for t in out] for out in sums] == [[n] * 20, [2 * n] * 20]
+
+
+@requires_cuda
+@pytest.mark.parametrize("where", ["cuda", "pinned"])
+def test_membench_chase_ends_where_numpy_does(where):
+    rng = np.random.default_rng(0)
+    n, steps = 4096, 2048
+    order = rng.permutation(n)
+    perm = np.empty(n, np.int32)
+    perm[order[:-1]] = order[1:]
+    perm[order[-1]] = order[0]
+    walk = [5]
+    for _ in range(2 * steps):
+        walk.append(perm[walk[-1]])
+    t = torch.from_numpy(perm)
+    t = t.cuda() if where == "cuda" else t.pin_memory()
+    pos = torch.full((), 5, dtype=torch.int32, device="cuda")
+    before = membench.chase.launches
+    assert ops.chase(t, steps, pos, device="cuda") is pos
+    torch.cuda.synchronize()
+    assert int(pos) == walk[steps]
+    ops.chase(t, steps, pos, device="cuda")       # goes on where it stopped
+    assert int(pos) == walk[2 * steps]
+    assert membench.chase.launches == before + 2
+    plain = torch.full((), 5, dtype=torch.int32, device="cuda")
+    assert int(ref.chase(t.cuda(), 2 * steps, plain)) == walk[2 * steps]

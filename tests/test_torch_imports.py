@@ -54,6 +54,13 @@ def test_packages_import_without_building_or_jax():
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.train\n"
         "import repro_torch.data, repro_torch.runtime, repro_torch.checkpoint\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.core, repro_torch.core.calibration\n"
+        "import repro_torch.benchmarks, repro_torch.benchmarks.run\n"
+        "import repro_torch.benchmarks.bench_gemm, repro_torch.benchmarks.bench_membw\n"
+        "import repro_torch.benchmarks.bench_copy, repro_torch.benchmarks.bench_latency\n"
+        "import repro_torch.benchmarks.bench_managed_vs_system\n"
+        "import repro_torch.launch.calibrate, repro_torch.kernels.blocked_matmul\n"
+        "import repro_torch.kernels.membench\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._LIBS and not _build.BUILD_LOG\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
