@@ -6,7 +6,9 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and build — the card's name and power limit, the torch/CUDA
-   versions, and an ``nvcc`` build of every ``src/repro_torch/csrc/*.cu``;
+   versions, and an ``nvcc`` build of every ``src/repro_torch/csrc/*.cu``,
+   with ``-Xptxas -v``'s registers, spills and shared memory for each
+   kernel of ``flash_attention.cu``;
 2. each CUDA kernel against its plain PyTorch version on the card, in
    bfloat16 and float32.  Serving kernels at the serving path's shapes
    (yi-6b: 8 slots, 32/4 heads, head dim 128, 2048 cache slots, 256-token
@@ -38,7 +40,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    step; step time, training tokens/s, peak memory, and a
    ``torch.profiler`` window over one more step;
 7. times of the training attention kernels at the phase 6 shape, beside
-   their plain versions, SDPA and their bounds;
+   their plain versions, SDPA and their bounds, with each one's TFLOP/s,
+   its fraction of the operation bound and its ratio to SDPA;
 8. Mamba-2 serving.  (a) the SSD scan kernel against its plain versions
    (the chunked oracle and the literal recurrence) in bfloat16 and float32
    at the mamba2-780m serving shape (B 8, T 256, H 48, P 64, N 128) with a
@@ -284,9 +287,46 @@ def phase_build():
     libs = _build.build()
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, out) in sorted(_build.BUILD_LOG.items()):
+        if name == "flash_attention":
+            continue
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    if "flash_attention" in _build.BUILD_LOG:
+        log_fa_ptxas(_build.BUILD_LOG["flash_attention"][1])
+
+
+def log_fa_ptxas(out):
+    """Each kernel of csrc/flash_attention.cu as ``nvcc -Xptxas -v`` saw it:
+    registers, spill stores and loads, static shared memory, and for the
+    bf16 kernels the dynamic shared memory they launch with."""
+    import re
+
+    from repro_torch.kernels.flash_attention import smem_footprint_bytes
+
+    dynamic = {"fa_fwd_mma_kernel": "fwd", "fa_bwd_dq_mma_kernel": "bwd_dq",
+               "fa_bwd_dkdv_mma_kernel": "bwd_dkdv"}
+    name, spill = None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # mangled fa_*_kernel<T, D>: "...fa_fwd_mma_kernelILi128EEEv..."
+            k = re.search(r"(fa_\w+?_kernel)I(.*?)EEv", m.group(1))
+            args = ",".join("bf16" if t.startswith("13") else "f32" if t == "f" else t[2:-1]
+                            for t in re.findall(r"13__nv_bfloat16|Li\d+E|f", k.group(2)))
+            name = (k.group(1), args)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            extra = ""
+            if name[0] in dynamic:
+                d = int(name[1].split(",")[-1])
+                extra = f", {smem_footprint_bytes(d)[dynamic[name[0]]]} B dynamic smem"
+            log(f"  ptxas flash_attention {name[0]}<{name[1]}>: {regs} registers; {spill}; "
+                f"{smem.group(1) if smem else 0} B static smem{extra}")
+            name = None
 
 
 def phase_kernels():
@@ -870,6 +910,12 @@ def phase_train_times(launches, errs):
     bwd = dict(ms=bwd_ms, plain_ms=plain_bwd, library_ms=lib_bwd,
                bytes=8 * qbytes + B * H * S * 4, flops=10 * D * pairs)
     fwd.update(bytes=4 * qbytes + B * H * S * 4, flops=4 * D * pairs)
+    _, bf16_flops_per_s, _ = peaks()
+    for name, rec in (("forward", fwd), ("backward", bwd)):
+        log(f"  {name}: {rec['flops'] / rec['ms'] / 1e9:.1f} TFLOP/s "
+            f"({rec['flops']} flops in {rec['ms']:.4f} ms), "
+            f"{rec['flops'] / bf16_flops_per_s * 1e3 / rec['ms']:.3f} of the operation bound, "
+            f"{rec['ms'] / rec['library_ms']:.2f} x SDPA's {rec['library_ms']:.4f} ms")
     rows = []
     for name, rec, replaces in (
         ("attention_fwd", fwd, "src/repro/kernels/flash_attention.py:115"),

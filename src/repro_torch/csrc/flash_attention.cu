@@ -10,11 +10,18 @@
 // What bounds it on an H100: operations.  At olmo-1b training shapes
 // (B 4, 16 heads, S 2048, D 128, causal) there are 134 M live (q, k) pairs
 // per layer: 4·D flops a pair forward and 10·D backward (S and dP, dV, dK,
-// dQ products), against 2·S·D bytes per head of Q/K/V/O.
+// dQ products), against 2·S·D bytes per head of Q/K/V/O — some 300 flops a
+// byte, at the card's ridge, so only the tensor cores can approach the bound.
 //
 // Two routes by dtype:
-//  * bfloat16 (training): every product on the tensor cores (WMMA, bf16
-//    in, f32 accumulators), blocks of 64 rows in four warps (section
+//  * bfloat16 (training): every product on the tensor cores through
+//    mma.sync m16n8k16 (bf16 in, f32 accumulators), whose accumulator
+//    layout the PTX ISA documents: lane l holds rows l/4 and l/4 + 8 of
+//    each 16 x 8 tile.  That makes a one-pass online softmax possible —
+//    row max and sum with two quad shuffles, the O accumulator rescaled
+//    per row in registers — and lets S, P, dP and dS stay in registers: P
+//    and dS are repacked from the accumulator straight into the A operand
+//    of the next product, with no shared-memory round trip (section
 //    "bf16 on the tensor cores" below);
 //  * float32 (the smoke configs, checks): f32 FMAs on the CUDA cores
 //    (67 TFLOP/s), small tiles, exact to f32 rounding.
@@ -24,10 +31,10 @@
 //    only over the key tiles its rows can reach — the key range of the
 //    tile's first and last query under the mask (causal, sliding window,
 //    chunked or bidirectional; q_offset shifts the queries), the
-//    counterpart of _block_reachable's pl.when — and masks per element
-//    inside a tile.  Softmax statistics in f32; out = acc / max(l, 1e-30),
-//    so a row with no live key comes out 0; masked scores contribute
-//    exactly 0 to l.  It also writes lse = m + log(l) per row;
+//    counterpart of _block_reachable's pl.when.  Softmax statistics in f32;
+//    out = acc / max(l, 1e-30), so a row with no live key comes out 0;
+//    masked scores contribute exactly 0 to l.  It also writes lse = m +
+//    log(max(l, 1e-30)) per row;
 //  * backward: one dK/dV block per (key tile, KV head, batch row) that
 //    loops over the G query heads of its KV head and over the query tiles
 //    that reach its keys, so the GQA sum over G is taken inside one block,
@@ -42,12 +49,40 @@
 //  * ragged tails: rows past Sq and keys past Sk are zero-filled in shared
 //    memory and masked, so no length has to be a multiple of a tile.
 //
+// What the bf16 route adds against the bound:
+//  * tiles stream through a two-stage shared-memory ring filled with
+//    16-byte cp.async copies: right after the barrier that frees a stage,
+//    the next tile's copy is issued, and it lands while the current tile is
+//    multiplied (one barrier a tile); rows are padded by 16 bytes so that
+//    ldmatrix reads them without bank conflicts;
+//  * masks cost almost nothing: under every kind the keys a query row
+//    reaches (and the queries that reach a key) form one interval, which
+//    each lane computes for its two rows once per block, so the
+//    per-element test is two compares, with no branch or division; it runs
+//    only on tiles that cross the mask's edge or a ragged tail, and a warp
+//    skips tiles its 16 rows cannot reach (a per-element test with the kind
+//    known only at run time puts branches and integer divisions beside
+//    every score, and costs more than the products it guards);
+//  * scale·log2(e) is folded into one multiply and exp2f does the rest;
+//  * the forward (128 rows, 8 warps, two blocks an SM) launches the
+//    heaviest causal query tiles first, as does the dQ kernel; the dQ and
+//    dK/dV kernels take 64 rows in 4 warps, two blocks an SM, because their
+//    accumulators leave registers for no more; epilogues write 16-byte
+//    vectors through the warp's own shared-memory rows;
+//  * what still bounds it: mma.sync with 16-row warp tiles reads every B
+//    operand from shared memory once per 16 rows and leaves few independent
+//    products in flight per warp, so the kernels run at about a quarter
+//    of the tensor cores' peak, counting the products they execute (wgmma
+//    with TMA is the route to the full rate); the exact delta costs the dQ kernel a second pass over its
+//    key tiles (9 products of 16 x 8 x D per pair of tiles in the backward
+//    against 7 without it).
+//
 // Plain C interface (loaded with ctypes): each *_launch returns
-// cudaGetLastError() after its launches.
+// cudaGetLastError() after its launches; each *_smem_bytes the dynamic
+// shared memory a bf16 kernel takes for a head dim.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -115,6 +150,17 @@ struct Mask {
     if (kind == 2) b = max(b, floordiv(q_offset + i_lo, chunk) * chunk);
     *kb = b;
     *ke = e;
+  }
+
+  // is every pair of query rows [i_lo, i_hi] and keys [j_lo, j_hi]
+  // (inclusive) live?  Then a tile needs no per-element mask.
+  __device__ __forceinline__ bool all_live(int i_lo, int i_hi, int j_lo, int j_hi) const {
+    if (kind == 3) return true;
+    const int qa = q_offset + i_lo, qb = q_offset + i_hi;
+    if (qa < j_hi) return false;                                  // k <= q
+    if (kind == 1) return qb - j_lo < window;                     // q - k < window
+    if (kind == 2) return floordiv(j_lo, chunk) == floordiv(qb, chunk);
+    return true;
   }
 
   // query rows [*ib, *ie) that can reach keys [k_lo, k_hi) (may be empty)
@@ -496,436 +542,635 @@ __global__ void __launch_bounds__(B_NT) fa_bwd_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (WMMA 16x16x16, f32 accumulators)
+// bf16 on the tensor cores (mma.sync m16n8k16, ldmatrix, cp.async ring)
 // ---------------------------------------------------------------------------
 //
-// Four warps per block, each owning 16 rows of the block's 64; K/V (or Q/dO)
-// tiles of 64 rows are staged in shared memory with 16-byte stores.  Every
-// product — S = Q K^T, O = P V, dP = dO V^T, dV = P^T dO, dK = dS^T Q,
-// dQ = dS K — is a WMMA product of bf16 tiles with f32 accumulation; P and
-// dS are rounded to bf16 before they multiply (as FlashAttention-2 does),
-// dS is formed from the f32 P.  Scores, softmax statistics and
-// accumulators stay f32.  Unlike FlashAttention-2, delta is not
-// rowsum(dO * O) over the bf16 output: O's rounding (and P's, in the
-// forward's P V) shifts it by up to ~1e-2 on rows with few live keys, and
-// since each row of dS = P (dP - delta) must sum to 0, that shift lands
-// whole in dQ.  The dQ kernel first takes delta = sum_j P dP exactly, in
-// f32, and writes it for the dK/dV kernel, which runs after it.
-// The forward makes
-// two passes over its key tiles: the first finds each row's max and sum,
-// the second accumulates exp(s - m) V in registers, so the accumulator
-// never needs a per-row rescale (WMMA does not expose which row a
-// fragment element belongs to); S is computed twice, on the tensor cores.
-
-template <int D>
-struct TcSmem {
-  static constexpr int LD = D + 8;          // bf16 tile row stride (16 B pad)
-  static constexpr int FLD = 64 + 4;        // f32 score row stride
-  static constexpr int PLD = 64 + 8;        // bf16 P / dS row stride
-  static constexpr int OLD = D + 4;         // f32 epilogue row stride
-  static constexpr size_t tile = (size_t)64 * LD * sizeof(__nv_bfloat16);
-  static constexpr size_t fbuf = (size_t)4 * 16 * FLD * sizeof(float);
-  static constexpr size_t pbuf = (size_t)4 * 16 * PLD * sizeof(__nv_bfloat16);
-  // four 64-row tiles, one f32 and one bf16 16 x 64 buffer per warp, 64 +
-  // 64 row statistics
-  static constexpr size_t bytes = 4 * tile + fbuf + pbuf + 2 * 64 * sizeof(float);
-  static_assert(4 * 16 * OLD * sizeof(float) <= 2 * tile, "epilogue fits two tiles");
-};
+// A warp per 16 rows of a block: query rows in the forward and the dQ
+// kernel, key rows in the dK/dV kernel.  Every product — S = Q K^T,
+// O = P V, dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K — is a chain of
+// mma.sync m16n8k16 with bf16 operands and f32 accumulators.  A warp's
+// 16 x 8 accumulator tile gives lane l rows g = l / 4 and g + 8, columns
+// 2 (l % 4) and + 1; the same lane's A fragment of a 16 x 16 operand is
+// rows g and g + 8, columns 2 (l % 4) + {0, 1, 8, 9}.  So the scores of two
+// neighbouring 8-column tiles, rounded to bf16, are the A fragment of the
+// next product over those 16 columns, and P (and dS) never leave
+// registers.  P and dS are rounded to bf16 before they multiply (as
+// FlashAttention-2 does); dS is formed from the f32 P and dP.  Softmax
+// statistics and accumulators stay f32.
+//
+// delta is not rowsum(dO * O) over the bf16 output: O's rounding (and P's,
+// in the forward's P V) shifts it by up to ~1e-2 on rows with few live keys,
+// and since each row of dS = P (dP - delta) must sum to 0, that shift lands
+// whole in dQ.  The dQ kernel takes delta = sum_j P dP exactly, in f32, in a
+// first pass over its key tiles, and writes it for the dK/dV kernel, which
+// runs after it.
 
 using bf16 = __nv_bfloat16;
-namespace wm = nvcuda::wmma;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragBr = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragBc = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr int STAGES = 2;             // shared-memory ring depth
 
-// rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a tile of row stride
-// LD; rows past n_rows are zero-filled
-template <int D, int LD>
-__device__ __forceinline__ void stage64(bf16* dst, const bf16* __restrict__ src,
-                                        int r0, int n_rows) {
-  constexpr int PER_ROW = D / 8;                    // 16-byte chunks per row
-  constexpr int LOADS = 64 * PER_ROW;
-  constexpr int NLOAD = (LOADS + 127) / 128;
-  uint4 regs[NLOAD];
-#pragma unroll
-  for (int u = 0; u < NLOAD; ++u) {
-    const int e = threadIdx.x + u * 128, r = e / PER_ROW, c = e % PER_ROW;
-    regs[u] = make_uint4(0, 0, 0, 0);
-    if (e < LOADS && r0 + r < n_rows)
-      regs[u] = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c * 8);
-  }
-#pragma unroll
-  for (int u = 0; u < NLOAD; ++u) {
-    const int e = threadIdx.x + u * 128, r = e / PER_ROW, c = e % PER_ROW;
-    if (e < LOADS) *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = regs[u];
-  }
-}
-
-// f_s (16 x 64, stride FLD) = A_rows (16 x D, stride LD) . B_rows^T, where
-// B_rows is 64 rows of D (stride LD): the scores of 16 rows against 64.
-template <int D, int LD, int FLD>
-__device__ __forceinline__ void tc_scores(float* f_s, const bf16* a_rows,
-                                          const bf16* b_rows) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    FragC c;
-    wm::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA a;
-      FragBc bm;
-      wm::load_matrix_sync(a, a_rows + kk * 16, LD);
-      wm::load_matrix_sync(bm, b_rows + n * 16 * LD + kk * 16, LD);
-      wm::mma_sync(c, a, bm, c);
-    }
-    wm::store_matrix_sync(f_s + n * 16, c, FLD, wm::mem_row_major);
-  }
-}
-
-// acc[n] += P (16 x 64, stride PLD) . M (64 rows of D, stride LD)
-template <int D, int LD, int PLD>
-__device__ __forceinline__ void tc_accumulate(FragC (&acc)[D / 16], const bf16* p_s,
-                                              const bf16* m_rows) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    FragA a;
-    wm::load_matrix_sync(a, p_s + kk * 16, PLD);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBr bm;
-      wm::load_matrix_sync(bm, m_rows + kk * 16 * LD + n * 16, LD);
-      wm::mma_sync(acc[n], a, bm, acc[n]);
-    }
-  }
-}
-
-// store 16 x D accumulators (scaled) as rows [row0, row0 + 16) of a (rows, D)
-// bf16 matrix, through an f32 staging area of stride OLD; rows >= n_rows
-// are not written.  Each row is multiplied by `scale` and, when `row_div`
-// is given, divided by max(row_div[r], 1e-30).
-template <int D, int OLD>
-__device__ __forceinline__ void tc_store_rows(bf16* __restrict__ dst, FragC (&acc)[D / 16],
-                                              float* o_s, int row0, int n_rows,
-                                              float scale, const float* row_div) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wm::store_matrix_sync(o_s + n * 16, acc[n], OLD, wm::mem_row_major);
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    if (row0 + r >= n_rows) break;
-    const float f = row_div ? scale / fmaxf(row_div[r], 1e-30f) : scale;
-    for (int d = lane; d < D; d += 32)
-      dst[(size_t)(row0 + r) * D + d] = __float2bfloat16(o_s[r * OLD + d] * f);
-  }
-}
-
+// Tiles and shared memory of the three bf16 kernels for a head dim D.  Every
+// tile row is D bf16 padded by 16 bytes: the row stride is then 4 banks
+// past a multiple of 32, so the eight row addresses of an ldmatrix hit
+// eight distinct groups of four banks.  A block has a warp per 16 resident
+// rows.  Mirrored by kernels/flash_attention.py::smem_footprint_bytes.
 template <int D>
-__global__ void __launch_bounds__(128) fa_fwd_tc_kernel(
+struct Tc {
+  static constexpr int LD = D + 8;                       // elements
+  static constexpr int RB = LD * 2;                      // bytes
+  // forward: 128 query rows (8 warps); K and V tiles of 64 keys in the ring;
+  // two blocks share an SM
+  static constexpr int F_BQ = 128, F_BK = 64;
+  static constexpr size_t fwd_bytes = (size_t)(F_BQ + STAGES * 2 * F_BK) * RB;
+  // dQ: 64 query rows of Q and dO (4 warps); K and V tiles of 32 keys, so
+  // S and dP take 16 registers each beside the dQ accumulator's 64 (D 128)
+  static constexpr int DQ_BQ = 64, DQ_BK = 32;
+  static constexpr size_t dq_bytes = (size_t)(2 * DQ_BQ + STAGES * 2 * DQ_BK) * RB;
+  // dK/dV: 64 key rows of K and V (4 warps); Q and dO tiles of 32 queries,
+  // with their lse and delta rows, in the ring
+  static constexpr int KV_BK = 64, KV_BQ = 32;
+  static constexpr size_t dkdv_bytes =
+      (size_t)(2 * KV_BK + STAGES * 2 * KV_BQ) * RB + STAGES * 2 * KV_BQ * sizeof(float);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; a false `full` fills
+// the destination with zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [r0, r0 + R) of an (n_rows, D) bf16 matrix into R padded rows at
+// shared address dst, by all NT threads; rows past n_rows become zeros
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_rows_async(uint32_t dst, const bf16* __restrict__ src,
+                                                int r0, int n_rows) {
+  constexpr int PER_ROW = D / 8, N = R * PER_ROW;
+#pragma unroll
+  for (int u = 0; u < (N + NT - 1) / NT; ++u) {
+    const int e = threadIdx.x + u * NT;
+    if (N % NT == 0 || e < N) {
+      const int r = e / PER_ROW, c = e % PER_ROW;
+      const bool in = r0 + r < n_rows;
+      cp_async16(dst + r * Tc<D>::RB + c * 16, src + (size_t)(in ? r0 + r : 0) * D + c * 8, in);
+    }
+  }
+}
+
+// s (16 x 8 NB) += A B^T: A is the warp's 16 rows at a_addr, B is 8 NB rows
+// at b_addr, both D wide (a score tile: Q K^T, dO V^T, K Q^T, V dO^T)
+template <int D, int NB>
+__device__ __forceinline__ void mma_abt(float (&s)[NB][4], uint32_t a_addr, uint32_t b_addr) {
+  constexpr int RB = Tc<D>::RB;
+  const int lane = threadIdx.x & 31;
+  const uint32_t a_lane = a_addr + (lane & 15) * RB + (lane >> 4) * 16;
+  const uint32_t b_lane = b_addr + ((lane & 7) + (lane >> 4) * 8) * RB + ((lane >> 3) & 1) * 16;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_lane + kk * 32);
+#pragma unroll
+    for (int np = 0; np < NB / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, b_lane + np * 16 * RB + kk * 32);
+      mma16816(s[2 * np], a, b[0], b[1]);
+      mma16816(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// A fragments (16 x 16 NB / 2) of a score tile's accumulators, in bf16
+template <int NB>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[NB / 2][4], const float (&p)[NB][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    pa[kk][0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    pa[kk][1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    pa[kk][2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+  }
+}
+
+// o (16 x D) += P M: P in A fragments over 16 KB columns, M is 16 KB rows
+// of D at m_addr, read transposed by ldmatrix (P V, P^T dO, dS^T Q, dS K)
+template <int D, int KB>
+__device__ __forceinline__ void mma_pm(float (&o)[D / 8][4], const uint32_t (&pa)[KB][4],
+                                       uint32_t m_addr) {
+  constexpr int RB = Tc<D>::RB;
+  const int lane = threadIdx.x & 31;
+  const uint32_t m_lane = m_addr + ((lane & 7) + ((lane >> 3) & 1) * 8) * RB + (lane >> 4) * 16;
+#pragma unroll
+  for (int kk = 0; kk < KB; ++kk) {
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, m_lane + kk * 16 * RB + dp * 32);
+      mma16816(o[2 * dp], pa[kk], b[0], b[1]);
+      mma16816(o[2 * dp + 1], pa[kk], b[2], b[3]);
+    }
+  }
+}
+
+// Rows [row0, row0 + 16) of an (n_rows, D) bf16 matrix from a warp's
+// accumulators, row g scaled by f[0] and row g + 8 by f[1]; staged in the
+// warp's own 16 padded shared-memory rows so that every global store is a
+// 16-byte vector.  Rows >= n_rows are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&o)[D / 8][4],
+                                           const float (&f)[2], bf16* stage, int row0,
+                                           int n_rows) {
+  constexpr int LD = Tc<D>::LD, PER_ROW = D / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + nb * 8 + 2 * tq) =
+        pack_bf16(o[nb][0] * f[0], o[nb][1] * f[0]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + nb * 8 + 2 * tq) =
+        pack_bf16(o[nb][2] * f[1], o[nb][3] * f[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * PER_ROW; e += 32) {
+    const int r = e / PER_ROW, c = e % PER_ROW;
+    if (row0 + r < n_rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+  }
+}
+
+// Under every mask kind the keys a query row reaches form one interval, and
+// so do the query rows that reach a key.  lo / hi: the live columns of the
+// lane's rows `row` and `row + 8` of a score tile (empty for rows >= Sq).
+__device__ __forceinline__ void lane_row_keys(const Mask& mask, int row, int Sq, int Sk,
+                                              int (&lo)[2], int (&hi)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lo[r] = hi[r] = 0;
+    if (row + 8 * r < Sq) mask.key_range(row + 8 * r, row + 8 * r + 1, Sk, &lo[r], &hi[r]);
+  }
+}
+
+// Set the elements of a score tile (the lane's columns start at col0:
+// col0 + 8 nb + {0, 1}) outside its rows' live columns [lo, hi) to `dead`
+template <int NB>
+__device__ __forceinline__ void mask_tile(float (&s)[NB][4], int col0, const int (&lo)[2],
+                                          const int (&hi)[2], float dead) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + nb * 8 + (e & 1), r = e >> 1;
+      if (col < lo[r] || col >= hi[r]) s[nb][e] = dead;
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One block per (128 query rows, query head, batch row), launched heaviest
+// causal tile first.  Online softmax in the log2 domain: x = s scale
+// log2(e), p = exp2(x - m), lse = m ln 2 + log(l).
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
     Mask mask, float scale) {
-  using S = TcSmem<D>;
-  constexpr int LD = S::LD, FLD = S::FLD, PLD = S::PLD, OLD = S::OLD;
+  using T = Tc<D>;
+  constexpr int BQ = T::F_BQ, BK = T::F_BK, ST = STAGES, NB = BK / 8, RB = T::RB;
+  constexpr int NT = BQ * 2;                     // a warp per 16 rows
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + S::tile);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + 2 * S::tile);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* f_s = reinterpret_cast<float*>(smem + 4 * S::tile) + warp * 16 * FLD;
-  bf16* p_s = reinterpret_cast<bf16*>(smem + 4 * S::tile + S::fbuf) + warp * 16 * PLD;
-  float* l_s = reinterpret_cast<float*>(smem + 4 * S::tile + S::fbuf + S::pbuf) +
-               warp * 16;
-  float* m_s = l_s + 64;
+  const uint32_t q_addr = smem_addr(smem);
+  const uint32_t kv_addr = q_addr + BQ * RB;     // stage s: K, then V, of BK rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 
-  const int i0 = blockIdx.x * 64, hq = blockIdx.y, b = blockIdx.z;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hkv);
-  const int iw = i0 + warp * 16;                       // this warp's first row
+  const int iw = i0 + warp * 16;                 // this warp's first row
   const size_t q_row0 = ((size_t)b * Hq + hq) * Sq;
-  const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Sk * D;
-  stage64<D, LD>(q_s, q + q_row0 * D, i0, Sq);
+  const bf16* kb = k + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
+  const bf16* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
 
-  int k_begin, k_end;
-  mask.key_range(i0, min(i0 + 64, Sq), Sk, &k_begin, &k_end);
-  const int j_first = (k_begin / 64) * 64;
+  int k_begin, k_end, wk_begin, wk_end;
+  mask.key_range(i0, min(i0 + BQ, Sq), Sk, &k_begin, &k_end);
+  mask.key_range(iw, min(iw + 16, Sq), Sk, &wk_begin, &wk_end);
+  const bool warp_live = iw < Sq;
+  const int j_first = (k_begin / BK) * BK;
+  const int n_tiles = k_end > j_first ? (k_end - j_first + BK - 1) / BK : 0;
+  int lo[2], hi[2];
+  lane_row_keys(mask, iw + g, Sq, Sk, lo, hi);
 
-  // softmax statistics: two lanes per row (row r = lane / 2, columns
-  // [32 h, 32 h + 32) for h = lane % 2), visited from a per-lane start so
-  // that the 32 lanes read 32 different shared-memory banks
-  const int r = lane >> 1, h = lane & 1, i = iw + r;
-  const int c_off = r + 16 * h;
-  float m_r = NEG_INF, l_r = 0.f;
-
-  // pass 1: row max m and sum l
-  for (int j0 = j_first; j0 < k_end; j0 += 64) {
-    __syncthreads();
-    stage64<D, LD>(k_s, k + kv_off, j0, Sk);
-    __syncthreads();
-    tc_scores<D, LD, FLD>(f_s, q_s + warp * 16 * LD, k_s);
-    __syncwarp();
-    float x[32];
-    float mx = NEG_INF;
+  // tile t goes to stage t % ST; tiles 0 .. ST - 2 (and Q) before the loop
+  auto load_kv = [&](int t) {
+    const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+    load_rows_async<D, BK, NT>(st, kb, j_first + t * BK, Sk);
+    load_rows_async<D, BK, NT>(st + BK * RB, vb, j_first + t * BK, Sk);
+  };
+  load_rows_async<D, BQ, NT>(q_addr, q + q_row0 * D, i0, Sq);
 #pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      const int c = 32 * h + ((t + c_off) & 31), j = j0 + c;
-      const bool ok = i < Sq && j < Sk && mask.live(i, j);
-      x[t] = ok ? f_s[r * FLD + c] * scale : NEG_INF;
-      mx = fmaxf(mx, x[t]);
-    }
-    const float m_new = fmaxf(m_r, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)));
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < 32; ++t) sum += x[t] == NEG_INF ? 0.f : expf(x[t] - m_new);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_r = l_r * expf(m_r - m_new) + sum;
-    m_r = m_new;
-    __syncwarp();
+  for (int t = 0; t < ST - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
   }
 
-  if (h == 0) {
-    l_s[r] = l_r;
-    m_s[r] = m_r;
-    if (i < Sq) lse[q_row0 + i] = m_r + logf(fmaxf(l_r, 1e-30f));
-  }
-  __syncwarp();
+  float o[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float c = scale * LOG2E;
 
-  // pass 2: acc = sum_j exp(s - m) v_j; lane owns columns lane, lane + 32
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-  for (int j0 = j_first; j0 < k_end; j0 += 64) {
+  for (int t = 0; t < n_tiles; ++t) {
+    // tile t has landed, and every warp is done with tile t - 1, whose stage
+    // now takes tile t + ST - 1 while this one is multiplied
+    cp_async_wait<ST - 2>();
     __syncthreads();
-    stage64<D, LD>(k_s, k + kv_off, j0, Sk);
-    stage64<D, LD>(v_s, v + kv_off, j0, Sk);
-    __syncthreads();
-    tc_scores<D, LD, FLD>(f_s, q_s + warp * 16 * LD, k_s);
-    __syncwarp();
+    if (t + ST - 1 < n_tiles) load_kv(t + ST - 1);
+    cp_async_commit();
+    const int j0 = j_first + t * BK;
+    if (warp_live && j0 < wk_end && j0 + BK > wk_begin) {
+      const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+      float s[NB][4];
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const float m_rr = m_s[rr];
+      for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+      mma_abt<D, NB>(s, q_addr + warp * 16 * RB, st);
+
+      // scale; mask only a tile that crosses the mask's edge or a tail
+      const bool edge =
+          j0 + BK > Sk || iw + 16 > Sq || !mask.all_live(iw, iw + 15, j0, j0 + BK - 1);
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int c = lane + 32 * hh, j = j0 + c;
-        const bool ok = iw + rr < Sq && j < Sk && mask.live(iw + rr, j);
-        p_s[rr * PLD + c] =
-            __float2bfloat16(ok ? expf(f_s[rr * FLD + c] * scale - m_rr) : 0.f);
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] *= c;
       }
+      if (edge) mask_tile<NB>(s, j0 + 2 * tq, lo, hi, NEG_INF);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+      }
+      // a masked score gets p = exp2(NEG_INF - m) = 0 exactly; a row with no
+      // live key yet subtracts 0, so its p are 0 and l stays 0
+      float m_use[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        m_use[r] = m_new == NEG_INF ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - m_use[r]);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[nb][e] - m_use[e >> 1]);
+          s[nb][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb) {
+        o[nb][0] *= alpha[0];
+        o[nb][1] *= alpha[0];
+        o[nb][2] *= alpha[1];
+        o[nb][3] *= alpha[1];
+      }
+      uint32_t pa[NB / 2][4];
+      pack_a<NB>(pa, s);
+      mma_pm<D, NB / 2>(o, pa, st + BK * RB);
     }
-    __syncwarp();
-    tc_accumulate<D, LD, PLD>(acc, p_s, v_s);
-    __syncwarp();
   }
-  __syncthreads();   // every warp is done with k_s / v_s: reuse them for staging
-  float* o_s = reinterpret_cast<float*>(smem + S::tile) + warp * 16 * OLD;
-  tc_store_rows<D, OLD>(out + q_row0 * D, acc, o_s, iw, Sq, 1.f, l_s);
-}
+  cp_async_wait<0>();
+  __syncthreads();             // Q has landed even when no tile ran
 
-template <int D>
-__global__ void __launch_bounds__(128) fa_bwd_dkdv_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int Hq, int Hkv, int Sq, int Sk, Mask mask, float scale) {
-  using S = TcSmem<D>;
-  constexpr int LD = S::LD, FLD = S::FLD, PLD = S::PLD, OLD = S::OLD;
-  extern __shared__ __align__(128) unsigned char smem[];
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    f[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + S::tile);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + 2 * S::tile);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + 3 * S::tile);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* f_s = reinterpret_cast<float*>(smem + 4 * S::tile) + warp * 16 * FLD;
-  bf16* p_s = reinterpret_cast<bf16*>(smem + 4 * S::tile + S::fbuf) + warp * 16 * PLD;
-  float* lse_s = reinterpret_cast<float*>(smem + 4 * S::tile + S::fbuf + S::pbuf);
-  float* dl_s = lse_s + 64;
-
-  const int j0 = blockIdx.x * 64, hk = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int jw = j0 + warp * 16;                       // this warp's first key
-  const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Sk * D;
-  stage64<D, LD>(k_s, k + kv_off, j0, Sk);
-  stage64<D, LD>(v_s, v + kv_off, j0, Sk);
-
-  FragC dk_acc[D / 16], dv_acc[D / 16];
+  store_rows<D>(out + q_row0 * D, o, f, q_s + warp * 16 * T::LD, iw, Sq);
+  if (tq == 0) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wm::fill_fragment(dk_acc[n], 0.f);
-    wm::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  int i_begin, i_end;
-  mask.row_range(j0, min(j0 + 64, Sk), Sq, &i_begin, &i_end);
-  i_end = min(i_end, Sq);
-  for (int g = 0; g < G; ++g) {
-    const size_t q_row0 = ((size_t)b * Hq + hk * G + g) * Sq;
-    for (int i0 = (i_begin / 64) * 64; i0 < i_end; i0 += 64) {
-      __syncthreads();
-      stage64<D, LD>(q_s, q + q_row0 * D, i0, Sq);
-      stage64<D, LD>(do_s, dout + q_row0 * D, i0, Sq);
-      if (threadIdx.x < 64) {
-        const bool in = i0 + threadIdx.x < Sq;
-        lse_s[threadIdx.x] = in ? lse[q_row0 + i0 + threadIdx.x] : 0.f;
-        dl_s[threadIdx.x] = in ? delta[q_row0 + i0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-      // P^T (16 keys x 64 queries) = exp(K Q^T * scale - lse), masked; the
-      // lane keeps its 32 entries in f32 for dS
-      tc_scores<D, LD, FLD>(f_s, k_s + warp * 16 * LD, q_s);
-      __syncwarp();
-      float p[16][2];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = lane + 32 * h, i = i0 + c, j = jw + r;
-          const bool ok = i < Sq && j < Sk && mask.live(i, j);
-          p[r][h] = ok ? expf(f_s[r * FLD + c] * scale - lse_s[c]) : 0.f;
-          p_s[r * PLD + c] = __float2bfloat16(p[r][h]);
-        }
-      }
-      __syncwarp();
-      tc_accumulate<D, LD, PLD>(dv_acc, p_s, do_s);        // dV += P^T dO
-      // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) in place of P^T
-      tc_scores<D, LD, FLD>(f_s, v_s + warp * 16 * LD, do_s);
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = lane + 32 * h;
-          p_s[r * PLD + c] = __float2bfloat16(p[r][h] * (f_s[r * FLD + c] - dl_s[c]));
-        }
-      }
-      __syncwarp();
-      tc_accumulate<D, LD, PLD>(dk_acc, p_s, q_s);         // dK += dS^T Q
-      __syncwarp();
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + g + 8 * r;
+      if (i < Sq)
+        lse[q_row0 + i] = (m[r] == NEG_INF ? NEG_INF : m[r] * LN2) + logf(fmaxf(l[r], 1e-30f));
     }
   }
-  __syncthreads();   // every warp is done with q_s / do_s: reuse them for staging
-  float* o_s = reinterpret_cast<float*>(smem) + warp * 16 * OLD;
-  tc_store_rows<D, OLD>(dk + kv_off, dk_acc, o_s, jw, Sk, scale, nullptr);
-  __syncwarp();
-  tc_store_rows<D, OLD>(dv + kv_off, dv_acc, o_s, jw, Sk, 1.f, nullptr);
 }
 
-// For the dQ kernel's 16 query rows against keys [j0, j0 + 64): P = exp(Q K^T
-// * scale - lse), masked, into f32 registers (rows r, columns lane and
-// lane + 32), and dP = dO V^T into f_s.
-template <int D, int LD, int FLD>
-__device__ __forceinline__ void dq_tile_p_dp(float (&p)[16][2], float* f_s,
-                                             const bf16* q_rows, const bf16* do_rows,
-                                             const bf16* k_s, const bf16* v_s,
-                                             const float* lse_rows, int iw, int j0, int Sq,
-                                             int Sk, const Mask& mask, float scale) {
-  const int lane = threadIdx.x % 32;
-  tc_scores<D, LD, FLD>(f_s, q_rows, k_s);
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int i = iw + r;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = lane + 32 * h, j = j0 + c;
-      const bool ok = i < Sq && j < Sk && mask.live(i, j);
-      p[r][h] = ok ? expf(f_s[r * FLD + c] * scale - lse_rows[r]) : 0.f;
-    }
-  }
-  __syncwarp();
-  tc_scores<D, LD, FLD>(f_s, do_rows, v_s);
-  __syncwarp();
-}
-
-// One block per (64 query rows, query head, batch row).  Pass 1 takes
-// delta = sum_j P dP for its rows and writes it; pass 2 accumulates
-// dQ = scale * dS K with dS = P (dP - delta).
+// One block per (64 query rows, query head, batch row), launched heaviest
+// causal tile first.  Two passes over the key tiles its rows reach: the
+// first takes delta = sum_j P dP for its rows and writes it; the second
+// accumulates dQ = scale dS K with dS = P (dP - delta).
 template <int D>
-__global__ void __launch_bounds__(128) fa_bwd_dq_tc_kernel(
+__global__ void __launch_bounds__(Tc<D>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk,
     Mask mask, float scale) {
-  using S = TcSmem<D>;
-  constexpr int LD = S::LD, FLD = S::FLD, PLD = S::PLD, OLD = S::OLD;
+  using T = Tc<D>;
+  constexpr int BQ = T::DQ_BQ, BK = T::DQ_BK, ST = STAGES, NB = BK / 8, RB = T::RB;
+  constexpr int NT = BQ * 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = reinterpret_cast<bf16*>(smem + S::tile);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + 2 * S::tile);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + 3 * S::tile);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* f_s = reinterpret_cast<float*>(smem + 4 * S::tile) + warp * 16 * FLD;
-  bf16* p_s = reinterpret_cast<bf16*>(smem + 4 * S::tile + S::fbuf) + warp * 16 * PLD;
-  float* lse_s = reinterpret_cast<float*>(smem + 4 * S::tile + S::fbuf + S::pbuf);
-  float* dl_s = lse_s + 64;
+  const uint32_t q_addr = smem_addr(smem);
+  const uint32_t do_addr = q_addr + BQ * RB;
+  const uint32_t kv_addr = do_addr + BQ * RB;    // stage s: K, then V, of BK rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 
-  const int i0 = blockIdx.x * 64, hq = blockIdx.y, b = blockIdx.z;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hkv);
   const int iw = i0 + warp * 16;
   const size_t q_row0 = ((size_t)b * Hq + hq) * Sq;
-  const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Sk * D;
-  stage64<D, LD>(q_s, q + q_row0 * D, i0, Sq);
-  stage64<D, LD>(do_s, dout + q_row0 * D, i0, Sq);
-  if (threadIdx.x < 64)
-    lse_s[threadIdx.x] = i0 + threadIdx.x < Sq ? lse[q_row0 + i0 + threadIdx.x] : 0.f;
+  const bf16* kb = k + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
+  const bf16* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
 
-  int k_begin, k_end;
-  mask.key_range(i0, min(i0 + 64, Sq), Sk, &k_begin, &k_end);
-  const int j_first = (k_begin / 64) * 64;
+  int k_begin, k_end, wk_begin, wk_end;
+  mask.key_range(i0, min(i0 + BQ, Sq), Sk, &k_begin, &k_end);
+  mask.key_range(iw, min(iw + 16, Sq), Sk, &wk_begin, &wk_end);
+  const bool warp_live = iw < Sq;
+  const int j_first = (k_begin / BK) * BK;
+  const int n_tiles = k_end > j_first ? (k_end - j_first + BK - 1) / BK : 0;
+  int lo[2], hi[2];
+  lane_row_keys(mask, iw + g, Sq, Sk, lo, hi);
 
-  float p[16][2];
-
-  // pass 1: delta = sum_j P dP, per row
-  float part[16];
+  // iteration t < 2 n_tiles visits key tile t mod n_tiles, in stage t % ST
+  const int n_iter = 2 * n_tiles;
+  auto load_kv = [&](int t) {
+    const int j0 = j_first + (t % n_tiles) * BK;
+    const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+    load_rows_async<D, BK, NT>(st, kb, j0, Sk);
+    load_rows_async<D, BK, NT>(st + BK * RB, vb, j0, Sk);
+  };
+  load_rows_async<D, BQ, NT>(q_addr, q + q_row0 * D, i0, Sq);
+  load_rows_async<D, BQ, NT>(do_addr, dout + q_row0 * D, i0, Sq);
 #pragma unroll
-  for (int r = 0; r < 16; ++r) part[r] = 0.f;
-  for (int j0 = j_first; j0 < k_end; j0 += 64) {
-    __syncthreads();
-    stage64<D, LD>(k_s, k + kv_off, j0, Sk);
-    stage64<D, LD>(v_s, v + kv_off, j0, Sk);
-    __syncthreads();
-    dq_tile_p_dp<D, LD, FLD>(p, f_s, q_s + warp * 16 * LD, do_s + warp * 16 * LD, k_s,
-                             v_s, lse_s + warp * 16, iw, j0, Sq, Sk, mask, scale);
-#pragma unroll
-    for (int r = 0; r < 16; ++r)
-      part[r] += p[r][0] * f_s[r * FLD + lane] + p[r][1] * f_s[r * FLD + lane + 32];
-    __syncwarp();
+  for (int t = 0; t < ST - 1; ++t) {
+    if (t < n_iter) load_kv(t);
+    cp_async_commit();
   }
+
+  // lse of the lane's rows g and g + 8, in the log2 domain
+  float lse2[2];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const float dl = warp_sum(part[r]);
-    if (lane == 0) {
-      dl_s[warp * 16 + r] = dl;
-      if (iw + r < Sq) delta[q_row0 + iw + r] = dl;
+  for (int r = 0; r < 2; ++r) {
+    const int i = iw + g + 8 * r;
+    lse2[r] = i < Sq ? lse[q_row0 + i] * LOG2E : 0.f;
+  }
+  const float c = scale * LOG2E;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  float dl[2] = {0.f, 0.f};   // pass 1: the lane's partial sums; then delta
+
+  auto finish_delta = [&]() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dl[r] = quad_sum(dl[r]);
+      const int i = iw + g + 8 * r;
+      if (tq == 0 && i < Sq) delta[q_row0 + i] = dl[r];
     }
-  }
-  __syncwarp();
+  };
 
-  // pass 2: dQ += dS K with dS = P (dP - delta)
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-  for (int j0 = j_first; j0 < k_end; j0 += 64) {
+  for (int t = 0; t < n_iter; ++t) {
+    cp_async_wait<ST - 2>();
     __syncthreads();
-    stage64<D, LD>(k_s, k + kv_off, j0, Sk);
-    stage64<D, LD>(v_s, v + kv_off, j0, Sk);
-    __syncthreads();
-    dq_tile_p_dp<D, LD, FLD>(p, f_s, q_s + warp * 16 * LD, do_s + warp * 16 * LD, k_s,
-                             v_s, lse_s + warp * 16, iw, j0, Sq, Sk, mask, scale);
+    if (t + ST - 1 < n_iter) load_kv(t + ST - 1);
+    cp_async_commit();
+    if (t == n_tiles) finish_delta();
+    const bool pass2 = t >= n_tiles;
+    const int j0 = j_first + (pass2 ? t - n_tiles : t) * BK;
+    if (warp_live && j0 < wk_end && j0 + BK > wk_begin) {
+      const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+      float s[NB][4], dp[NB][4];
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float dl = dl_s[warp * 16 + r];
+      for (int nb = 0; nb < NB; ++nb) {
+        s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+        dp[nb][0] = dp[nb][1] = dp[nb][2] = dp[nb][3] = 0.f;
+      }
+      mma_abt<D, NB>(s, q_addr + warp * 16 * RB, st);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        p_s[r * PLD + c] = __float2bfloat16(p[r][h] * (f_s[r * FLD + c] - dl));
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = s[nb][e] * c - lse2[e >> 1];
+      }
+      const bool edge =
+          j0 + BK > Sk || iw + 16 > Sq || !mask.all_live(iw, iw + 15, j0, j0 + BK - 1);
+      if (edge) mask_tile<NB>(s, j0 + 2 * tq, lo, hi, NEG_INF);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = exp2f(s[nb][e]);
+      }
+      mma_abt<D, NB>(dp, do_addr + warp * 16 * RB, st + BK * RB);
+      if (!pass2) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dl[e >> 1] += s[nb][e] * dp[nb][e];
+        }
+      } else {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nb][e] *= dp[nb][e] - dl[e >> 1];
+        }
+        uint32_t da[NB / 2][4];
+        pack_a<NB>(da, s);
+        mma_pm<D, NB / 2>(acc, da, st);            // dQ += dS K
       }
     }
-    __syncwarp();
-    tc_accumulate<D, LD, PLD>(acc, p_s, k_s);
   }
-  __syncthreads();   // every warp is done with k_s / v_s: reuse them for staging
-  float* o_s = reinterpret_cast<float*>(smem + 2 * S::tile) + warp * 16 * OLD;
-  tc_store_rows<D, OLD>(dq + q_row0 * D, acc, o_s, iw, Sq, scale, nullptr);
+  if (n_tiles == 0) finish_delta();               // rows that reach no key: 0
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const float f[2] = {scale, scale};
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  store_rows<D>(dq + q_row0 * D, acc, f, q_s + warp * 16 * T::LD, iw, Sq);
+}
+
+// One block per (64 keys, KV head, batch row); each warp owns 16 keys and
+// holds their dK and dV in registers.  The block streams the (query head,
+// query tile) pairs that reach its keys — the G query heads of its KV head
+// in order — so the GQA sum is taken in a fixed order, with no atomics.
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq,
+    int Hkv, int Sq, int Sk, Mask mask, float scale) {
+  using T = Tc<D>;
+  constexpr int BKV = T::KV_BK, QT = T::KV_BQ, ST = STAGES, NB = QT / 8, RB = T::RB;
+  constexpr int NT = BKV * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t k_addr = smem_addr(smem);
+  const uint32_t v_addr = k_addr + BKV * RB;
+  const uint32_t qd_addr = v_addr + BKV * RB;    // stage s: Q, then dO, of QT rows
+  float* stats = reinterpret_cast<float*>(smem + (2 * BKV + ST * 2 * QT) * RB);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+
+  const int j0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int jw = j0 + warp * 16;                 // this warp's first key
+  const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Sk * D;
+
+  int i_begin, i_end, wi_begin, wi_end;
+  mask.row_range(j0, min(j0 + BKV, Sk), Sq, &i_begin, &i_end);
+  mask.row_range(jw, min(jw + 16, Sk), Sq, &wi_begin, &wi_end);
+  i_end = min(i_end, Sq);
+  const bool warp_live = jw < Sk;
+  const int i_first = (max(i_begin, 0) / QT) * QT;
+  int lo[2], hi[2];            // the query rows that reach the lane's keys
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = jw + g + 8 * r;
+    lo[r] = hi[r] = 0;
+    if (j < Sk) mask.row_range(j, j + 1, Sq, &lo[r], &hi[r]);
+  }
+  const int nq = i_end > i_first ? (i_end - i_first + QT - 1) / QT : 0;
+  const int n_tiles = G * nq;
+
+  // tile t: query head hk G + t / nq, rows from i_first + (t % nq) QT
+  auto load_qt = [&](int t) {
+    const int i0 = i_first + (t % nq) * QT;
+    const size_t q_row0 = ((size_t)b * Hq + hk * G + t / nq) * Sq;
+    const int s = t % ST;
+    const uint32_t st = qd_addr + s * 2 * QT * RB;
+    load_rows_async<D, QT, NT>(st, q + q_row0 * D, i0, Sq);
+    load_rows_async<D, QT, NT>(st + QT * RB, dout + q_row0 * D, i0, Sq);
+    if (threadIdx.x < 2 * QT) {
+      const int r = threadIdx.x % QT, which = threadIdx.x / QT;
+      const bool in = i0 + r < Sq;
+      const float* src = (which == 0 ? lse : delta) + q_row0 + (in ? i0 + r : 0);
+      cp_async4(smem_addr(stats + (s * 2 + which) * QT + r), src, in);
+    }
+  };
+  load_rows_async<D, BKV, NT>(k_addr, k + kv_off, j0, Sk);
+  load_rows_async<D, BKV, NT>(v_addr, v + kv_off, j0, Sk);
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {
+    if (t < n_tiles) load_qt(t);
+    cp_async_commit();
+  }
+
+  const float c = scale * LOG2E;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    dk_acc[nb][0] = dk_acc[nb][1] = dk_acc[nb][2] = dk_acc[nb][3] = 0.f;
+    dv_acc[nb][0] = dv_acc[nb][1] = dv_acc[nb][2] = dv_acc[nb][3] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (t + ST - 1 < n_tiles) load_qt(t + ST - 1);
+    cp_async_commit();
+    const int i0 = i_first + (t % nq) * QT;
+    if (warp_live && i0 < wi_end && i0 + QT > wi_begin) {
+      const int s_ = t % ST;
+      const uint32_t qs = qd_addr + s_ * 2 * QT * RB, dos = qs + QT * RB;
+      const float* lse_s = stats + (s_ * 2) * QT;
+      const float* dl_s = lse_s + QT;
+      // P^T (16 keys x QT queries) = exp2(K Q^T c - lse log2(e)), masked
+      float p[NB][4], dpt[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        p[nb][0] = p[nb][1] = p[nb][2] = p[nb][3] = 0.f;
+        dpt[nb][0] = dpt[nb][1] = dpt[nb][2] = dpt[nb][3] = 0.f;
+      }
+      mma_abt<D, NB>(p, k_addr + warp * 16 * RB, qs);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + nb * 8 + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[nb][e] = p[nb][e] * c - ((e & 1) ? ls.y : ls.x) * LOG2E;
+      }
+      const bool edge =
+          i0 + QT > Sq || jw + 16 > Sk || !mask.all_live(i0, i0 + QT - 1, jw, jw + 15);
+      if (edge) mask_tile<NB>(p, i0 + 2 * tq, lo, hi, NEG_INF);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[nb][e] = exp2f(p[nb][e]);
+      }
+      mma_abt<D, NB>(dpt, v_addr + warp * 16 * RB, dos);     // dP^T = V dO^T
+      uint32_t pa[NB / 2][4];
+      pack_a<NB>(pa, p);
+      mma_pm<D, NB / 2>(dv_acc, pa, dos);                    // dV += P^T dO
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float2 dl = *reinterpret_cast<const float2*>(dl_s + nb * 8 + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[nb][e] *= dpt[nb][e] - ((e & 1) ? dl.y : dl.x);
+      }
+      pack_a<NB>(pa, p);
+      mma_pm<D, NB / 2>(dk_acc, pa, qs);                     // dK += dS^T Q
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();             // K and V have landed even when no tile ran
+
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = k_s + BKV * T::LD;
+  const float fk[2] = {scale, scale}, fv[2] = {1.f, 1.f};
+  store_rows<D>(dk + kv_off, dk_acc, fk, k_s + warp * 16 * T::LD, jw, Sk);
+  store_rows<D>(dv + kv_off, dv_acc, fv, v_s + warp * 16 * T::LD, jw, Sk);
 }
 
 // ---------------------------------------------------------------------------
@@ -947,11 +1192,12 @@ cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, void* 
                   int B, int Hq, int Hkv, int Sq, int Sk, Mask mask, float scale,
                   cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = TcSmem<D>::bytes;
+    const size_t smem = Tc<D>::fwd_bytes;
     static bool configured = false;
-    const cudaError_t e = allow_smem(fa_fwd_tc_kernel<D>, smem, &configured);
+    const cudaError_t e = allow_smem(fa_fwd_mma_kernel<D>, smem, &configured);
     if (e != cudaSuccess) return e;
-    fa_fwd_tc_kernel<D><<<dim3((Sq + 63) / 64, Hq, B), 128, smem, stream>>>(
+    constexpr int BQ = Tc<D>::F_BQ;
+    fa_fwd_mma_kernel<D><<<dim3((Sq + BQ - 1) / BQ, Hq, B), BQ * 2, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse),
         Hq, Hkv, Sq, Sk, mask, scale);
@@ -977,16 +1223,18 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaSuccess;
   if constexpr (std::is_same<T, bf16>::value) {
     // the dQ kernel takes delta = sum_j P dP itself and writes it for dK/dV
-    const size_t smem = TcSmem<D>::bytes;
+    using TC = Tc<D>;
     static bool conf_dkdv = false, conf_dq = false;
-    e = allow_smem(fa_bwd_dkdv_tc_kernel<D>, smem, &conf_dkdv);
-    if (e == cudaSuccess) e = allow_smem(fa_bwd_dq_tc_kernel<D>, smem, &conf_dq);
+    e = allow_smem(fa_bwd_dkdv_mma_kernel<D>, TC::dkdv_bytes, &conf_dkdv);
+    if (e == cudaSuccess) e = allow_smem(fa_bwd_dq_mma_kernel<D>, TC::dq_bytes, &conf_dq);
     if (e != cudaSuccess) return e;
-    fa_bwd_dq_tc_kernel<D><<<dim3((Sq + 63) / 64, Hq, B), 128, smem, stream>>>(
+    fa_bwd_dq_mma_kernel<D><<<dim3((Sq + TC::DQ_BQ - 1) / TC::DQ_BQ, Hq, B), TC::DQ_BQ * 2,
+                              TC::dq_bytes, stream>>>(
         q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dq), Hq, Hkv, Sq, Sk, mask, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    fa_bwd_dkdv_tc_kernel<D><<<dim3((Sk + 63) / 64, Hkv, B), 128, smem, stream>>>(
+    fa_bwd_dkdv_mma_kernel<D><<<dim3((Sk + TC::KV_BK - 1) / TC::KV_BK, Hkv, B), TC::KV_BK * 2,
+                                TC::dkdv_bytes, stream>>>(
         q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv,
         Sq, Sk, mask, scale);
   } else {
@@ -1017,6 +1265,23 @@ bool bad_shape(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, int kin
          (D != 16 && D != 32 && D != 64 && D != 128) || (dtype != 0 && dtype != 1) ||
          kind < 0 || kind > 3 || (kind == 1 && window <= 0) ||
          (kind == 2 && chunk <= 0) || Hq > 65535 || B > 65535;
+}
+
+// the dynamic shared memory of a bf16 kernel (0: fwd, 1: dQ, 2: dK/dV) for
+// head dim D; -1 for a head dim the kernels do not take
+template <int D>
+int smem_of(int which) {
+  return (int)(which == 0 ? Tc<D>::fwd_bytes
+                          : which == 1 ? Tc<D>::dq_bytes : Tc<D>::dkdv_bytes);
+}
+int smem_bytes(int which, int D) {
+  switch (D) {
+    case 16: return smem_of<16>(which);
+    case 32: return smem_of<32>(which);
+    case 64: return smem_of<64>(which);
+    case 128: return smem_of<128>(which);
+  }
+  return -1;
 }
 
 }  // namespace
@@ -1058,7 +1323,8 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
 
 // Gradients of the forward above: dq (B, Hq, Sq, D), dk and dv (B, Hkv, Sk,
 // D) in the operands' dtype, from q, k, v, the forward's out and lse, and
-// dout.  delta is (B, Hq, Sq) f32 scratch.  Three launches on one stream.
+// dout.  delta is (B, Hq, Sq) f32 scratch.  Two (bf16) or three (f32)
+// launches on one stream.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* out, const void* dout, const void* lse,
                                void* delta, void* dq, void* dk, void* dv, int B,
@@ -1089,6 +1355,13 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
 #undef REPRO_FA_BWD
   return (int)e;
 }
+
+// Dynamic shared memory, in bytes, of the bf16 kernels for head dim D
+// (-1 for a head dim they do not take): the forward, the dQ kernel and the
+// dK/dV kernel.
+int flash_attention_fwd_smem_bytes(int D) { return smem_bytes(0, D); }
+int flash_attention_bwd_dq_smem_bytes(int D) { return smem_bytes(1, D); }
+int flash_attention_bwd_dkdv_smem_bytes(int D) { return smem_bytes(2, D); }
 
 const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

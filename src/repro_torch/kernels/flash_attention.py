@@ -6,7 +6,8 @@ Counterpart of ``repro/kernels/flash_attention.py``:
   whole-prompt prefill (``repro_torch/csrc/flash_attention.cu``), with
   :func:`flash_attention_bwd`, its backward.  The plain version of the
   same function is :func:`repro_torch.kernels.ref.attention`, and of the
-  backward ``torch.autograd.grad`` through it.
+  backward ``torch.autograd.grad`` through it; :func:`smem_footprint_bytes`
+  gives the shared memory its bf16 kernels take.
 * :func:`flash_prefill` — chunked-prefill attention on explicit positions
   (``repro_torch/csrc/prefill_attention.cu``).  Unlike the Pallas kernel
   it reads keys from two sources — the prior cache and the chunk's own
@@ -167,6 +168,30 @@ def flash_attention_bwd(
 #: launches of the forward / backward kernels since the last reset
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+
+
+
+def smem_footprint_bytes(d: int) -> dict[str, int]:
+    """Dynamic shared memory, in bytes, of each bfloat16 kernel of
+    ``csrc/flash_attention.cu`` for head dim ``d`` — the port's counterpart
+    of the reference's ``vmem_footprint_bytes``, and the number the C side
+    exports as ``flash_attention_{fwd,bwd_dq,bwd_dkdv}_smem_bytes``.
+
+    Every tile row is ``d`` bf16 padded by 16 bytes, and every kernel
+    streams its tiles through a two-stage ring.  The forward keeps 128
+    query rows and rings 64-key K and V tiles; the dQ kernel keeps 64 rows
+    each of Q and dO and rings 32-key K and V tiles; the dK/dV kernel keeps
+    64 rows each of K and V and rings 32-query Q and dO tiles with their f32
+    lse and delta rows.
+    """
+    if d not in SUPPORTED_D:
+        raise ValueError(f"head dim {d} not in {SUPPORTED_D}")
+    row, stages = (d + 8) * 2, 2
+    return {
+        "fwd": (128 + stages * 2 * 64) * row,
+        "bwd_dq": (2 * 64 + stages * 2 * 32) * row,
+        "bwd_dkdv": (2 * 64 + stages * 2 * 32) * row + stages * 2 * 32 * 4,
+    }
 
 
 def _launcher():

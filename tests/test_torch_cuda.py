@@ -135,12 +135,20 @@ GRAD_TOL = {torch.bfloat16: dict(atol=3e-2, rtol=3e-2),
 ])
 def test_flash_attention_fwd_bwd_match_plain(B, Hq, Hkv, Sq, Sk, D, q_offset,
                                              kind, kw, dtype):
+    _attention_matches_plain(B, Hq, Hkv, Sq, Sk, D, q_offset, kind, kw, dtype)
+
+
+def _attention_matches_plain(B, Hq, Hkv, Sq, Sk, D, q_offset, kind, kw, dtype, seed=8):
+    """ops.attention's kernels, forward and backward (one launch each),
+    against ref.attention and autograd through it, at TOL / GRAD_TOL.  Rows
+    without a live key carry no cotangent and must come out 0 (the plain
+    version gives the mean of V there)."""
     if dtype == torch.float32:
         torch.backends.cuda.matmul.allow_tf32 = False
-    q = _randn(B, Hq, Sq, D, dtype=dtype, seed=8).requires_grad_()
-    k = _randn(B, Hkv, Sk, D, dtype=dtype, seed=9).requires_grad_()
-    v = _randn(B, Hkv, Sk, D, dtype=dtype, seed=10).requires_grad_()
-    dout = _randn(B, Hq, Sq, D, dtype=dtype, seed=11)
+    q = _randn(B, Hq, Sq, D, dtype=dtype, seed=seed).requires_grad_()
+    k = _randn(B, Hkv, Sk, D, dtype=dtype, seed=seed + 1).requires_grad_()
+    v = _randn(B, Hkv, Sk, D, dtype=dtype, seed=seed + 2).requires_grad_()
+    dout = _randn(B, Hq, Sq, D, dtype=dtype, seed=seed + 3)
     rows = _live_rows(kind, kw, Sq, Sk, q_offset)
     dout = dout * rows[:, None].to(dtype)      # padding rows carry no gradient
     f0, b0 = flash_attention.launches, flash_attention_bwd.launches
@@ -152,9 +160,11 @@ def test_flash_attention_fwd_bwd_match_plain(B, Hq, Hkv, Sq, Sk, D, q_offset,
     g_want = torch.autograd.grad(want, (q, k, v), dout)
     torch.testing.assert_close(got.float()[:, :, rows], want.float()[:, :, rows],
                                **TOL[dtype])
-    for a, b in zip(g_got, g_want):
-        assert a.dtype == dtype
-        torch.testing.assert_close(a.float(), b.float(), **GRAD_TOL[dtype])
+    assert torch.all(got[:, :, ~rows] == 0)
+    for name, a, b in zip("qkv", g_got, g_want):
+        assert a.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(), **GRAD_TOL[dtype],
+                                   msg=lambda m, n=name: f"d{n}: {m}")
 
 
 @requires_cuda
@@ -171,6 +181,87 @@ def test_flash_attention_lse_and_dead_rows():
     out, _ = flash_attention(q, k, k, kind="chunked", chunk=16, q_offset=-8)
     torch.cuda.synchronize()
     assert torch.all(out[:, :, :8] == 0)       # positions -8..-1: no live key
+
+
+#: lengths on and around the bf16 kernels' tiles (16-row warps, 32- and 64-row
+#: tiles, 64- and 128-row blocks); each Sq meets two other Sk
+_EDGES = (1, 63, 64, 65, 127, 128, 129, 1000)
+_EDGE_PAIRS = [(sq, _EDGES[(i + s) % len(_EDGES)])
+               for i, sq in enumerate(_EDGES) for s in (1, 4)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("q_offset", [-8, 0, 128])
+@pytest.mark.parametrize("Sq,Sk", _EDGE_PAIRS)
+def test_flash_attention_bf16_tile_edges(Sq, Sk, q_offset):
+    _attention_matches_plain(1, 4, 2, Sq, Sk, 64, q_offset, "causal", {}, torch.bfloat16,
+                             seed=20)
+
+
+@requires_cuda
+@pytest.mark.parametrize("kind,kw", [("causal", {}), ("sliding", {"window": 100}),
+                                     ("chunked", {"chunk": 96}), ("bidirectional", {})])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_bf16_masks_and_head_dims(kind, kw, D):
+    _attention_matches_plain(2, 4, 2, 200, 330, D, 65, kind, kw, torch.bfloat16, seed=20)
+
+
+@requires_cuda
+@pytest.mark.parametrize("kind,kw", [("causal", {}), ("bidirectional", {})])
+def test_flash_attention_bf16_gqa_g8(kind, kw):
+    _attention_matches_plain(2, 16, 2, 300, 300, 128, 0, kind, kw, torch.bfloat16, seed=20)
+
+
+@requires_cuda
+@pytest.mark.parametrize("kind,kw,q_offset", [
+    ("sliding", {"window": 1}, 0),          # one live key per row
+    ("sliding", {"window": 2}, 0),          # one or two
+    ("chunked", {"chunk": 64}, 0),          # rows just past a chunk boundary
+    ("chunked", {"chunk": 50}, -3),
+])
+def test_flash_attention_bf16_few_key_rows(kind, kw, q_offset):
+    """Rows with one or two live keys: each row of dS = P (dP - delta) must
+    sum to 0, which an inexact delta breaks first here."""
+    _attention_matches_plain(2, 8, 2, 256, 256, 128, q_offset, kind, kw, torch.bfloat16,
+                             seed=20)
+
+
+@requires_cuda
+def test_flash_attention_bf16_is_deterministic():
+    """No atomics: two calls give bit-identical out, lse, dq, dk and dv."""
+    dt = torch.bfloat16
+    q = _randn(2, 16, 1000, 128, dtype=dt, seed=30)
+    k = _randn(2, 2, 1000, 128, dtype=dt, seed=31)
+    v = _randn(2, 2, 1000, 128, dtype=dt, seed=32)
+    dout = _randn(2, 16, 1000, 128, dtype=dt, seed=33)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention(q, k, v)
+        runs.append((out, lse, *flash_attention_bwd(q, k, v, out, lse, dout)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@requires_cuda
+def test_flash_attention_smem_bytes_match_the_kernels():
+    """smem_footprint_bytes is what the bf16 kernels take, for every head dim."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import SUPPORTED_D
+    from repro_torch.kernels.flash_attention import smem_footprint_bytes
+
+    lib = _build.load("flash_attention")
+    for d in SUPPORTED_D:
+        got = {}
+        for key in ("fwd", "bwd_dq", "bwd_dkdv"):
+            fn = getattr(lib, f"flash_attention_{key}_smem_bytes")
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+            got[key] = fn(d)
+        assert got == smem_footprint_bytes(d), d
+        assert max(got.values()) <= bmm.SMEM_BUDGET
+    assert lib.flash_attention_fwd_smem_bytes(48) == -1
 
 
 @requires_cuda

@@ -143,3 +143,26 @@ def test_attention_on_cpu_never_builds_a_kernel():
     assert "flash_attention" not in _build._LIBS
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q.detach(), q.detach(), q.detach())
+
+
+@pytest.mark.parametrize("d,fwd,bwd_dq,bwd_dkdv", [
+    # rows x (d + 8) x 2 bytes; the dK/dV kernel adds 2 stages x 2 x 32 f32
+    (16, 384 * 48, 256 * 48, 256 * 48 + 512),
+    (32, 384 * 80, 256 * 80, 256 * 80 + 512),
+    (64, 384 * 144, 256 * 144, 256 * 144 + 512),
+    (128, 384 * 272, 256 * 272, 256 * 272 + 512),
+])
+def test_smem_footprint_bytes(d, fwd, bwd_dq, bwd_dkdv):
+    """The bf16 kernels' shared memory per head dim (the C side's numbers are
+    held to these on the card): every kernel fits a block's 227 KB, and two
+    forward blocks (plus 1 KB each that the SM reserves) fit one SM's 228 KB
+    at every head dim."""
+    from repro_torch.kernels.blocked_matmul import SMEM_BUDGET
+    from repro_torch.kernels.flash_attention import smem_footprint_bytes
+
+    got = smem_footprint_bytes(d)
+    assert got == {"fwd": fwd, "bwd_dq": bwd_dq, "bwd_dkdv": bwd_dkdv}
+    assert max(got.values()) <= SMEM_BUDGET == 232_448
+    assert 2 * (got["fwd"] + 1024) <= 228 * 1024
+    with pytest.raises(ValueError, match="head dim"):
+        smem_footprint_bytes(d + 8)
