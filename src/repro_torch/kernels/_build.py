@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
 seconds).  Libraries land in ``build/kernels/`` at the repository root —
 a git-ignored directory — or in ``$REPRO_TORCH_BUILD_DIR`` when set, under
-a name that carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.
+a name that carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.
 
 Nothing here runs when a module is imported: the CPU tests import every
 module on a machine with no ``nvcc``.
@@ -51,11 +52,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+    """The library's path: its name hashes the source, every header in
+    ``csrc`` (any source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, pathlib.Path]:

@@ -13,7 +13,9 @@ Counterpart of ``repro/kernels/flash_attention.py``:
   it reads keys from two sources — the prior cache and the chunk's own
   keys — so the model no longer concatenates them.  Its plain version is
   :func:`repro_torch.kernels.ref.prefill_attention` over the
-  concatenation.
+  concatenation.  :func:`prefill_tile_class` mirrors how its bf16 kernel
+  sorts (warp, key tile) pairs into empty, full and partial, and
+  :func:`prefill_smem_bytes` gives the shared memory that kernel takes.
 
 Each kernel is built with ``nvcc`` on first use.
 """
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.blocked_matmul import SMEM_BUDGET
 from repro_torch.kernels.decode_attention import (
     DTYPE_CODES,
     SUPPORTED_D,
@@ -194,6 +197,74 @@ def smem_footprint_bytes(d: int) -> dict[str, int]:
     }
 
 
+#: keys a tile of the bf16 prefill kernel, and the most rows a block holds
+PREFILL_BK = 64
+PREFILL_ROWS = 128
+_INT_MAX = 2**31 - 1
+
+
+def prefill_smem_bytes(d: int, sk: int) -> int:
+    """Dynamic shared memory, in bytes, of the bf16 prefill kernel for head
+    dim ``d`` and ``sk`` = Sc + Sn keys — the number the C side exports as
+    ``prefill_attention_smem_bytes``.  128 padded Q rows, a two-stage ring
+    of 64-key K and V tiles with their int32 positions, 80 bytes of the
+    warps' position extremes, and 20 bytes a key tile (its min and max
+    position, 64 valid bits, its entry in the list of reachable tiles)."""
+    if d not in SUPPORTED_D:
+        raise ValueError(f"head dim {d} not in {SUPPORTED_D}")
+    row, stages = (d + 8) * 2, 2
+    n_tiles = -(-sk // PREFILL_BK)
+    return (PREFILL_ROWS * row + stages * 2 * PREFILL_BK * row
+            + stages * PREFILL_BK * 4 + 80 + 20 * n_tiles)
+
+
+def prefill_row_interval(qp: int, kind: str = "causal", window: int = 0,
+                         chunk: int = 0) -> tuple[int, int]:
+    """The key positions ``[lo, hi]`` a query at position ``qp`` reaches
+    under the mask of :func:`repro_torch.kernels.ref.prefill_attention`:
+    ``hi = qp`` and ``lo`` = 0 (causal), ``qp - window + 1`` (sliding) or
+    the start of ``qp``'s chunk (chunked), at least 0 so holes
+    (``k_pos < 0``) fall outside.  ``(2**31 - 1, -1)`` when it reaches
+    nothing."""
+    lo = 0
+    if kind == "sliding":
+        lo = qp - window + 1
+    elif kind == "chunked":
+        lo = (qp // chunk) * chunk
+    elif kind != "causal":
+        raise ValueError(f"prefill mask kind {kind!r}")
+    lo = max(lo, 0)
+    return (lo, qp) if 0 <= lo <= qp else (_INT_MAX, -1)
+
+
+def prefill_tile_class(q_pos, k_pos, kind: str = "causal", window: int = 0,
+                       chunk: int = 0, rows: range = range(16),
+                       cols: range = range(PREFILL_BK)) -> str:
+    """How the bf16 prefill kernel treats the query rows ``rows`` (a warp's
+    16, or a block's) against the key columns ``cols`` (a tile) of one
+    batch row with positions ``q_pos`` (Sq,) and ``k_pos`` (Sk,).  Rows
+    past Sq and keys past Sk take part as the kernel sees them: reaching
+    nothing, and invalid.
+
+    ``"empty"``: no pair can be live (the warp skips the tile; for a
+    block's rows, the tile is never loaded).  ``"full"``: every pair is
+    live (no per-element test).  ``"partial"``: the exact test runs.  Only
+    a provable verdict is empty or full."""
+    qp = [int(x) for x in q_pos]
+    kp = [int(x) for x in k_pos]
+    iv = [prefill_row_interval(qp[i], kind, window, chunk) if i < len(qp)
+          else (_INT_MAX, -1) for i in rows]
+    keys = [kp[j] if j < len(kp) else -1 for j in cols]
+    valid = [x for x in keys if x >= 0]
+    k_min, k_max = min(valid, default=_INT_MAX), max(valid, default=-1)
+    if k_min > max(h for _, h in iv) or k_max < min(lo for lo, _ in iv):
+        return "empty"
+    if (len(valid) == len(keys) and k_min >= max(lo for lo, _ in iv)
+            and k_max <= min(h for _, h in iv)):
+        return "full"
+    return "partial"
+
+
 def _launcher():
     global _fn
     if _fn is None:
@@ -266,6 +337,9 @@ def flash_prefill(
                    dtype=q.dtype, device=q.device)
     check_operands({"q_pos": q_pos, "k_pos": k_pos},
                    dtype=torch.int32, device=q.device)
+    if q.dtype == torch.bfloat16 and prefill_smem_bytes(D, Sc + Sn) > SMEM_BUDGET:
+        raise ValueError(f"{Sc + Sn} keys: the bf16 kernel's tile list does not "
+                         f"fit {SMEM_BUDGET} bytes of shared memory")
     scale = D ** -0.5 if scale is None else float(scale)
 
     fn = _launcher()

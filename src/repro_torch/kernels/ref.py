@@ -124,6 +124,31 @@ def attention_chunked(
     return torch.cat(outs, dim=2)
 
 
+def prefill_mask(
+    q_pos: torch.Tensor,      # (B, Sq)
+    k_pos: torch.Tensor,      # (B, Sk); < 0 = hole
+    *,
+    kind: str = "causal",
+    window: int = 0,
+    chunk: int = 0,
+) -> torch.Tensor:
+    """(B, Sq, Sk) bool: the live (query, key) pairs of
+    :func:`prefill_attention` — ``q_pos >= k_pos >= 0``, plus
+    ``q_pos - k_pos < window`` (sliding) or the same ``pos // chunk``
+    (chunked)."""
+    qp = q_pos[:, :, None]                       # (B, Sq, 1)
+    kp = k_pos[:, None, :]                       # (B, 1, Sk)
+    m = (qp >= kp) & (kp >= 0)
+    if kind == "sliding":
+        m &= (qp - kp) < window
+    elif kind == "chunked":
+        m &= (torch.div(qp, chunk, rounding_mode="floor")
+              == torch.div(kp, chunk, rounding_mode="floor"))
+    elif kind != "causal":
+        raise ValueError(f"prefill mask kind {kind!r}")
+    return m
+
+
 def prefill_attention(
     q: torch.Tensor,          # (B, Hq, Sq, D) — one prefill chunk of queries
     k: torch.Tensor,          # (B, Hkv, Sk, D) — prior cache ++ chunk keys
@@ -153,16 +178,7 @@ def prefill_attention(
     qg = q.reshape(B, Hkv, G, Sq, D).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
 
-    qp = q_pos[:, :, None]                       # (B, Sq, 1)
-    kp = k_pos[:, None, :]                       # (B, 1, Sk)
-    m = (qp >= kp) & (kp >= 0)
-    if kind == "sliding":
-        m &= (qp - kp) < window
-    elif kind == "chunked":
-        m &= (torch.div(qp, chunk, rounding_mode="floor")
-              == torch.div(kp, chunk, rounding_mode="floor"))
-    elif kind != "causal":
-        raise ValueError(f"prefill mask kind {kind!r}")
+    m = prefill_mask(q_pos, k_pos, kind=kind, window=window, chunk=chunk)
     s = torch.where(m[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())

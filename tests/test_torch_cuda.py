@@ -104,6 +104,155 @@ def test_prefill_kernel_matches_plain(kind, kw, dtype):
     torch.testing.assert_close(got.float()[rows], want.float()[rows], **TOL[dtype])
 
 
+def _pf_positions(B, Sq, Sc, Sn, layout, seed, hole_rate=0.0):
+    """q_pos (B, Sq) and k_pos (B, Sc + Sn) on the card, from numpy: each
+    row's chunk of Sq queries at a cache fill, the chunk's first new_len
+    keys live; ``layout`` "ordered" (slot r holds position r below the
+    fill), "ring" (a ring of Sc slots past its first wrap, as
+    ``_ring_positions`` gives it), with holes punched at ``hole_rate``."""
+    from repro_torch.models.attention import _ring_positions
+
+    rng = np.random.default_rng(seed)
+    if layout == "ring":
+        offs = rng.integers(Sc + 1, 4 * Sc + 2, B)
+        cache = _ring_positions(torch.tensor(offs, dtype=torch.int32), Sc).numpy()
+    else:
+        offs = rng.integers(0, Sc + 1, B)
+        offs[0] = Sc                                  # a full cache
+        r = np.arange(Sc)[None]
+        cache = np.where(r < offs[:, None], r, -1)
+    q_pos = offs[:, None] + np.arange(Sq)[None]
+    new_len = rng.integers(0, Sn + 1, B)
+    new = np.where(np.arange(Sn)[None] < new_len[:, None],
+                   offs[:, None] + np.arange(Sn)[None], -1)
+    k_pos = np.concatenate([cache, new], 1)
+    if hole_rate:
+        k_pos[:, :Sc][rng.random((B, Sc)) < hole_rate] = -1
+    as_t = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda").contiguous()
+    return as_t(q_pos), as_t(k_pos)
+
+
+def _bf16_prefill_matches_plain(B, G, Hkv, D, Sq, Sc, Sn, layout="ordered", kind="causal",
+                                kw=None, hole_rate=0.0, positions=None, seed=40):
+    """flash_prefill in bf16 (one launch) against ref.prefill_attention over
+    the concatenated sources at TOL; rows with no live key are exactly 0.
+    Sn = 0 is the one-source call."""
+    kw = kw or {}
+    dt = torch.bfloat16
+    q = _randn(B, G * Hkv, Sq, D, dtype=dt, seed=seed)
+    kc, vc = (_randn(B, Hkv, Sc, D, dtype=dt, seed=seed + s) for s in (1, 2))
+    kn, vn = (_randn(B, Hkv, Sn, D, dtype=dt, seed=seed + s) for s in (3, 4))
+    q_pos, k_pos = positions or _pf_positions(B, Sq, Sc, Sn, layout, seed, hole_rate)
+    extra = dict(k_new=kn, v_new=vn) if Sn else {}
+    before = flash_prefill.launches
+    got = flash_prefill(q, kc, vc, q_pos, k_pos, kind=kind, **extra, **kw)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    k, v = torch.cat([kc, kn], 2), torch.cat([vc, vn], 2)
+    want = ref.prefill_attention(q, k, v, q_pos, k_pos, kind=kind, **kw)
+    rows = ref.prefill_mask(q_pos, k_pos, kind=kind, **kw).any(-1)     # (B, Sq)
+    rows = rows[:, None, :].expand(B, G * Hkv, Sq)
+    torch.testing.assert_close(got.float()[rows], want.float()[rows], **TOL[dt])
+    assert torch.all(got[~rows] == 0)
+    return got
+
+
+@requires_cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8, 16])
+def test_prefill_bf16_gqa_and_head_dims(G, D):
+    """Every head dim at G = 1 (a block of 128 queries of one head), 2, 8
+    (yi-6b: 16 queries of 8 heads share each K/V tile) and 16 (two blocks of
+    8 heads), with holes in the cache."""
+    _bf16_prefill_matches_plain(3, G, 2, D, 40, 200, 40, hole_rate=0.05)
+
+
+@requires_cuda
+@pytest.mark.parametrize("Sq,Sn", [(1, 1), (17, 17), (129, 129), (17, 0), (129, 0), (33, 7)])
+def test_prefill_bf16_lengths_off_the_tile(Sq, Sn):
+    """Query and chunk lengths off the 16-row and 64-key tiles; Sn = 0 is
+    the one-source call, Sq != Sn a chunk whose keys are not its queries."""
+    _bf16_prefill_matches_plain(2, 8, 2, 128, Sq, 150, Sn)
+
+
+@requires_cuda
+@pytest.mark.parametrize("layout,Sc,hole_rate", [
+    ("ring", 96, 0.0),      # positions wrap: not in order along the cache
+    ("ring", 130, 0.1),     # and with holes
+    ("ordered", 100, 0.0),  # a key tile straddles Sc: rows from both sources
+    ("ordered", 256, 0.02), # holes inside tiles that would otherwise be full
+])
+def test_prefill_bf16_ring_holes_and_straddle(layout, Sc, hole_rate):
+    _bf16_prefill_matches_plain(4, 4, 2, 64, 48, Sc, 48, layout, hole_rate=hole_rate)
+
+
+@requires_cuda
+@pytest.mark.parametrize("kind,kw", [
+    ("sliding", {"window": 20}), ("sliding", {"window": 300}), ("sliding", {"window": 1}),
+    ("chunked", {"chunk": 24}), ("chunked", {"chunk": 64}), ("chunked", {"chunk": 1000}),
+])
+@pytest.mark.parametrize("layout", ["ordered", "ring"])
+def test_prefill_bf16_masks(kind, kw, layout):
+    _bf16_prefill_matches_plain(3, 4, 2, 64, 70, 200, 70, layout, kind, kw, hole_rate=0.03)
+
+
+@requires_cuda
+def test_prefill_bf16_dead_rows_are_zero():
+    """Rows with no live key come out 0: a query at position -1, a batch row
+    whose keys are all holes, and queries earlier than every key."""
+    B, Sq, Sc, Sn = 3, 20, 64, 20
+    q_pos = torch.arange(Sq, dtype=torch.int32, device="cuda")[None].repeat(B, 1) + 100
+    k_pos = torch.arange(Sc + Sn, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    q_pos[0, :5] = -1
+    k_pos[1] = -1
+    k_pos[2] += 110                # queries 100-109 precede every key
+    got = _bf16_prefill_matches_plain(B, 8, 1, 32, Sq, Sc, Sn,
+                                      positions=(q_pos.contiguous(), k_pos.contiguous()))
+    assert torch.all(got[0, :, :5] == 0) and torch.all(got[1] == 0)
+    assert torch.all(got[2, :, :10] == 0) and torch.any(got[2, :, 10:] != 0)
+
+
+@requires_cuda
+def test_prefill_bf16_one_source_equals_two():
+    """The same keys read from one source or split at Sc: bit for bit."""
+    dt = torch.bfloat16
+    q = _randn(2, 16, 60, 128, dtype=dt, seed=50)
+    k, v = (_randn(2, 2, 190, 128, dtype=dt, seed=s) for s in (51, 52))
+    q_pos, k_pos = _pf_positions(2, 60, 130, 60, "ordered", 53)
+    one = flash_prefill(q, k, v, q_pos, k_pos)
+    two = flash_prefill(q, k[:, :, :130].contiguous(), v[:, :, :130].contiguous(), q_pos,
+                        k_pos, k_new=k[:, :, 130:].contiguous(),
+                        v_new=v[:, :, 130:].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+@requires_cuda
+def test_prefill_smem_bytes_match_the_kernel():
+    """prefill_smem_bytes is what the bf16 kernel launches with; a key count
+    whose tile list does not fit is refused before any launch."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import SUPPORTED_D
+    from repro_torch.kernels.flash_attention import prefill_smem_bytes
+
+    fn = _build.load("prefill_attention").prefill_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for d in SUPPORTED_D:
+        for sk in (1, 64, 65, 2304, 40000):
+            assert fn(d, sk) == prefill_smem_bytes(d, sk), (d, sk)
+    assert fn(48, 64) == 0
+    x = torch.zeros(1, 1, 1, 128, device="cuda", dtype=torch.bfloat16)
+    sk = 64 * 8000
+    kv = torch.zeros(1, 1, sk, 128, device="cuda", dtype=torch.bfloat16)
+    before = flash_prefill.launches
+    with pytest.raises(ValueError, match="tile list"):
+        flash_prefill(x, kv, kv, torch.zeros(1, 1, dtype=torch.int32, device="cuda"),
+                      torch.zeros(1, sk, dtype=torch.int32, device="cuda"))
+    assert flash_prefill.launches == before
+
+
 def _live_rows(kind, kw, Sq, Sk, q_offset):
     qp = q_offset + torch.arange(Sq, device="cuda")[:, None]
     kp = torch.arange(Sk, device="cuda")[None, :]
