@@ -11,8 +11,10 @@ version of the same function is :func:`repro_torch.kernels.ref.matmul`.
 The TPU kernel kept its f32 accumulator in a VMEM scratch and sized its
 tiles against ~96 MiB of VMEM.  Here the accumulator lives in registers
 and the tiles in shared memory, of which one block may use 227 KB
-(232,448 bytes).  The kernel has one fixed set of tilings (:data:`TILINGS`)
-and stages one A tile and one B tile per K step, rows padded by 16 bytes.
+(232,448 bytes).  The kernel has one fixed set of tilings (:data:`TILINGS`).
+In bf16 it streams A and B tiles through a ring of up to 4 stages
+(:func:`ring_stages`) filled by TMA and read by ``wgmma``; in f32 it stages
+one A tile and one B tile per K step, rows padded by 16 bytes.
 """
 
 from __future__ import annotations
@@ -56,6 +58,21 @@ def _launcher():
         fn.restype = I
         _fn = fn
     return _fn
+
+
+#: most stages of the bf16 kernel's ring, and the shared memory it adds to
+#: the stages: 1024 bytes to align the ring to the 128-byte swizzle's
+#: period, and two 8-byte mbarriers a stage
+RING_MAX_STAGES = 4
+RING_ALIGN = 1024
+RING_BARRIER_BYTES = 16
+
+
+def ring_stages(bm: int, bn: int, bk: int) -> int:
+    """Stages of the bf16 kernel's ring for a tiling: the most, at most 4,
+    whose bf16 A and B tiles (and barriers) fit 227 KB; at least 1."""
+    stage = (bm * bk + bk * bn) * 2 + RING_BARRIER_BYTES
+    return max(1, min(RING_MAX_STAGES, (SMEM_BUDGET - RING_ALIGN) // stage))
 
 
 def supported(bm: int, bn: int, bk: int, itemsize: int) -> bool:
@@ -135,14 +152,22 @@ def traffic_model(
     ``arithmetic_intensity``).  It counts every re-read as device-memory
     traffic; on an H100 many of them are served by the 50 MB L2, which the
     model has no term for.  ``smem_bytes`` is what one block of the CUDA
-    kernel allocates: one A tile (bm, bk + pad) and one B tile
-    (bk, bn + pad), each row padded by 16 bytes (the kernel has one
-    synchronous stage); the f32 accumulator is in registers.
+    kernel allocates (the f32 accumulator is in registers): in bf16
+    (itemsize 2), :func:`ring_stages` stages of one A tile (bm, bk) and one
+    B tile (bk, bn), unpadded (TMA swizzles them), with two mbarriers a
+    stage, plus 1024 bytes of alignment (``Ring`` in
+    csrc/blocked_matmul.cu); for any other itemsize, the f32 route's one
+    synchronous stage, an A tile (bm, bk + pad) and a B tile (bk, bn + pad)
+    with each row padded by 16 bytes.
     """
     a_reads = M * K * (N // bn)
     b_reads = K * N * (M // bm)
     c_writes = M * N
-    smem = (bm * bk + bk * bn) * itemsize + 16 * (bm + bk)
+    if itemsize == 2:
+        smem = RING_ALIGN + ring_stages(bm, bn, bk) * (
+            (bm * bk + bk * bn) * 2 + RING_BARRIER_BYTES)
+    else:
+        smem = (bm * bk + bk * bn) * itemsize + 16 * (bm + bk)
     flops = 2.0 * M * N * K
     traffic = (a_reads + b_reads + c_writes) * itemsize
     return {

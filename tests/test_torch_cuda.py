@@ -682,6 +682,53 @@ def test_blocked_matmul_matches_plain(tiling, dtype, out_dtype):
 
 
 @requires_cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiling", bmm.TILINGS, ids=str)
+def test_blocked_matmul_bf16_ring_wraps(tiling, out_dtype):
+    """K = 16 bk: more K steps than the ring has stages, so every stage is
+    filled, released and refilled several times (one stage at (256, 128,
+    256))."""
+    bm, bn, bk = tiling
+    a, b = _mm_inputs(2 * bm, 2 * bn, 16 * bk, torch.bfloat16, seed=24)
+    got = bmm.blocked_matmul(a, b, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.matmul(a, b, out_dtype=out_dtype).float(),
+                               **MM_TOL[out_dtype])
+
+
+@requires_cuda
+@pytest.mark.parametrize("M,N,K,tiling", [
+    (768, 640, 2304, (256, 128, 64)),    # non-square, 36 K steps
+    (384, 1152, 96, (128, 128, 32)),     # fewer K steps than stages
+    (1280, 384, 1024, (256, 128, 256)),  # one stage, tall
+])
+def test_blocked_matmul_bf16_non_square(M, N, K, tiling):
+    a, b = _mm_inputs(M, N, K, torch.bfloat16, seed=26)
+    got = bmm.blocked_matmul(a, b, bm=tiling[0], bn=tiling[1], bk=tiling[2],
+                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.matmul(a, b, out_dtype=torch.float32),
+                               **MM_TOL[torch.float32])
+
+
+@requires_cuda
+def test_blocked_matmul_smem_bytes_match_the_kernel():
+    """traffic_model's smem_bytes is what each tiling's kernel allocates, in
+    both input dtypes (the bf16 ring, the f32 single stage)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("blocked_matmul").blocked_matmul_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_long
+    for t in bmm.TILINGS:
+        for code, itemsize in ((1, 2), (0, 4)):
+            want = bmm.traffic_model(*t, *t, itemsize=itemsize)["smem_bytes"]
+            assert fn(*t, code) == want, (t, itemsize)
+    assert fn(64, 64, 64, 1) == -1
+
+
+@requires_cuda
 def test_blocked_matmul_smem_and_refusals():
     """Tilings without an instantiation, or whose tiles the traffic model
     puts over 227 KB of shared memory (f32 at (256, 128, 256)), and shapes

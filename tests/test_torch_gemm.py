@@ -89,8 +89,31 @@ def test_traffic_model_bytes_equal_reference(shape, tiling, itemsize):
     p = pbm.traffic_model(M, N, K, bm, bn, bk, itemsize)
     for key in ("hbm_bytes", "flops", "arithmetic_intensity"):
         assert p[key] == r[key], key
-    # the CUDA kernel's footprint: one A and one B tile, rows padded by 16 B
-    assert p["smem_bytes"] == (bm * bk + bk * bn) * itemsize + 16 * (bm + bk)
+    # the CUDA kernel's footprint.  bf16: a ring of up to 4 stages of
+    # unpadded A and B tiles with two 8-byte mbarriers each, plus 1024 B of
+    # alignment; otherwise one A and one B tile, rows padded by 16 B
+    if itemsize == 2:
+        stage = (bm * bk + bk * bn) * 2 + 16
+        stages = max(1, min(4, (232_448 - 1024) // stage))
+        assert p["smem_bytes"] == 1024 + stages * stage
+    else:
+        assert p["smem_bytes"] == (bm * bk + bk * bn) * itemsize + 16 * (bm + bk)
+
+
+@pytest.mark.parametrize("tiling,stages", [
+    ((128, 128, 32), 4), ((128, 128, 64), 4), ((128, 128, 128), 3),
+    ((256, 128, 32), 4), ((256, 128, 64), 4), ((256, 128, 128), 2),
+    ((256, 128, 256), 1),
+])
+def test_bf16_ring_depth_per_tiling(tiling, stages):
+    """The bf16 kernel's ring holds the most stages (at most 4) whose tiles
+    fit 227 KB: (256, 128, 256)'s 192 KiB of tiles fit once.  Every bf16
+    tiling fits; in f32, (256, 128, 256) does not."""
+    assert pbm.ring_stages(*tiling) == stages
+    smem = pbm.traffic_model(*tiling, *tiling, itemsize=2)["smem_bytes"]
+    assert smem <= pbm.SMEM_BUDGET
+    assert pbm.supported(*tiling, 2)
+    assert pbm.supported(*tiling, 4) == (tiling != (256, 128, 256))
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
