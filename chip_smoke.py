@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and build — the card's name and power limit, the torch/CUDA
    versions, and an ``nvcc`` build of every ``src/repro_torch/csrc/*.cu``,
    with ``-Xptxas -v``'s registers, spills and shared memory for each
-   kernel of ``flash_attention.cu``;
+   kernel of ``flash_attention.cu``, ``prefill_attention.cu`` and
+   ``blocked_matmul.cu``;
 2. each CUDA kernel against its plain PyTorch version on the card, in
    bfloat16 and float32.  Serving kernels at the serving path's shapes
    (yi-6b: 8 slots, 32/4 heads, head dim 128, 2048 cache slots, 256-token
@@ -29,8 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    checked against 32 x the decode steps or prefill dispatches;
 5. times at the phase 4 shapes: each kernel, its plain version, the
    PyTorch library call for the same function (a yardstick the port never
-   calls), and the least time the card could take; then a
-   ``torch.profiler`` window over a few full-batch decode steps (wall
+   calls), and the least time the card could take, with the prefill
+   kernel's TFLOP/s, its fraction of the operation bound and its ratio to
+   SDPA; then a ``torch.profiler`` window over a few full-batch decode steps (wall
    time, device-busy share, the kernels that take the device time);
 6. training: full-width, full-depth olmo-1b in bfloat16 through
    ``repro_torch.launch.train`` (weights from a seeded generator on the
@@ -62,7 +64,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    no instantiation refused; (b) the GEMM study through
    ``repro_torch.benchmarks.bench_gemm`` (N = 16384 bf16, N = 8192 f32,
    every tiling, ``torch.matmul`` beside it) with the kernel's launches
-   counted, then every call it timed (each tiling at N = 16384 bf16 and
+   counted and each tiling's TFLOP/s at N = 16384 bf16 beside
+   ``torch.matmul``'s, then every call it timed (each tiling at N = 16384 bf16 and
    N = 8192 f32, on the study's own inputs) against its plain version, and
    the kernel's times at N = 16384; (c) ``bench_membw``, ``bench_copy``, ``bench_latency`` and
    ``bench_managed_vs_system`` on device memory and pinned host memory
@@ -287,44 +290,60 @@ def phase_build():
     libs = _build.build()
     log(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, out) in sorted(_build.BUILD_LOG.items()):
-        if name == "flash_attention":
+        if name in PTXAS_NAMED:
+            log_ptxas(name, out)
             continue
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    if "flash_attention" in _build.BUILD_LOG:
-        log_fa_ptxas(_build.BUILD_LOG["flash_attention"][1])
 
 
-def log_fa_ptxas(out):
-    """Each kernel of csrc/flash_attention.cu as ``nvcc -Xptxas -v`` saw it:
+#: the libraries whose kernels phase 1 logs by name and template arguments
+PTXAS_NAMED = ("flash_attention", "prefill_attention", "blocked_matmul")
+
+
+def log_ptxas(lib, out):
+    """Each kernel of ``csrc/<lib>.cu`` as ``nvcc -Xptxas -v`` saw it:
     registers, spill stores and loads, static shared memory, and for the
-    bf16 kernels the dynamic shared memory they launch with."""
+    kernels that take dynamic shared memory what they launch with (the
+    prefill kernel at the main path's Sc + Sn = 2304 keys)."""
     import re
 
-    from repro_torch.kernels.flash_attention import smem_footprint_bytes
+    from repro_torch.kernels.blocked_matmul import traffic_model
+    from repro_torch.kernels.flash_attention import prefill_smem_bytes, smem_footprint_bytes
 
-    dynamic = {"fa_fwd_mma_kernel": "fwd", "fa_bwd_dq_mma_kernel": "bwd_dq",
-               "fa_bwd_dkdv_mma_kernel": "bwd_dkdv"}
+    fa_dynamic = {"fa_fwd_mma_kernel": "fwd", "fa_bwd_dq_mma_kernel": "bwd_dq",
+                  "fa_bwd_dkdv_mma_kernel": "bwd_dkdv"}
+
+    def dynamic(kernel, args):
+        if kernel in fa_dynamic:
+            return smem_footprint_bytes(int(args[-1]))[fa_dynamic[kernel]]
+        if kernel == "prefill_mma_kernel":
+            return prefill_smem_bytes(int(args[0]), YI["Smax"] + YI["chunk"])
+        if kernel in ("mm_wgmma_kernel", "mm_fma_kernel"):
+            t = tuple(int(a) for a in args[:3])
+            return traffic_model(*t, *t, itemsize=2 if kernel == "mm_wgmma_kernel" else 4)[
+                "smem_bytes"]
+        return None
+
     name, spill = None, ""
     for line in out.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            # mangled fa_*_kernel<T, D>: "...fa_fwd_mma_kernelILi128EEEv..."
-            k = re.search(r"(fa_\w+?_kernel)I(.*?)EEv", m.group(1))
-            args = ",".join("bf16" if t.startswith("13") else "f32" if t == "f" else t[2:-1]
-                            for t in re.findall(r"13__nv_bfloat16|Li\d+E|f", k.group(2)))
-            name = (k.group(1), args)
+            # mangled kernel<T, D...>: "...fa_fwd_mma_kernelILi128EEEvPK..."
+            k = re.search(r"(prefill_mma_kernel|prefill_kernel|mm_wgmma_kernel|mm_fma_kernel"
+                          r"|fa_\w+?_kernel)I(.*?)EEv", m.group(1))
+            args = ["bf16" if t.startswith("13") else "f32" if t == "f" else t[2:-1]
+                    for t in re.findall(r"13__nv_bfloat16|Li\d+E|f", k.group(2))] if k else []
+            name = (k.group(1), args) if k else None
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             smem = re.search(r"(\d+) bytes smem", line)
-            extra = ""
-            if name[0] in dynamic:
-                d = int(name[1].split(",")[-1])
-                extra = f", {smem_footprint_bytes(d)[dynamic[name[0]]]} B dynamic smem"
-            log(f"  ptxas flash_attention {name[0]}<{name[1]}>: {regs} registers; {spill}; "
+            dyn = dynamic(*name)
+            extra = "" if dyn is None else f", {int(dyn)} B dynamic smem"
+            log(f"  ptxas {lib} {name[0]}<{','.join(name[1])}>: {regs} registers; {spill}; "
                 f"{smem.group(1) if smem else 0} B static smem{extra}")
             name = None
 
@@ -645,6 +664,10 @@ def phase_times(launches, stats, plens, errs):
     ]
     log(f"  decode_attention launches per decode step: "
         f"{launches['decode_attention'] / steps:g}")
+    log(f"  prefill_attention: {pflops / pre['ms'] / 1e9:.1f} TFLOP/s on its "
+        f"{pairs} live (query, key) pairs x {Hq} heads, {rows[1]['bound_ms'] / pre['ms']:.3f} "
+        f"of the operation bound, {pre['ms'] / pre['library_ms']:.2f}x SDPA "
+        f"({pflops / pre['library_ms'] / 1e9:.1f} TFLOP/s)")
     return rows
 
 
@@ -1303,13 +1326,18 @@ def phase_gemm_study():
     log("== phase 9b: the GEMM study (bench_gemm) on the card")
     blocked_matmul.launches = 0
     t0 = time.perf_counter()
-    bench_gemm.main("cuda")
+    study = bench_gemm.main("cuda")
     torch.cuda.synchronize()
     launches = blocked_matmul.launches
     log(f"  bench_gemm took {time.perf_counter() - t0:.1f} s; blocked_matmul "
         f"launches {launches}")
     if launches == 0:
         raise AssertionError("bench_gemm ran no blocked_matmul kernel")
+    for r in study:
+        if r["N"] == GEMM_N and r["dtype"] == "bfloat16":
+            who = "torch.matmul" if r["tiling"] is None else f"blocked_matmul {r['tiling']}"
+            log(f"  N = {GEMM_N} bf16 {who}: {r['us_per_call'] / 1e3:.4f} ms, "
+                f"{r['tflops']:.1f} TFLOP/s")
 
     dev = torch.device("cuda")
     err = 0.0

@@ -51,14 +51,21 @@ def tilings(N: int, itemsize: int) -> list[tuple[int, int, int]]:
             if not (N % t[0] or N % t[1] or N % t[2]) and supported(*t, itemsize)]
 
 
-def measured(device: str | torch.device | None = None) -> None:
+def measured(device: str | torch.device | None = None) -> list[dict]:
+    """Time ``torch.matmul`` and every tiling of the kernel at each size of
+    :data:`SIZES`; print each row and return them as dicts (``name``, ``N``,
+    ``dtype``, ``tiling`` (None for the library row), ``us_per_call``,
+    ``tflops``)."""
     dev = resolve_device(device)
+    rows = []
     for N, dtype in SIZES[dev.type]:
         name = _NAMES[dtype]
         a, b = inputs(N, dtype, dev)
         m = measure(lambda: torch.matmul(a, b), name=f"torch_gemm[{N},{name}]",
                     flops=2 * N**3, repeats=5, device=dev)
         emit(m.name, m.us_per_call, f"{m.tflops:.3f}TF/s")
+        rows.append(dict(name=m.name, N=N, dtype=name, tiling=None,
+                         us_per_call=m.us_per_call, tflops=m.tflops))
         for bm, bn, bk in tilings(N, a.element_size()):
             m = measure(
                 lambda: ops.matmul(a, b, bm=bm, bn=bn, bk=bk),
@@ -68,7 +75,10 @@ def measured(device: str | torch.device | None = None) -> None:
             t = traffic_model(N, N, N, bm, bn, bk, a.element_size())
             emit(m.name, m.us_per_call,
                  f"{m.tflops:.3f}TF/s AI={t['arithmetic_intensity']:.1f}flops/B")
+            rows.append(dict(name=m.name, N=N, dtype=name, tiling=(bm, bn, bk),
+                             us_per_call=m.us_per_call, tflops=m.tflops))
         del a, b
+    return rows
 
 
 def analytic(tiling: tuple[int, int, int] | None = None) -> None:
@@ -112,9 +122,11 @@ def analytic(tiling: tuple[int, int, int] | None = None) -> None:
             )
 
 
-def main(device: str | torch.device | None = None) -> None:
-    measured(device)
+def main(device: str | torch.device | None = None) -> list[dict]:
+    """Print the measured and analytic rows; return the measured ones."""
+    rows = measured(device)
     analytic()
+    return rows
 
 
 if __name__ == "__main__":
