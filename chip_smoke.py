@@ -32,8 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    PyTorch library call for the same function (a yardstick the port never
    calls), and the least time the card could take, with the prefill
    kernel's TFLOP/s, its fraction of the operation bound and its ratio to
-   SDPA; then a ``torch.profiler`` window over a few full-batch decode steps (wall
-   time, device-busy share, the kernels that take the device time);
+   SDPA; then ``torch.profiler`` windows over a few full-batch decode steps
+   and one prefill dispatch (wall time, device-busy share, the kernels that
+   take the device time);
 6. training: full-width, full-depth olmo-1b in bfloat16 through
    ``repro_torch.launch.train`` (weights from a seeded generator on the
    card, ``remat="full"``, batch 4 x 2048 tokens of ``SyntheticLM`` seed
@@ -554,6 +555,23 @@ def profile_decode(server, steps=4):
         log(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{e.count // steps:5d} calls/step  {e.key[:90]}")
     server.run_until_done()
+
+
+def profile_prefill(server):
+    """Where a prefill dispatch's time goes: ``torch.profiler`` over one
+    dispatch of 8 rows x 256 new tokens at phase 5's cache fills (0..1792),
+    on the phase 4 server's caches (its requests are done)."""
+    import torch
+
+    y = YI
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, server.bundle.cfg.vocab, (y["B"], y["chunk"]), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    new = torch.full((y["B"],), y["chunk"], dtype=torch.int32, device="cuda")
+    offs = torch.arange(0, y["B"] * 256, 256, dtype=torch.int32, device="cuda")
+    profile_window("prefill dispatch (8 x 256 tokens at fills 0..1792, 32 layers)",
+                   lambda: server.bundle.prefill_at(server.params, {"tokens": toks, "new_lens": new},
+                                                    server.engine.caches, offs), steps=2)
 
 
 def time_ms(fn, inputs, reps=3, iters=10):
@@ -1542,6 +1560,7 @@ def main() -> int:
     launches, stats, plens, server = phase_full()
     rows = phase_times(launches, stats, plens, errs)
     profile_decode(server)
+    profile_prefill(server)
     del server
     torch.cuda.empty_cache()
     server, params, ssm_launches = phase_mamba_full()
