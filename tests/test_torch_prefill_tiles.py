@@ -51,32 +51,34 @@ def _positions(layout, Sq, Sc, seed):
     return q.astype(np.int64), k
 
 
-@settings(max_examples=150, deadline=None)
+@settings(max_examples=200, deadline=None)
 @given(layout=st.sampled_from(["ordered", "ring", "any"]),
        mask=st.sampled_from(MASKS),
        Sq=st.integers(1, 40), Sc=st.integers(0, 150),
-       rows=st.sampled_from([16, 128]), cols=st.sampled_from([8, 64]),
        seed=st.integers(0, 2**31 - 1))
-def test_empty_and_full_tiles_are_provable(layout, mask, Sq, Sc, rows, cols, seed):
+def test_empty_and_full_tiles_are_provable(layout, mask, Sq, Sc, seed):
+    """Every tiling of the (Sq, Sk) grid into row tiles of 8, 16 (a warp) or
+    128 (a block) and key tiles of 8 or 64 (the kernel's)."""
     kind, window, chunk = mask
     q_pos, k_pos = _positions(layout, Sq, Sc, seed)
     Sk = len(k_pos)
     live = ref.prefill_mask(torch.from_numpy(q_pos)[None], torch.from_numpy(k_pos)[None],
                             kind=kind, window=window, chunk=chunk)[0].numpy()
-    for i0 in range(0, Sq, rows):
-        for j0 in range(0, Sk, cols):
-            got = prefill_tile_class(q_pos, k_pos, kind, window, chunk,
-                                     range(i0, i0 + rows), range(j0, j0 + cols))
-            tile = live[i0:i0 + rows, j0:j0 + cols]
-            if got == "empty":
-                assert not tile.any(), (i0, j0)
-            elif got == "full":
-                # rows past Sq and keys past Sk are never live: a full tile
-                # lies wholly inside the (Sq, Sk) grid
-                assert i0 + rows <= Sq and j0 + cols <= Sk, (i0, j0)
-                assert tile.all(), (i0, j0)
-            else:
-                assert got == "partial"
+    tiles = ((r, c, i, j) for r in (8, 16, 128) for c in (8, 64)
+             for i in range(0, Sq, r) for j in range(0, Sk, c))
+    for rows, cols, i0, j0 in tiles:
+        got = prefill_tile_class(q_pos, k_pos, kind, window, chunk,
+                                 range(i0, i0 + rows), range(j0, j0 + cols))
+        tile = live[i0:i0 + rows, j0:j0 + cols]
+        if got == "empty":
+            assert not tile.any(), (i0, j0)
+        elif got == "full":
+            # rows past Sq and keys past Sk are never live: a full tile
+            # lies wholly inside the (Sq, Sk) grid
+            assert i0 + rows <= Sq and j0 + cols <= Sk, (i0, j0)
+            assert tile.all(), (i0, j0)
+        else:
+            assert got == "partial"
 
 
 @given(qp=st.integers(-5, 300), mask=st.sampled_from(MASKS),
