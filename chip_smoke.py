@@ -8,18 +8,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and build — the card's name and power limit, the torch/CUDA
    versions, and an ``nvcc`` build of every ``src/repro_torch/csrc/*.cu``,
    with ``-Xptxas -v``'s registers, spills and shared memory for each
-   kernel of ``flash_attention.cu``, ``prefill_attention.cu`` and
-   ``blocked_matmul.cu``;
+   kernel of ``flash_attention.cu``, ``prefill_attention.cu``,
+   ``blocked_matmul.cu``, ``decode_attention.cu`` and ``ssd_scan.cu``;
 2. each CUDA kernel against its plain PyTorch version on the card, in
    bfloat16 and float32.  Serving kernels at the serving path's shapes
    (yi-6b: 8 slots, 32/4 heads, head dim 128, 2048 cache slots, 256-token
    chunks), at G = 1 (olmo-1b: 16/16 heads) and at the smoke head dim,
    with ragged lengths, tails off the tile, cache holes and rows that
-   write nothing.  The training attention kernel, forward and backward
-   (against ``torch.autograd.grad`` through the plain version), at the
-   olmo-1b training shape (4, 16, 2048, 128), a yi-6b GQA shape, the
-   sliding / chunked / bidirectional masks with ``q_offset > 0`` and
-   ``Sq != Sk``, the smoke head dim and a length off the tile;
+   write nothing; decode also at lengths around its 64-key tile, at G = 16
+   and with two calls in a row bit-identical.  The training attention
+   kernel, forward and backward (against ``torch.autograd.grad`` through
+   the plain version), at the olmo-1b training shape (4, 16, 2048, 128), a
+   yi-6b GQA shape, the sliding / chunked / bidirectional masks with
+   ``q_offset > 0`` and ``Sq != Sk``, the smoke head dim and a length off
+   the tile;
 3. smoke parity on the card and on the CPU from the same weights:
    yi-6b-smoke in float32 through ``Server`` (greedy tokens identical per
    request), then olmo-1b-smoke and yi-6b-smoke in float32 for 3 AdamW
@@ -300,16 +302,20 @@ def phase_build():
 
 
 #: the libraries whose kernels phase 1 logs by name and template arguments
-PTXAS_NAMED = ("flash_attention", "prefill_attention", "blocked_matmul")
+PTXAS_NAMED = ("flash_attention", "prefill_attention", "blocked_matmul",
+               "decode_attention", "ssd_scan")
 
 
 def log_ptxas(lib, out):
     """Each kernel of ``csrc/<lib>.cu`` as ``nvcc -Xptxas -v`` saw it:
     registers, spill stores and loads, static shared memory, and for the
     kernels that take dynamic shared memory what they launch with (the
-    prefill kernel at the main path's Sc + Sn = 2304 keys)."""
+    prefill kernel at the main path's Sc + Sn = 2304 keys, the scan at the
+    serving shape's heads per block)."""
     import re
 
+    from repro_torch.kernels import decode_attention, ssd_scan
+    from repro_torch.kernels._build import sm_count
     from repro_torch.kernels.blocked_matmul import traffic_model
     from repro_torch.kernels.flash_attention import prefill_smem_bytes, smem_footprint_bytes
 
@@ -325,6 +331,13 @@ def log_ptxas(lib, out):
             t = tuple(int(a) for a in args[:3])
             return traffic_model(*t, *t, itemsize=2 if kernel == "mm_wgmma_kernel" else 4)[
                 "smem_bytes"]
+        if kernel == "decode_mma_kernel":
+            return decode_attention.smem_bytes(int(args[0]))
+        if kernel == "ssd_mma_kernel":
+            P, N = int(args[0]), int(args[1])
+            m = MAMBA
+            return ssd_scan.smem_bytes(P, N, ssd_scan.heads_per_block(
+                m["B"], m["H"], P, sm_count(0)))
         return None
 
     name, spill = None, ""
@@ -333,7 +346,9 @@ def log_ptxas(lib, out):
         if m:
             # mangled kernel<T, D...>: "...fa_fwd_mma_kernelILi128EEEvPK..."
             k = re.search(r"(prefill_mma_kernel|prefill_kernel|mm_wgmma_kernel|mm_fma_kernel"
-                          r"|fa_\w+?_kernel)I(.*?)EEv", m.group(1))
+                          r"|decode_mma_kernel|decode_fma_kernel|ssd_mma_kernel|ssd_fma_kernel"
+                          r"|fa_\w+?_kernel)I(.*?)EEv",
+                          m.group(1))
             args = ["bf16" if t.startswith("13") else "f32" if t == "f" else t[2:-1]
                     for t in re.findall(r"13__nv_bfloat16|Li\d+E|f", k.group(2))] if k else []
             name = (k.group(1), args) if k else None
@@ -367,6 +382,10 @@ def phase_kernels():
              [1, 2048, 1000, 37, 64, 65, 1999, 513]),
             ("olmo", 4, 16, 16, 128, 1000, [1, 999, 1000, 333]),
             ("smoke", 3, 8, 1, 16, 64, [1, 17, 64]),
+            # lengths around the 64-key tile and its splits; G = 16
+            ("yi-edges", y["B"], y["Hq"], y["Hkv"], y["D"], y["Smax"],
+             [1, 63, 64, 65, 2048, 129, 1, 640]),
+            ("g16", 4, 32, 2, 128, 1500, [1500, 777, 129, 5]),
         ]
         for tag, B, Hq, Hkv, D, Smax, lens in cases:
             q, kv, L = decode_inputs(B, Hq, Hkv, D, Smax, lens, dtype, gen)
@@ -378,6 +397,9 @@ def phase_kernels():
                             got, want, dn)
             if tag == "yi":
                 errs[("decode", dn)] = e
+                if not torch.equal(got, flash_decode(q, k, v, L)):
+                    raise AssertionError("decode: two calls in a row differ")
+                log(f"  decode {tag} {dn}: two calls in a row bit-identical")
         # -- prefill: main path (two sources), G=1, smoke, mask kinds ------
         Sc, Sn = y["Smax"], y["chunk"]
         pcases = [
@@ -623,10 +645,12 @@ def phase_times(launches, stats, plens, errs):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.decode_attention import flash_decode, num_splits
     from repro_torch.kernels.flash_attention import flash_prefill
 
     log("== phase 5: times at the main path's shapes (bfloat16)")
+    sms = sm_count(0)
     y = YI
     B, Hq, Hkv, D, Smax, Sn = y["B"], y["Hq"], y["Hkv"], y["D"], y["Smax"], y["chunk"]
     dt, isz = torch.bfloat16, 2
@@ -682,6 +706,10 @@ def phase_times(launches, stats, plens, errs):
     ]
     log(f"  decode_attention launches per decode step: "
         f"{launches['decode_attention'] / steps:g}")
+    log(f"  decode_attention: {dbytes / dec['ms'] / 1e6:.1f} GB/s on its {keys} live keys "
+        f"x {Hkv} KV heads, {rows[0]['bound_ms'] / dec['ms']:.3f} of the byte bound, "
+        f"{dec['ms'] / dec['library_ms']:.2f}x SDPA; {num_splits(B, Hkv, Smax, 64, sms)} "
+        f"blocks a (row, KV head) on {sms} SMs")
     log(f"  prefill_attention: {pflops / pre['ms'] / 1e9:.1f} TFLOP/s on its "
         f"{pairs} live (query, key) pairs x {Hq} heads, {rows[1]['bound_ms'] / pre['ms']:.3f} "
         f"of the operation bound, {pre['ms'] / pre['library_ms']:.2f}x SDPA "
@@ -1219,7 +1247,8 @@ def profile_window(label, fn, steps):
 def phase_ssd_times(server, params, launches, errs):
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.ssd_scan import heads_per_block, ssd_scan
 
     m = MAMBA
     B, T, H, P, N = m["B"], m["T"], m["H"], m["P"], m["N"]
@@ -1241,6 +1270,10 @@ def phase_ssd_times(server, params, launches, errs):
     row = kernel_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:90", rec, launches["ssd_scan"],
                      errs[("ssd_scan", "bfloat16")])
+    hb = heads_per_block(B, H, P, sm_count(0))
+    log(f"  ssd_scan: {nbytes / kern / 1e6:.1f} GB/s, {row['bound_ms'] / kern:.3f} of the "
+        f"byte bound, {flops / kern / 1e9:.1f} TFLOP/s; {hb} heads a block, "
+        f"{B * -(-H // hb)} blocks on {sm_count(0)} SMs")
     del sets
 
     # profile windows: one prefill dispatch (8 rows x 256 new tokens at

@@ -15,12 +15,15 @@ module on a machine with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import time
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = (
@@ -113,3 +116,16 @@ def check(status: int, name: str) -> None:
             f"{name}: CUDA launch failed with cudaError {status} "
             f"({describe(status).decode()})"
         )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (a ``torch.device`` or an
+    index), read once per device: the launch plans size their grids by it
+    without a query per call."""
+    device = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())

@@ -1,10 +1,19 @@
 """Single-token GQA decode attention: the CUDA kernel and its wrapper.
 
 Counterpart of ``repro/kernels/decode_attention.py`` (``flash_decode``).
-The kernel lives in ``repro_torch/csrc/decode_attention.cu`` (its header
-says what bounds it and how it is laid out); it is built with ``nvcc`` on
-first use.  The plain version of the same function is
+The kernel lives in ``repro_torch/csrc/decode_attention.cu``; it is built
+with ``nvcc`` on first use.  The plain version of the same function is
 :func:`repro_torch.kernels.ref.decode_attention`.
+
+What bounds it: bytes — each live key and value of a (row, KV head) is
+read once for its G query heads, about G flops a byte.  So the kernel
+spreads each row's live keys over ``num_splits`` blocks that form one
+thread-block cluster, streams K/V tiles through a ``cp.async`` ring into
+tensor-core products (bf16), and combines the splits through distributed
+shared memory in the same launch.  The host's only work per call is the
+output's allocation and the launch: the split count comes from the SM
+count, read once per device, and no scratch or counter outlives a call,
+so the launch can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -16,25 +25,49 @@ import torch
 from repro_torch.kernels import _build
 
 SUPPORTED_D = (16, 32, 64, 128)
-MAX_GROUP = 16          # largest Hq / Hkv the kernel's shared memory holds
+MAX_GROUP = 16          # largest Hq / Hkv the kernel's query tile holds
+MAX_SPLITS = 8          # blocks per (row, KV head): the portable cluster size
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys per tile, the unit in which a row's live keys are split
+KEY_TILE = {torch.float32: 32, torch.bfloat16: 64}
 
-_fns = None
+_fn = None
 
 
-def _launchers():
-    global _fns
-    if _fns is None:
-        lib = _build.load("decode_attention")
+def _launcher():
+    global _fn
+    if _fn is None:
+        launch = _build.load("decode_attention").decode_attention_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        splits = lib.decode_attention_num_splits
-        splits.argtypes = [I, I, I, I]
-        splits.restype = I
-        launch = lib.decode_attention_launch
-        launch.argtypes = [P] * 7 + [I] * 7 + [ctypes.c_float, P]
+        launch.argtypes = [P] * 5 + [I] * 7 + [ctypes.c_float, P]
         launch.restype = I
-        _fns = splits, launch
-    return _fns
+        _fn = launch
+    return _fn
+
+
+def num_splits(B: int, Hkv: int, Smax: int, key_tile: int, sms: int) -> int:
+    """Blocks per (row, KV head): enough for two blocks per SM over the
+    B·Hkv rows, at most one key tile each, at most ``MAX_SPLITS``."""
+    ns = -(-2 * sms // max(B * Hkv, 1))
+    return max(1, min(ns, MAX_SPLITS, -(-Smax // key_tile)))
+
+
+def split_ranges(length: int, Smax: int, ns: int, key_tile: int) -> list[tuple[int, int]]:
+    """The live keys [lo, hi) each of the ``ns`` splits of a row reads: the
+    row's tiles cut into ``ns`` near-equal runs, ending at the length
+    clamped to [0, Smax].  Mirrors ``split_tiles`` in the kernel."""
+    L = min(max(int(length), 0), Smax)
+    nt = -(-L // key_tile)
+    return [(min(s * nt // ns * key_tile, L), min((s + 1) * nt // ns * key_tile, L))
+            for s in range(ns)]
+
+
+def smem_bytes(D: int) -> int:
+    """Dynamic shared memory of the bf16 kernel at head dim D: 16 query
+    rows and a 2-stage ring of 64-key K and V tiles, rows of D bf16 padded
+    by 16 bytes (``DecSmem`` in the source)."""
+    row = 2 * D + 16
+    return 16 * row + 2 * 2 * KEY_TILE[torch.bfloat16] * row
 
 
 def check_operands(tensors: dict, *, dtype, device) -> None:
@@ -59,7 +92,8 @@ def flash_decode(
     *,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Launch the decode kernel on ``q``'s device and current stream."""
+    """Launch the decode kernel on ``q``'s device and current stream.
+    ``lengths`` is clamped to [0, Smax]; a row of length 0 comes out 0."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on CUDA tensors, got {q.device}")
     if q.dtype not in DTYPE_CODES:
@@ -84,21 +118,13 @@ def flash_decode(
     check_operands({"lengths": lengths}, dtype=torch.int32, device=q.device)
     scale = D ** -0.5 if scale is None else float(scale)
 
-    splits, launch = _launchers()
-    code = DTYPE_CODES[q.dtype]
+    launch = _launcher()
     out = torch.empty_like(q)
+    ns = num_splits(B, Hkv, Smax, KEY_TILE[q.dtype], _build.sm_count(q.device))
     with torch.cuda.device(q.device):
-        # the live keys of each (row, KV head) are split over NS blocks;
-        # their partial (acc, m, l) are combined by a second kernel
-        ns = splits(B, Hkv, Smax, code)
-        part_acc = torch.empty((B, Hkv, ns, Hq // Hkv, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, Hkv, ns, Hq // Hkv, 2), dtype=torch.float32,
-                              device=q.device)
         status = launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), B, Hq, Hkv, Smax, D, ns, code, scale,
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), B, Hq, Hkv, Smax, D, ns, DTYPE_CODES[q.dtype], scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(status, "decode_attention")

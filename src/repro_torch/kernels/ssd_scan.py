@@ -1,11 +1,18 @@
 """Mamba-2 chunked SSD scan: the CUDA kernel and its wrapper.
 
 Counterpart of ``repro/kernels/ssd_scan.py`` (``ssd_scan``).  The kernel
-lives in ``repro_torch/csrc/ssd_scan.cu`` (its header says what bounds it
-and how it is laid out); it is built with ``nvcc`` on first use.  Unlike
-the Pallas kernel it takes an initial state and returns the final one, so
-it carries serving prefill as well.  The plain version of the same
-function is :func:`repro_torch.kernels.ref.ssd_scan`.
+lives in ``repro_torch/csrc/ssd_scan.cu``; it is built with ``nvcc`` on
+first use.  Unlike the Pallas kernel it takes an initial state and returns
+the final one, so it carries serving prefill as well.  The plain version
+of the same function is :func:`repro_torch.kernels.ref.ssd_scan`.
+
+What bounds it: bytes at the serving shape, once its products run on the
+tensor cores (as f32 FMAs they would take ~5x longer than the bytes).  In
+bf16 a block carries :func:`heads_per_block` heads of one row: B and C
+are loaded and C·Bᵀ computed once per chunk for all of them, the f32 state
+stays in the warps' accumulators for the whole launch, and every f32
+operand of a product (the state, the decay matrix, x·dt·decay) goes in as
+a bf16 hi + lo pair, so the result keeps f32 accuracy.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from repro_torch.kernels import _build
 SUPPORTED_P = (32, 64)
 SUPPORTED_N = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_WARPS = 12          # a bf16 block: heads_per_block x P / 16 warps
 
 _fn = None
 
@@ -30,10 +38,43 @@ def _launcher():
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn = lib.ssd_scan_launch
         fn.argtypes = ([P, L, L, L, P, L, L, L, P, P, L, L, P, L, L, P, P, P]
-                       + [I] * 6 + [P])
+                       + [I] * 7 + [P])
         fn.restype = I
         _fn = fn
     return _fn
+
+
+def heads_per_block(B: int, H: int, P: int, sms: int) -> int:
+    """Heads one block of the bf16 kernel carries: the fewest (each block
+    shares its chunk's B, C and C·Bᵀ among them) for which the grid of
+    B x ceil(H / hb) blocks fits the SMs in one wave, at most
+    ``MAX_WARPS / (P / 16)`` (one warp per 16 state rows) and at most H.
+    At the mamba2-780m serving shape (B 8, H 48, P 64, 132 SMs): 3, 128
+    blocks."""
+    hb_max = min(MAX_WARPS // (P // 16), H)
+    for hb in range(1, hb_max + 1):
+        if B * -(-H // hb) <= sms:
+            return hb
+    return max(hb_max, 1)
+
+
+def smem_bytes(P: int, N: int, hb: int) -> int:
+    """Dynamic shared memory of the bf16 kernel with ``hb`` heads a block:
+    two stages of a 32-position chunk's C and B rows, hb heads' x rows and
+    dt, then each head's 32 x 32 decay matrix as a bf16 hi and lo pair and
+    the f32 C·Bᵀ (rows of 40); bf16 rows padded by 16 bytes (``ScanSmem``
+    in the source)."""
+    q = 32
+    stage = 2 * q * (2 * N + 16) + hb * q * (2 * P + 16) + hb * q * 4
+    return 2 * stage + hb * 2 * q * (2 * q + 16) + q * (q + 8) * 4
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if every row (last dim) starts 16-byte aligned, as the bf16
+    kernel's cp.async copies need; else a contiguous copy, which does."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_state(name, t, shape, device):
@@ -66,11 +107,14 @@ def ssd_scan(
     the initial state whole before it writes that slice.
 
     ``chunk`` is accepted for the reference's signature and not used: the
-    kernel walks its own chunks of 32 positions, and its result equals the
-    chunked oracle's at any chunk up to f32 rounding.  T may be anything
-    (no ``T % chunk`` requirement).  x, B and C may be strided views (the
-    model passes slices of the conv output); their last dim must be
-    contiguous.
+    kernel walks its own chunks of 32 positions (the intra-chunk work grows
+    with the chunk, the state work does not), and its result equals the
+    chunked oracle's at any chunk up to f32 rounding (each f32 operand of a
+    tensor-core product goes in as a bf16 hi + lo pair).
+    T may be anything (no ``T % chunk`` requirement).  x, B and C may be
+    strided views (the model passes slices of the conv output); their last
+    dim must be contiguous, and in bf16 a view whose rows do not start
+    16-byte aligned is copied first.
     """
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA tensors, got {x.device}")
@@ -109,6 +153,14 @@ def ssd_scan(
             state_out = torch.empty(shape, dtype=torch.float32, device=x.device)
         _check_state("state_out", state_out, shape, x.device)
 
+    hb = 1
+    if x.dtype == torch.bfloat16:
+        x, Bmat, Cmat = _aligned_rows(x), _aligned_rows(Bmat), _aligned_rows(Cmat)
+        hb = heads_per_block(Bsz, H, P, _build.sm_count(x.device))
+    for name, t in (("init_state", init_state), ("state_out", state_out)):
+        if t is not None and t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned")
+
     y = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         status = _launcher()(
@@ -120,7 +172,7 @@ def ssd_scan(
             None if init_state is None else init_state.data_ptr(),
             y.data_ptr(),
             None if state_out is None else state_out.data_ptr(),
-            Bsz, T, H, P, N, DTYPE_CODES[x.dtype],
+            Bsz, T, H, P, N, DTYPE_CODES[x.dtype], hb,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(status, "ssd_scan")

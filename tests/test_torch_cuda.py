@@ -71,6 +71,88 @@ def test_decode_kernel_matches_plain(B, Hq, Hkv, D, Smax, lengths, dtype):
                                **TOL[dtype])
 
 
+def _decode_matches_plain(B, Hq, Hkv, D, Smax, lengths, dtype, seed=50):
+    """flash_decode (one launch) against ref.decode_attention at TOL on the
+    rows with a live key; a row whose clamped length is 0 comes out 0, as
+    the Pallas kernel's does (the plain version gives mean(V) there)."""
+    q = _randn(B, Hq, D, dtype=dtype, seed=seed)
+    k = _randn(B, Hkv, Smax, D, dtype=dtype, seed=seed + 1)
+    v = _randn(B, Hkv, Smax, D, dtype=dtype, seed=seed + 2)
+    L = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, L)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    live = L > 0
+    want = ref.decode_attention(q, k, v, L.clamp(0, Smax))
+    torch.testing.assert_close(got.float()[live], want.float()[live], **TOL[dtype])
+    assert torch.all(got[~live] == 0)
+    return q, k, v, L, got
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_yi_shape_length_edges(dtype):
+    """yi-6b's phase 5 shape (8 rows, 32/4 heads, D 128, Smax 2048) with
+    lengths below 0 and 0 (clamped: no key), 1, one tile less, at and past
+    one 64-key tile, Smax, and past Smax (clamped to Smax)."""
+    _decode_matches_plain(8, 32, 4, 128, 2048, [-3, 0, 1, 63, 64, 65, 2048, 5000], dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv", [(32, 2), (8, 8)])
+def test_decode_kernel_group_sizes(Hq, Hkv, dtype):
+    """G = 16 (MAX_GROUP: the whole 16-row query tile) and G = 1 (15 zero
+    rows) at D = 128, lengths across the split edges."""
+    _decode_matches_plain(4, Hq, Hkv, 128, 1500, [1500, 777, 129, 5], dtype, seed=60)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_every_row_length_one(dtype):
+    """Every split but the first of every row is empty."""
+    _decode_matches_plain(8, 32, 4, 128, 2048, [1] * 8, dtype, seed=70)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_is_deterministic(dtype):
+    """The splits are combined in a fixed order with no atomics and no
+    state left between calls: two calls in a row are bit-identical."""
+    q, k, v, L, first = _decode_matches_plain(8, 32, 4, 128, 2048,
+                                              [650, 2048, 1, 900, 64, 65, 1300, 333], dtype)
+    second = flash_decode(q, k, v, L)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@requires_cuda
+def test_decode_kernel_replays_in_a_cuda_graph():
+    """A call captured in a CUDA graph and replayed after the lengths (and
+    the query) change in place gives the eager call's result bit for bit:
+    the wrapper makes no host query that the replay would see stale."""
+    dt = torch.bfloat16
+    q = _randn(8, 32, 128, dtype=dt, seed=80)
+    k = _randn(8, 4, 2048, 128, dtype=dt, seed=81)
+    v = _randn(8, 4, 2048, 128, dtype=dt, seed=82)
+    L = torch.tensor([100, 2048, 1, 900, 64, 65, 1300, 333], dtype=torch.int32,
+                     device="cuda")
+    flash_decode(q, k, v, L)                       # build and warm up eagerly
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, L)
+    L.copy_(torch.tensor([1999, 3, 0, 640, 65, 64, 1, 2048], dtype=torch.int32))
+    q.copy_(_randn(8, 32, 128, dtype=dt, seed=83))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, flash_decode(q, k, v, L))
+    live = L > 0
+    want = ref.decode_attention(q, k, v, L)
+    torch.testing.assert_close(out.float()[live], want.float()[live], **TOL[dt])
+
+
 @requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,kw", [("causal", {}), ("sliding", {"window": 20}),
@@ -584,6 +666,112 @@ def test_ssd_kernel_state_in_place_strided_and_zero_dt_rows():
     _, h40 = ops.ssd_scan(x[2:, :40], dt[2:, :40], A, Bm[2:, :40], Cm[2:, :40],
                           init_state=h0[2:].contiguous(), return_state=True)
     _scaled(buf[2], h40[0], 1e-4)
+
+
+def _ssd_kernel_matches_plain(B, T, H, P, N, dtype, seed, state=True):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, T, H, P, N, dtype, seed=seed, state=state)
+    before = ssd_scan.launches
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=h0, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_h = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=T, init_state=h0,
+                                  return_state=True)
+    _scaled(y, want_y, SSD_TOL[dtype])
+    _scaled(h, want_h, 1e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,P,N,hb", [
+    (2, 3, 64, 128, 2),      # one block of 2 heads, one of 1 (an idle head)
+    (2, 6, 32, 64, 4),       # 4 + 2 of a possible 4
+    (2, 5, 32, 16, 6),       # more heads a block than H
+    (8, 48, 64, 128, None),  # the serving shape's own choice (3: 128 blocks)
+    (8, 64, 64, 64, None),   # zamba2's (3: 21 blocks of 3 and one of 1 a row)
+])
+def test_ssd_kernel_heads_off_the_block(B, H, P, N, hb, dtype, monkeypatch):
+    """H not a multiple of the heads a bf16 block carries (forced where
+    given): idle head slots neither read nor write."""
+    from repro_torch.kernels import ssd_scan as mod
+
+    if hb is not None:
+        monkeypatch.setattr(mod, "heads_per_block", lambda *args: hb)
+    _ssd_kernel_matches_plain(B, 64, H, P, N, dtype, seed=H + P)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 257])
+def test_ssd_kernel_lengths_off_the_chunk(T, dtype):
+    """T at and around the chunk's multiples, mamba2-780m's P and N."""
+    _ssd_kernel_matches_plain(2, T, 6, 64, 128, dtype, seed=T)
+
+
+@requires_cuda
+def test_ssd_kernel_serving_shape_zero_dt_and_in_place():
+    """The mamba2-780m serving shape (B 8, T 256, H 48, P 64, N 128) in
+    bf16: a row whose dt is 0 throughout keeps its state bit for bit, and
+    the state written into the initial-state buffer equals the state in a
+    fresh buffer, with the same y."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(8, 256, 48, 64, 128, torch.bfloat16, seed=90)
+    dt[0] = 0.0
+    dt[3, 100:] = 0.0
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=h0, return_state=True)
+    buf = h0.clone()
+    y2, h2 = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=buf, return_state=True,
+                          state_out=buf)
+    torch.cuda.synchronize()
+    assert h2 is buf
+    assert torch.equal(h[0], h0[0])
+    assert torch.equal(buf, h) and torch.equal(y2, y)
+    want_y, want_h = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=64, init_state=h0,
+                                  return_state=True)
+    _scaled(y, want_y, SSD_TOL[torch.bfloat16])
+    _scaled(h, want_h, 1e-4)
+
+
+@requires_cuda
+def test_ssd_kernel_strided_bf16_as_the_model_passes_them():
+    """x, B and C as bf16 slices of one conv output of width H P + 2 N, as
+    models/ssm.py passes them (mamba2-780m: 3072 + 256), and as slices
+    whose rows are not 16-byte aligned (copied by the wrapper)."""
+    B, T, H, P, N = 2, 100, 48, 64, 128
+    g = torch.Generator(device="cuda").manual_seed(91)
+    _, dt, A, _, _, h0 = _ssd_inputs(B, T, H, P, N, torch.float32, seed=92)
+    for pad in (0, 1):
+        conv = (torch.randn(B, T, H * P + 2 * N + pad, generator=g, device="cuda")
+                * 0.5).to(torch.bfloat16)
+        x = conv[..., pad:pad + H * P].reshape(B, T, H, P)
+        Bm = conv[..., pad + H * P:pad + H * P + N]
+        Cm = conv[..., pad + H * P + N:]
+        assert not x.is_contiguous() and not Bm.is_contiguous()
+        y, h = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=h0, return_state=True)
+        torch.cuda.synchronize()
+        want_y, want_h = ref.ssd_scan(x, dt, A, Bm, Cm, chunk=T, init_state=h0,
+                                      return_state=True)
+        _scaled(y, want_y, SSD_TOL[torch.bfloat16])
+        _scaled(h, want_h, 1e-4)
+
+
+@requires_cuda
+def test_decode_and_scan_smem_bytes_match_the_kernels():
+    """The Python mirrors that chip_smoke.py logs against the C layouts."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ssd_scan as scan
+
+    fn = _build.load("decode_attention").decode_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for D in dec.SUPPORTED_D:
+        assert fn(D) == dec.smem_bytes(D)
+    fn = _build.load("ssd_scan").ssd_scan_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for P in scan.SUPPORTED_P:
+        for N in scan.SUPPORTED_N:
+            for hb in range(1, scan.MAX_WARPS // (P // 16) + 1):
+                assert fn(P, N, hb) == scan.smem_bytes(P, N, hb)
 
 
 @requires_cuda
