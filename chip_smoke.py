@@ -23,20 +23,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``q_offset > 0`` and ``Sq != Sk``, the smoke head dim and a length off
    the tile;
 3. smoke parity on the card and on the CPU from the same weights:
-   yi-6b-smoke in float32 through ``Server`` (greedy tokens identical per
-   request), then olmo-1b-smoke and yi-6b-smoke in float32 for 3 AdamW
-   steps of the same batches (losses and grad norms within tolerance);
+   yi-6b-smoke and granite-8b-smoke in float32 through ``Server`` (the
+   card's through its CUDA graphs; greedy tokens identical per request),
+   then olmo-1b-smoke and yi-6b-smoke in float32 for 3 AdamW steps of the
+   same batches (losses and grad norms within tolerance);
 4. serving: full-width, full-depth yi-6b in bfloat16, weights drawn on the
    card from a seeded generator: 16 requests (prompts of 128-1536 tokens,
-   64 new tokens each) through 8 slots, with each kernel's launch count
-   checked against 32 x the decode steps or prefill dispatches;
+   64 new tokens each) through 8 slots, the server's decode step and
+   prefill dispatch captured as CUDA graphs and replayed, each kernel's
+   launches (launches per replay, counted at capture, x replays) checked
+   against 32 x the decode steps or prefill dispatches; then the same
+   requests through an eager server on the same weights, greedy tokens
+   identical for every request, both runs' tok/s printed;
+   (4b) granite-8b at full width and depth (36 layers, 8.05 B params) the
+   same way, its first 4 requests also through an eager server;
 5. times at the phase 4 shapes: each kernel, its plain version, the
    PyTorch library call for the same function (a yardstick the port never
    calls), and the least time the card could take, with the prefill
    kernel's TFLOP/s, its fraction of the operation bound and its ratio to
-   SDPA; then ``torch.profiler`` windows over a few full-batch decode steps
-   and one prefill dispatch (wall time, device-busy share, the kernels that
-   take the device time);
+   SDPA; then ``torch.profiler`` windows over a few full-batch decode
+   steps and one prefill dispatch, graph replays and then eager (wall
+   time, device-busy share, the kernels that take the device time; a
+   replay's kernel launches confirmed from the trace);
 6. training: full-width, full-depth olmo-1b in bfloat16 through
    ``repro_torch.launch.train`` (weights from a seeded generator on the
    card, ``remat="full"``, batch 4 x 2048 tokens of ``SyntheticLM`` seed
@@ -56,11 +64,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (b) mamba2-smoke and zamba2-smoke in float32 through ``Server``, card
    against CPU, with a slot reused by a 1-token prompt; (c) full-width,
    full-depth mamba2-780m in bfloat16 serving phase 4's 16 requests
+   through the graphs and then eagerly, tokens identical
    (``ssd_scan`` launches = 48 x prefill dispatches); (d) full-depth
-   zamba2-1.2b with 8 requests (per prefill dispatch 32 scans and 6
-   prefill-attention launches, 6 decode-attention launches per step);
-   (e) the scan's times at (c)'s shape and ``torch.profiler`` windows over
-   one mamba2 prefill dispatch and a few decode steps;
+   zamba2-1.2b with 8 requests the same way (per prefill dispatch 32
+   scans and 6 prefill-attention launches, 6 decode-attention launches
+   per step); (e) the scan's times at (c)'s shape and ``torch.profiler``
+   windows over one mamba2 prefill dispatch and a few decode steps,
+   graph replays and then eager;
 9. the paper's single-GPU study.  (a) ``blocked_matmul`` against its plain
    version in bfloat16 and float32 at the reference test's three shapes,
    4096^3 in both output dtypes and a non-square shape, and a tiling with
@@ -77,7 +87,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    (d) ``repro_torch.launch.calibrate`` on the card: ``build/
    calibration.json``, the spec-vs-measured summary and the replay error
    per term, a measured HBM bandwidth at most 1.05 x the spec, NVLink and
-   InfiniBand terms left at ``spec``.
+   InfiniBand terms left at ``spec``, each regime's spec-sheet and
+   calibrated planner picks; (e) ``bench_llm_inference`` (the analytic leg
+   and the serve leg at smoke scale through the graphs, written to
+   ``build/BENCH_serve.json``) and ``bench_datapath_bounds``; then the
+   planner's yi-6b decode step at phase 4's shape, on the spec sheet and
+   the calibration, beside phase 4's measured step (information only).
 
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
 name and power limit, and the device JSON.
@@ -457,41 +472,135 @@ def phase_smoke_parity():
     from repro_torch.models.sharding import tree_map
     from repro_torch.serve import Request, ServeConfig, Server
 
-    log("== phase 3: yi-6b-smoke float32, card against CPU")
-    cfg = dataclasses.replace(smoke_config("yi-6b"), dtype="float32")
-    bundle = ModelBundle(cfg)
-    params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
-    params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
-               for n in (9, 14, 3, 6, 11)]
-    tokens = {}
-    for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-        server = Server(bundle, ServeConfig(batch_slots=2, max_len=64,
-                                            prefill_chunk=4), params, device=dev)
-        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
-                for i, p in enumerate(prompts)]
-        server.add_requests(reqs)
-        server.run_until_done(max_steps=300)
-        assert all(r.done and len(r.out_tokens) == 6 for r in reqs), dev
-        tokens[dev] = {r.rid: r.out_tokens for r in reqs}
-    if tokens["cuda"] != tokens["cpu"]:
-        raise AssertionError(f"card/CPU greedy tokens differ: {tokens}")
-    log(f"  greedy tokens identical for {len(prompts)} requests: {tokens['cuda']}")
+    log("== phase 3: yi-6b-smoke and granite-8b-smoke float32, card (CUDA graphs) "
+        "against CPU")
+    for arch in ("yi-6b", "granite-8b"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        bundle = ModelBundle(cfg)
+        params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
+        params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+                   for n in (9, 14, 3, 6, 11)]
+        tokens = {}
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            server = Server(bundle, ServeConfig(batch_slots=2, max_len=64,
+                                                prefill_chunk=4), params, device=dev)
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                    for i, p in enumerate(prompts)]
+            server.add_requests(reqs)
+            server.run_until_done(max_steps=300)
+            assert all(r.done and len(r.out_tokens) == 6 for r in reqs), dev
+            tokens[dev] = {r.rid: r.out_tokens for r in reqs}
+            if dev == "cuda" and not server.engine.counters["decode_replays"]:
+                raise AssertionError("the card's server replayed no decode graph")
+        if tokens["cuda"] != tokens["cpu"]:
+            raise AssertionError(f"{arch}: card/CPU greedy tokens differ: {tokens}")
+        log(f"  {cfg.name}: greedy tokens identical for {len(prompts)} requests: "
+            f"{tokens['cuda']}")
+
+
+def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False):
+    """Serve greedy requests through ``Server`` on the card.  The kernels'
+    counts are reset just before the server is built, so its warm-up and
+    capture belong to the run.  Returns (server, requests, wall seconds,
+    launches): for a graphed server each kernel's launches per replay x
+    the replays of its graph, for an eager one the wrappers' counts."""
+    import torch
+    from repro_torch.serve import Request, Server
+    from repro_torch.serve.engine import KERNELS
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    server = Server(bundle, scfg, params, device="cuda", eager=eager)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    server.add_requests(reqs)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng, c = server.engine, server.engine.counters
+    vocab = bundle.cfg.vocab
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != new_tokens:
+            raise AssertionError(f"request {r.rid}: done={r.done}, "
+                                 f"{len(r.out_tokens)} tokens")
+        if not all(0 <= t < vocab for t in r.out_tokens):
+            raise AssertionError(f"request {r.rid}: token out of range")
+    if eager:
+        launches = {name: fn.launches for name, fn in KERNELS.items()}
+        if c["decode_replays"] or c["prefill_replays"]:
+            raise AssertionError(f"an eager server replayed graphs: {c}")
+    else:
+        if (c["decode_replays"], c["prefill_replays"]) != (
+                c["decode_steps"], c["prefill_dispatches"]):
+            raise AssertionError(f"replays differ from steps and dispatches: {c}")
+        launches = dict.fromkeys(KERNELS, 0)
+        for phase in ("decode", "prefill"):
+            for name, n in eng.graph_launches[phase].items():
+                launches[name] += n * c[f"{phase}_replays"]
+    tp = server.throughput()
+    log(f"  {'eager' if eager else 'graphs'}: served {len(reqs)} requests in {wall:.2f} s "
+        f"(server built in {built:.2f} s): {c['decode_steps']} decode steps, "
+        f"{c['prefill_dispatches']} prefill dispatches, {c['decode_replays']} + "
+        f"{c['prefill_replays']} graph replays; kernel launches {launches}"
+        + ("" if eager else f" ({eng.graph_launches} per replay)"))
+    log(f"  {'eager' if eager else 'graphs'}: prefill {tp['prefill_tokens']} tokens at "
+        f"{tp['prefill_tps']:.1f} tok/s, decode {tp['decode_tokens']} tokens at "
+        f"{tp['decode_tps']:.1f} tok/s; decode step EWMA "
+        f"{eng.measured_step_s * 1e3:.2f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return server, reqs, wall, launches
+
+
+def same_tokens(label, a, b):
+    """Greedy tokens per request identical between two runs."""
+    diff = [r.rid for r, q in zip(a, b) if r.out_tokens != q.out_tokens]
+    if diff:
+        raise AssertionError(f"{label}: graph and eager tokens differ for requests {diff}")
+    log(f"  {label}: greedy tokens identical, graphs against eager, for all "
+        f"{len(b)} requests compared")
+
+
+def check_logits(bundle, params, server, rows):
+    """The logits behind the served tokens are finite (one more step on the
+    served caches, eager and uncounted)."""
+    import torch
+
+    logits, _ = bundle.decode_step(
+        params,
+        {"tokens": torch.zeros(rows, 1, dtype=torch.int32, device="cuda"),
+         "lengths": torch.full((rows,), 1600, dtype=torch.int32, device="cuda")},
+        server.engine.caches,
+    )
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+
+
+def dense_prompts(vocab, n=16):
+    """Phase 4's requests: ``n`` prompts of 128-1536 tokens, numpy seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(128, 1537, size=n)
+    return [rng.integers(0, vocab, k).astype(np.int32) for k in plens], plens
 
 
 def phase_full():
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import flash_decode
-    from repro_torch.kernels.flash_attention import flash_prefill
     from repro_torch.models.model_zoo import ModelBundle
-    from repro_torch.serve import Request, ServeConfig, Server
+    from repro_torch.serve import ServeConfig
 
     cfg = get_config("yi-6b")
     log(f"== phase 4: {cfg.name} bfloat16, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads")
+        f"{cfg.d_model}, {cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, "
+        "through the CUDA graphs, then eager")
     bundle = ModelBundle(cfg)
     t0 = time.perf_counter()
     params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -500,100 +609,110 @@ def phase_full():
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     scfg = ServeConfig(batch_slots=YI["B"], max_len=YI["Smax"],
                        prefill_chunk=YI["chunk"])
-    server = Server(bundle, scfg, params, device="cuda")
-    rng = np.random.default_rng(0)
-    plens = rng.integers(128, 1537, size=16)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
-                    max_new_tokens=64) for i, n in enumerate(plens)]
-    server.add_requests(reqs)
-    torch.cuda.reset_peak_memory_stats()
-    flash_decode.launches = 0
-    flash_prefill.launches = 0
-    t0 = time.perf_counter()
-    server.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"decode_attention": flash_decode.launches,
-                "prefill_attention": flash_prefill.launches}
+    prompts, plens = dense_prompts(cfg.vocab)
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64)
     st = server.stats()
-    tp = server.throughput()
-    for r in reqs:
-        if not r.done or len(r.out_tokens) != 64:
-            raise AssertionError(f"request {r.rid}: done={r.done}, "
-                                 f"{len(r.out_tokens)} tokens")
-        if not all(0 <= t < cfg.vocab for t in r.out_tokens):
-            raise AssertionError(f"request {r.rid}: token out of range")
     L = cfg.n_layers
     if launches["decode_attention"] != L * st["decode_steps"]:
         raise AssertionError(f"decode launches {launches} != {L} x {st['decode_steps']}")
     if launches["prefill_attention"] != L * st["prefill_dispatches"]:
         raise AssertionError(
             f"prefill launches {launches} != {L} x {st['prefill_dispatches']}")
-    # the logits behind those tokens are finite (one more step, uncounted)
-    logits, _ = bundle.decode_step(
-        params,
-        {"tokens": torch.zeros(YI["B"], 1, dtype=torch.int32, device="cuda"),
-         "lengths": torch.full((YI["B"],), 1600, dtype=torch.int32, device="cuda")},
-        server.engine.caches,
-    )
-    if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite logits")
-    log(f"  served {len(reqs)} requests in {wall:.2f} s: "
-        f"{st['decode_steps']} decode steps, {st['prefill_dispatches']} prefill "
-        f"dispatches; kernel launches {launches}")
-    log(f"  prefill {tp['prefill_tokens']} tokens at {tp['prefill_tps']:.1f} tok/s, "
-        f"decode {tp['decode_tokens']} tokens at {tp['decode_tps']:.1f} tok/s; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches, st, [int(n) for n in plens], server
+    check_logits(bundle, params, server, YI["B"])
+    eager, ereqs, _, elaunches = serve_requests(bundle, params, scfg, prompts, 64,
+                                                eager=True)
+    est = eager.stats()
+    if elaunches["decode_attention"] != L * est["decode_steps"]:
+        raise AssertionError(f"eager decode launches {elaunches}")
+    same_tokens(cfg.name, reqs, ereqs)
+    return launches, st, [int(n) for n in plens], server, eager
 
 
-def profile_decode(server, steps=4):
-    """Where a full-batch decode step's time goes: ``torch.profiler`` over
-    a few steady steps of 8 fresh requests (after their admission)."""
-    import numpy as np
+def phase_granite_full():
+    """4b: granite-8b at full width and depth through the graphs: phase
+    4's 16 requests, launch counts checked; its first 4 requests also
+    through an eager server, greedy tokens identical."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig
 
-    rng = np.random.default_rng(1)
-    for i in range(server.cfg.batch_slots):
-        server.submit(rng.integers(0, server.bundle.cfg.vocab, 1024),
-                      max_new_tokens=steps + 4, rid=100 + i)
-    server.step()                       # admission + first decode
-    server.step()
+    cfg = get_config("granite-8b")
+    log(f"== phase 4b: {cfg.name} bfloat16, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, "
+        f"{cfg.num_params() / 1e9:.2f} B params, through the CUDA graphs")
+    bundle = ModelBundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            server.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    log(f"  decode step at 8 x ~1030 cached tokens: {wall * 1e3:.2f} ms wall, "
-        f"{busy:.2f} ms of device time ({100 * busy / (wall * 1e3):.1f} % busy)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
-            f"{e.count // steps:5d} calls/step  {e.key[:90]}")
-    server.run_until_done()
+    log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    scfg = ServeConfig(batch_slots=YI["B"], max_len=YI["Smax"], prefill_chunk=YI["chunk"])
+    prompts, _ = dense_prompts(cfg.vocab)
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64)
+    st, L = server.stats(), cfg.n_layers
+    want = {"decode_attention": L * st["decode_steps"],
+            "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"granite-8b launches {launches} != {want}")
+    check_logits(bundle, params, server, YI["B"])
+    del server
+    torch.cuda.empty_cache()
+    eager, ereqs, _, _ = serve_requests(bundle, params, scfg, prompts[:4], 64, eager=True)
+    same_tokens(cfg.name, reqs[:4], ereqs)
+    del eager, params
+    torch.cuda.empty_cache()
 
 
-def profile_prefill(server):
+#: the serving kernels' names in a profiler trace, by wrapper name
+TRACE_NAMES = {"decode_attention": "decode_mma_kernel",
+               "prefill_attention": "prefill_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
+
+
+def expected_trace(server, graph):
+    """The kernel launches one call of ``graph``'s step makes, by trace
+    name: what the Executor counted at capture (None for an eager server)."""
+    eng = server.engine
+    if not eng.graphed:
+        return None
+    return {TRACE_NAMES[k]: n for k, n in eng.graph_launches[graph].items()}
+
+
+def profile_decode(servers, steps=4):
+    """Where a full-batch decode step's time goes: ``torch.profiler`` over
+    a few steady steps of 8 fresh requests (after their admission), for
+    each server (graph replays, then eager)."""
+    import numpy as np
+
+    for label, server in servers.items():
+        rng = np.random.default_rng(1)
+        for i in range(server.cfg.batch_slots):
+            server.submit(rng.integers(0, server.bundle.cfg.vocab, 1024),
+                          max_new_tokens=steps + 5, rid=100 + i)
+        server.step()                       # admission + first decode
+        server.step()
+        profile_window(f"{label}: decode step at 8 x ~1030 cached tokens", server.step,
+                       steps, expected_trace(server, "decode"))
+        server.run_until_done()
+
+
+def profile_prefill(servers):
     """Where a prefill dispatch's time goes: ``torch.profiler`` over one
     dispatch of 8 rows x 256 new tokens at phase 5's cache fills (0..1792),
-    on the phase 4 server's caches (its requests are done)."""
-    import torch
+    on each phase 4 server's caches (their requests are done): a replay of
+    the prefill graph, then the eager dispatch."""
+    import numpy as np
 
     y = YI
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    toks = torch.randint(0, server.bundle.cfg.vocab, (y["B"], y["chunk"]), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    new = torch.full((y["B"],), y["chunk"], dtype=torch.int32, device="cuda")
-    offs = torch.arange(0, y["B"] * 256, 256, dtype=torch.int32, device="cuda")
-    profile_window("prefill dispatch (8 x 256 tokens at fills 0..1792, 32 layers)",
-                   lambda: server.bundle.prefill_at(server.params, {"tokens": toks, "new_lens": new},
-                                                    server.engine.caches, offs), steps=2)
+    rng = np.random.default_rng(6)
+    for label, server in servers.items():
+        toks = rng.integers(0, server.bundle.cfg.vocab, (y["B"], y["chunk"])).astype(np.int32)
+        new = np.full(y["B"], y["chunk"], np.int32)
+        offs = np.arange(0, y["B"] * 256, 256, dtype=np.int32)
+        profile_window(f"{label}: prefill dispatch (8 x 256 tokens at fills 0..1792, "
+                       "32 layers)",
+                       lambda: server.engine.dispatch_prefill(toks, new, offs), steps=2,
+                       expect=expected_trace(server, "prefill"))
 
 
 def time_ms(fn, inputs, reps=3, iters=10):
@@ -1122,15 +1241,13 @@ def phase_ssm_parity():
 def serve_full(arch, n_requests, max_prompt, new_tokens):
     """Serve ``n_requests`` greedy requests (prompts of 128..max_prompt
     tokens, numpy seed 0) through full-width, full-depth ``arch`` in bf16 on
-    ServeConfig(8, 2048, 256); counts reset just before the run."""
+    ServeConfig(8, 2048, 256), through the CUDA graphs and then eagerly on
+    the same weights: greedy tokens identical for every request."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import flash_decode
-    from repro_torch.kernels.flash_attention import flash_prefill
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.model_zoo import ModelBundle
-    from repro_torch.serve import Request, ServeConfig, Server
+    from repro_torch.serve import ServeConfig
 
     cfg = get_config(arch)
     bundle = ModelBundle(cfg)
@@ -1140,43 +1257,17 @@ def serve_full(arch, n_requests, max_prompt, new_tokens):
     log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     m = MAMBA
-    server = Server(bundle, ServeConfig(batch_slots=m["B"], max_len=2048,
-                                        prefill_chunk=m["T"]), params, device="cuda")
+    scfg = ServeConfig(batch_slots=m["B"], max_len=2048, prefill_chunk=m["T"])
     rng = np.random.default_rng(0)
     plens = rng.integers(128, max_prompt + 1, size=n_requests)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
-                    max_new_tokens=new_tokens) for i, n in enumerate(plens)]
-    server.add_requests(reqs)
-    torch.cuda.reset_peak_memory_stats()
-    ssd_scan.launches = flash_decode.launches = flash_prefill.launches = 0
-    t0 = time.perf_counter()
-    server.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"ssd_scan": ssd_scan.launches, "decode_attention": flash_decode.launches,
-                "prefill_attention": flash_prefill.launches}
-    st, tp = server.stats(), server.throughput()
-    for r in reqs:
-        if not r.done or len(r.out_tokens) != new_tokens:
-            raise AssertionError(f"request {r.rid}: done={r.done}, "
-                                 f"{len(r.out_tokens)} tokens")
-        if not all(0 <= t < cfg.vocab for t in r.out_tokens):
-            raise AssertionError(f"request {r.rid}: token out of range")
-    logits, _ = bundle.decode_step(
-        params,
-        {"tokens": torch.zeros(m["B"], 1, dtype=torch.int32, device="cuda"),
-         "lengths": torch.full((m["B"],), 1600, dtype=torch.int32, device="cuda")},
-        server.engine.caches,
-    )
-    if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite logits")
-    log(f"  served {len(reqs)} requests (prompts {int(plens.min())}-{int(plens.max())} "
-        f"tokens, {new_tokens} new each) in {wall:.2f} s: {st['decode_steps']} decode "
-        f"steps, {st['prefill_dispatches']} prefill dispatches; kernel launches {launches}")
-    log(f"  prefill {tp['prefill_tokens']} tokens at {tp['prefill_tps']:.1f} tok/s, "
-        f"decode {tp['decode_tokens']} tokens at {tp['decode_tps']:.1f} tok/s; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return server, params, launches, st
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in plens]
+    log(f"  prompts {int(plens.min())}-{int(plens.max())} tokens, {new_tokens} new each")
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, new_tokens)
+    check_logits(bundle, params, server, m["B"])
+    eager, ereqs, _, elaunches = serve_requests(bundle, params, scfg, prompts, new_tokens,
+                                                eager=True)
+    same_tokens(cfg.name, reqs, ereqs)
+    return server, eager, params, launches, elaunches
 
 
 def phase_mamba_full():
@@ -1186,15 +1277,15 @@ def phase_mamba_full():
     s = cfg.ssm
     log(f"== phase 8c: {cfg.name} bfloat16, {cfg.n_layers} M layers, d_model "
         f"{cfg.d_model}, {s.n_heads(cfg.d_model)} SSD heads x P {s.head_dim}, "
-        f"N {s.d_state}, vocab {cfg.vocab}")
-    server, params, launches, st = serve_full("mamba2-780m", 16, 1536, 64)
+        f"N {s.d_state}, vocab {cfg.vocab}, through the CUDA graphs, then eager")
+    server, eager, params, launches, elaunches = serve_full("mamba2-780m", 16, 1536, 64)
     L = cfg.n_layers
-    if launches["ssd_scan"] != L * st["prefill_dispatches"]:
-        raise AssertionError(f"ssd_scan launches {launches} != {L} x "
-                             f"{st['prefill_dispatches']} prefill dispatches")
-    if launches["decode_attention"] or launches["prefill_attention"]:
-        raise AssertionError(f"attention kernels ran in an attention-free model: {launches}")
-    return server, params, launches
+    for label, srv, ln in (("graphs", server, launches), ("eager", eager, elaunches)):
+        want = {"ssd_scan": L * srv.stats()["prefill_dispatches"],
+                "decode_attention": 0, "prefill_attention": 0}
+        if ln != want:
+            raise AssertionError(f"{label}: launches {ln} != {want}")
+    return server, eager, params, launches
 
 
 def phase_zamba_full():
@@ -1206,35 +1297,47 @@ def phase_zamba_full():
     log(f"== phase 8d: {cfg.name} bfloat16, {codes.count('M')} M layers and "
         f"{codes.count('S')} applications of one shared attention block "
         f"({cfg.attention.n_heads} x {cfg.attention.d_head} heads over width "
-        f"{2 * cfg.d_model}), d_model {cfg.d_model}")
-    server, params, launches, st = serve_full("zamba2-1.2b", 8, 1024, 32)
+        f"{2 * cfg.d_model}), d_model {cfg.d_model}, through the CUDA graphs, then eager")
+    server, eager, params, launches, elaunches = serve_full("zamba2-1.2b", 8, 1024, 32)
     n_m, n_s = codes.count("M"), codes.count("S")
-    want = {"ssd_scan": n_m * st["prefill_dispatches"],
-            "prefill_attention": n_s * st["prefill_dispatches"],
-            "decode_attention": n_s * st["decode_steps"]}
-    if launches != want:
-        raise AssertionError(f"zamba2 launches {launches} != {want}")
-    del server, params
+    for label, srv, ln in (("graphs", server, launches), ("eager", eager, elaunches)):
+        st = srv.stats()
+        want = {"ssd_scan": n_m * st["prefill_dispatches"],
+                "prefill_attention": n_s * st["prefill_dispatches"],
+                "decode_attention": n_s * st["decode_steps"]}
+        if ln != want:
+            raise AssertionError(f"zamba2 {label} launches {ln} != {want}")
+    del server, eager, params
     torch.cuda.empty_cache()
 
 
-def profile_window(label, fn, steps):
+def profile_window(label, fn, steps, expect=None):
     """``torch.profiler`` over ``steps`` calls of ``fn``: wall and device
-    time per call, the busy share, the kernels that take the device time."""
+    time per call, the busy share, the kernels that take the device time.
+    ``expect`` maps a kernel's trace name to its launches per call: the
+    trace must show exactly that many (a graph's launches confirmed from
+    the card's own records).  A window with no device records at all is
+    taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if kernels:
+            break
+        log(f"  ({label}: the profiler recorded no device time; taken again)")
+    else:
+        raise AssertionError(f"{label}: three profiler windows without device records")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     n = sum(e.count for e in kernels) // steps
     log(f"  {label}: {wall * 1e3:.2f} ms wall, {busy:.2f} ms of device time "
@@ -1242,9 +1345,17 @@ def profile_window(label, fn, steps):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/call "
             f"{e.count // steps:5d} launches/call  {e.key[:90]}")
+    for name, per_call in (expect or {}).items():
+        seen = sum(e.count for e in kernels if name in e.key)
+        if seen != per_call * steps:
+            raise AssertionError(f"{label}: the trace shows {seen} {name} launches, "
+                                 f"the graph counted {per_call} x {steps} calls")
+        log(f"    trace confirms {name}: {seen} launches = {per_call} per replay x {steps}")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, launches=n)
 
 
-def phase_ssd_times(server, params, launches, errs):
+def phase_ssd_times(servers, launches, errs):
+    import numpy as np
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import sm_count
@@ -1277,20 +1388,18 @@ def phase_ssd_times(server, params, launches, errs):
     del sets
 
     # profile windows: one prefill dispatch (8 rows x 256 new tokens at
-    # offset 0) and decode steps (8 rows), on the phase 8c server's caches
-    bundle, caches = server.bundle, server.engine.caches
-    dev = "cuda"
-    toks = torch.randint(0, bundle.cfg.vocab, (B, T), generator=gen, device=dev,
-                         dtype=torch.int32)
-    full = torch.full((B,), T, dtype=torch.int32, device=dev)
-    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
-    profile_window("prefill dispatch (8 x 256 tokens, 48 layers)",
-                   lambda: bundle.prefill_at(params, {"tokens": toks, "new_lens": full},
-                                             caches, zeros), steps=2)
-    one = toks[:, :1].contiguous()
-    profile_window("decode step (8 rows, 48 layers)",
-                   lambda: bundle.decode_step(params, {"tokens": one, "lengths": full},
-                                              caches), steps=4)
+    # offset 0) and decode steps (8 rows), on the phase 8c servers' caches:
+    # graph replays, then eager
+    rng = np.random.default_rng(13)
+    for label, server in servers.items():
+        eng = server.engine
+        toks = rng.integers(0, server.bundle.cfg.vocab, (B, T)).astype(np.int32)
+        full, zeros = np.full(B, T, np.int32), np.zeros(B, np.int32)
+        profile_window(f"{label}: prefill dispatch (8 x 256 tokens, 48 layers)",
+                       lambda: eng.dispatch_prefill(toks, full, zeros), steps=2,
+                       expect=expected_trace(server, "prefill"))
+        profile_window(f"{label}: decode step (8 rows, 48 layers)", eng.decode, steps=4,
+                       expect=expected_trace(server, "decode"))
     return row
 
 
@@ -1545,6 +1654,58 @@ def phase_calibrate():
             f"{e.max_rel_error:.4f} over {e.count} sweep points ({e.limiting_link})")
 
 
+def phase_planner_benches():
+    """9e: the planner-driven benchmarks on the card: bench_llm_inference's
+    analytic leg and its serve leg at smoke scale (through the graphs,
+    build/BENCH_serve.json), and bench_datapath_bounds."""
+    from repro_torch.benchmarks import bench_datapath_bounds, bench_llm_inference
+
+    log("== phase 9e: bench_llm_inference (analytic, serve at smoke scale) and "
+        "bench_datapath_bounds on the card")
+    rows = bench_llm_inference.analytic()
+    if len(rows) != 3 * 8:
+        raise AssertionError(f"{len(rows)} analytic rows")
+    t0 = time.perf_counter()
+    res = bench_llm_inference.serve("cuda")
+    saved = json.loads(bench_llm_inference.OUT.read_text())
+    if saved != json.loads(json.dumps(res)):
+        raise AssertionError("BENCH_serve.json differs from the serve leg's result")
+    for key, e in res.items():
+        if (e["policy"]["name"] != "hbm_resident" or e["mesh_axes"] is not None
+                or set(e["phases"]) != {"decode", "prefill"}
+                or e["decode_tokens"] != e["requests"] * e["max_new"]
+                or not e["decode_tps"] > 0 or not e["prefill_tps"] > 0):
+            raise AssertionError(f"serve leg entry {key}: {e}")
+    log(f"  serve leg took {time.perf_counter() - t0:.1f} s; wrote {bench_llm_inference.OUT}")
+    bench_datapath_bounds.main("cuda")
+
+
+def planner_against_measured(measured):
+    """The planner's yi-6b ``hbm_resident`` decode step at phase 4's shape
+    (8 slots, 2048 positions), on the spec sheet and on phase 9d's
+    calibration, beside phase 4's measured step EWMAs.  Information, not a
+    gate."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.calibration import Calibration
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.core.placement import get_policy
+    from repro_torch.core.planner import predict
+    from repro_torch.models.model_zoo import ModelSizing
+
+    log("== the planner's yi-6b decode step against phase 4's measured steps")
+    sizing = ModelSizing(get_config("yi-6b"))
+    shape = ShapeSpec("serve", YI["Smax"], YI["B"], "decode")
+    prof = sizing.decode_workload(shape)
+    cal = Calibration.load(ROOT / "build" / "calibration.json").apply(SPEC_SYSTEM)
+    for name, system in (("spec", SPEC_SYSTEM), ("calibrated", cal)):
+        p = predict(prof, get_policy("hbm_resident"), system)
+        log(f"  planner[{name}]: {p.step_s * 1e3:.3f} ms a step, limited by {p.limiting} "
+            f"(params {sizing.cfg.num_params() * 2 / 1e9:.2f} GB + KV "
+            f"{sizing.cache_bytes(shape) / 1e9:.2f} GB at full cache)")
+    log("  measured_step_s (decode-step wall EWMA): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in measured.items()))
+
+
 def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     """One entry of the ``kernels`` JSON line; logs it."""
     hbm_bytes_per_s, bf16_flops_per_s, f32_flops_per_s = peaks()
@@ -1590,15 +1751,19 @@ def main() -> int:
     phase_smoke_parity()
     phase_train_parity()
     phase_ssm_parity()
-    launches, stats, plens, server = phase_full()
+    launches, stats, plens, server, eager = phase_full()
+    measured = {"graphs": server.engine.measured_step_s,
+                "eager": eager.engine.measured_step_s}
     rows = phase_times(launches, stats, plens, errs)
-    profile_decode(server)
-    profile_prefill(server)
-    del server
+    servers = {"graphs": server, "eager": eager}
+    profile_decode(servers)
+    profile_prefill(servers)
+    del server, eager, servers
     torch.cuda.empty_cache()
-    server, params, ssm_launches = phase_mamba_full()
-    rows.append(phase_ssd_times(server, params, ssm_launches, errs))
-    del server, params
+    phase_granite_full()
+    server, eager, params, ssm_launches = phase_mamba_full()
+    rows.append(phase_ssd_times({"graphs": server, "eager": eager}, ssm_launches, errs))
+    del server, eager, params
     torch.cuda.empty_cache()
     phase_zamba_full()
     out, train_launches = phase_train_full()
@@ -1612,6 +1777,8 @@ def main() -> int:
     rows += phase_membench()
     torch.cuda.empty_cache()
     phase_calibrate()
+    phase_planner_benches()
+    planner_against_measured(measured)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

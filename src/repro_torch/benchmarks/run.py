@@ -10,6 +10,8 @@ modules one card measures:
   bench_latency           Figs. 11, 12
   bench_gemm              Figs. 15, 16 + Table III
   bench_managed_vs_system Fig. 4
+  bench_datapath_bounds   Fig. 3, Table II, Figs. 15-17 (the policy table)
+  bench_llm_inference     Fig. 17 (serve and analytic legs)
 
 The device defaults to ``cuda``; without a card that raises.
 """
@@ -30,6 +32,8 @@ MODULES = [
     "bench_latency",
     "bench_gemm",
     "bench_managed_vs_system",
+    "bench_datapath_bounds",
+    "bench_llm_inference",
 ]
 
 

@@ -7,9 +7,11 @@ Counterpart of ``repro/core``:
 * :mod:`repro_torch.core.membench`    — paper-methodology measurement (CUDA events).
 * :mod:`repro_torch.core.replay`      — predicted-vs-measured per calibrated term.
 * :mod:`repro_torch.core.calibration` — measured terms from the card's own sweeps.
+* :mod:`repro_torch.core.placement`   — per-role memory placement policies.
+* :mod:`repro_torch.core.planner`     — policy selection from predicted step time.
 
-The placement planner, placement policies and the roofline reports are
-not ported yet (ROADMAP A9).
+The placement realization (host and donor tiers, the ``Runtime``) and the
+roofline reports are not ported yet (ROADMAP A9, second half).
 """
 
 from repro_torch.core.hardware import (  # noqa: F401
@@ -35,6 +37,44 @@ from repro_torch.core.datapath import (  # noqa: F401
     streaming_time,
     wire_bytes,
     write_bound,
+)
+from repro_torch.core.placement import (  # noqa: F401
+    DONOR_AXIS,
+    HBM_RESIDENT,
+    KV_HOST,
+    KV_PEER_HBM,
+    KV_REMOTE_HBM,
+    OPT_HOST,
+    OPT_PEER_HOST,
+    REMOTE_DONOR_AXIS,
+    WEIGHTS_PEER_HBM,
+    WEIGHTS_STREAM,
+    DonorAxisError,
+    Placement,
+    PlacementPolicy,
+    PolicyBuilder,
+    Role,
+    Strategy,
+    donor_allow_flags,
+    donor_axes_for,
+    get_policy,
+    parse_policy,
+    policy,
+    register_policy,
+    registered_policies,
+    validate_policy_for_mesh,
+)
+from repro_torch.core.planner import (  # noqa: F401
+    CollectiveTerm,
+    PlacementOOMError,
+    PolicyPrediction,
+    WorkloadProfile,
+    decode_profile,
+    eligible_policies,
+    plan,
+    pool_capacities,
+    predict,
+    train_profile,
 )
 from repro_torch.core.replay import (  # noqa: F401
     ReplayLog,

@@ -78,23 +78,33 @@ def _theta(spec: AttentionSpec, code: str) -> float:
 def cache_defs(
     batch: int, max_len: int, spec: AttentionSpec, code: str = "F"
 ) -> dict:
-    """Per-layer decode-cache defs (Param reused as a shaped placeholder)."""
+    """Per-layer decode-cache defs (Param reused as a shaped placeholder).
+
+    Every layer code and the MLA cache are described, as the reference
+    does, so the planner can size any config's cache; the port's model
+    applies only ``F``-code GQA caches (``ModelBundle`` refuses the rest).
+    """
     if spec.kind == "mla":
-        raise NotImplementedError(
-            "MLA caches are not ported yet (ROADMAP queue A)"
-        )
-    if code != "F":
-        raise NotImplementedError(
-            f"the ring cache of layer code {code!r} is not ported yet "
-            "(ROADMAP queue A)"
-        )
+        return {
+            "ckv": Param(
+                (batch, max_len, spec.kv_lora),
+                ("batch", "kv_seq", "lora"), init="zeros",
+            ),
+            "krope": Param(
+                (batch, max_len, spec.rope_head_dim),
+                ("batch", "kv_seq", None), init="zeros",
+            ),
+        }
+    size = min(max_len, spec.window) if code == "L" and spec.window else max_len
+    if code == "C" and spec.chunk:
+        size = min(max_len, 2 * spec.chunk)  # ring over current+prev chunk
     return {
         "k": Param(
-            (batch, spec.n_kv_heads, max_len, spec.d_head),
+            (batch, spec.n_kv_heads, size, spec.d_head),
             ("batch", "kv_heads", "kv_seq", "head_dim"), init="zeros",
         ),
         "v": Param(
-            (batch, spec.n_kv_heads, max_len, spec.d_head),
+            (batch, spec.n_kv_heads, size, spec.d_head),
             ("batch", "kv_heads", "kv_seq", "head_dim"), init="zeros",
         ),
     }

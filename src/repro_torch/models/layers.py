@@ -168,13 +168,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
     x: (..., S, D) with D even; positions: broadcastable to (..., S).  The
     frequencies are computed in float32, as the reference does: at yi's
-    theta of 5e6 a float64 table would drift from it.
+    theta of 5e6 a float64 table would drift from it.  The base is filled
+    on the device, not copied from the host, so a CUDA graph can capture
+    the serving steps that call this.
     """
     d = x.shape[-1]
     half = d // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
-                      exponent)
+    freqs = torch.pow(torch.full_like(exponent, theta), exponent)
     angles = positions[..., None].float() * freqs           # (..., S, half)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half].float(), x[..., half:].float()

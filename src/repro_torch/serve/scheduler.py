@@ -99,20 +99,22 @@ class Server:
     """Single-model continuous-batching server on one device.
 
     Composes the wait queue with the :class:`Executor` (``server.engine``:
-    params, caches, dispatches) and the :class:`SlotTable`
-    (``server.table``).
+    params, caches, the device state's fixed buffers, the compiled steps)
+    and the :class:`SlotTable` (``server.table``).  On the card the steps
+    replay CUDA graphs; ``eager=True`` runs them without graphs, to
+    compare the two.
     """
 
-    def __init__(self, bundle, cfg: ServeConfig, params, device=None):
+    def __init__(self, bundle, cfg: ServeConfig, params, device=None, *,
+                 eager: bool = False):
         self.bundle = bundle
         self.cfg = cfg
-        self.engine = Executor(bundle, cfg, params, device)
+        self.engine = Executor(bundle, cfg, params, device, eager=eager)
         self.device = self.engine.device
         self.table = SlotTable(cfg.batch_slots)
         self._requests: dict[int, Request] = {}
         #: FIFO of rids never yet admitted
         self._waitq: list[int] = []
-        self._state = self.table.device_state(self.device)
         self._next_rid = 0
         self._counters = {"peak_queue": 0}
 
@@ -242,9 +244,10 @@ class Server:
 
     # -- admission ---------------------------------------------------------
     def _sync_state(self) -> None:
-        """Upload the small state arrays after a slot lifecycle event
-        (admission / free).  Steady-state decode never calls this."""
-        self._state = self.table.device_state(self.device)
+        """Copy the mirrors into the device state's fixed buffers after a
+        slot lifecycle event (admission / free).  Steady-state decode
+        never calls this."""
+        self.engine.state.load(self.table)
 
     def _free_slot(self, i: int) -> int | None:
         """The one place an occupied slot returns to the pool: clears the
@@ -278,7 +281,7 @@ class Server:
         """Admit, then decode one token for every active slot.  Returns
         the number of active slots.
 
-        The decode step consumes and returns the on-device state; the only
+        The decode step advances the on-device state in place; the only
         per-step device→host traffic is the packed (2, B) token/stopped
         vector.  Tokens stream to ``on_token`` callbacks the tick they are
         decoded.
@@ -288,7 +291,7 @@ class Server:
         if not active:
             return 0
         now = time.perf_counter
-        tokens, stopped, self._state = self.engine.decode(self._state)
+        tokens, stopped = self.engine.decode()
         self.engine.counters["decode_tokens"] += len(active)
         freed = False
         for i in active:

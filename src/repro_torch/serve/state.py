@@ -1,17 +1,23 @@
-"""Slot state: host mirrors, the device serve state, and upload rules.
+"""Slot state: host mirrors, the device serve state's fixed buffers, uploads.
 
 Counterpart of ``repro/serve/state.py`` (no spill records: preemption is
 not ported yet).  A :class:`SlotTable` owns the per-slot host mirrors
-(length, last token, active flag, sampling parameters) and builds the
-device-side state dict the decode step carries.  Host mirrors advance from
-the token vector the step *returns*; they are uploaded again only on slot
-lifecycle events — admission and free — never per decode step.
+(length, last token, active flag, sampling parameters).  The device side
+is a :class:`DeviceState`: one fixed tensor per field, allocated once per
+``Executor`` on its device, which the decode step reads and advances in
+place.  Host mirrors advance from the token vector the step *returns*;
+they are copied into the buffers again only on slot lifecycle events —
+admission and free — never per decode step.
 
-Upload discipline (:func:`upload`): a buffer handed to the device must
-never see a later write.  ``torch.from_numpy(mirror).to(dev,
-non_blocking=True)`` can read the mirror after the host has moved on and
-mutated it, so every upload first takes a private copy nothing else
-writes.
+The buffers never move: a CUDA graph captured over them reads the same
+addresses at every replay, so an upload must write into them
+(:class:`Uploader`) and never rebind a field to a new tensor.
+
+Upload discipline: a host buffer handed to the device must never see a
+later write while the copy may still read it.  On the card every buffer
+has a pinned staging twin; the copies are asynchronous, and the next
+upload first waits on the event recorded after them before it writes the
+staging again.  On the CPU the copy is synchronous.
 """
 
 from __future__ import annotations
@@ -21,27 +27,67 @@ import torch
 
 from repro_torch.serve.sampling import STOP_WIDTH, SamplingParams
 
+#: the device serve state: field -> (per-slot trailing shape, dtype, idle value)
+STATE_FIELDS: dict[str, tuple[tuple[int, ...], torch.dtype, object]] = {
+    "tokens": ((1,), torch.int32, 0),
+    "lengths": ((), torch.int32, 0),
+    "active": ((), torch.bool, False),
+    "temp": ((), torch.float32, 0.0),
+    "top_k": ((), torch.int32, 0),
+    "top_p": ((), torch.float32, 1.0),
+    "seed": ((), torch.int64, 0),
+    "stop": ((STOP_WIDTH,), torch.int32, -1),
+}
 
-def upload(arr: np.ndarray, dtype, device) -> torch.Tensor:
-    """Device copy of a host mirror that can NEVER see later writes."""
-    return torch.from_numpy(np.array(arr, dtype=dtype, copy=True)).to(device)
+
+class Uploader:
+    """Copies host arrays into a fixed set of device buffers in place."""
+
+    def __init__(self, buffers: dict[str, torch.Tensor]):
+        self.buffers = buffers
+        self.device = next(iter(buffers.values())).device
+        self._staging = self._done = None
+        if self.device.type == "cuda":
+            self._staging = {k: torch.empty_like(b, device="cpu").pin_memory()
+                             for k, b in buffers.items()}
+            self._done = torch.cuda.Event()
+
+    def put(self, values: dict[str, np.ndarray]) -> None:
+        """``buffers[k] <- values[k]`` for each given field, queued on the
+        device's current stream."""
+        if self._staging is None:
+            for k, arr in values.items():
+                self.buffers[k].copy_(torch.from_numpy(np.asarray(arr)))
+            return
+        self._done.synchronize()        # the last copies out of the staging
+        for k, arr in values.items():
+            stage = self._staging[k]
+            stage.numpy()[...] = arr
+            self.buffers[k].copy_(stage, non_blocking=True)
+        self._done.record(torch.cuda.current_stream(self.device))
 
 
-def idle_device_state(batch_slots: int, device) -> dict:
-    """All-idle device state with the canonical schema — same keys, shapes
-    and dtypes as :meth:`SlotTable.device_state`."""
-    B = batch_slots
-    i32 = dict(dtype=torch.int32, device=device)
-    return {
-        "tokens": torch.zeros((B, 1), **i32),
-        "lengths": torch.zeros((B,), **i32),
-        "active": torch.zeros((B,), dtype=torch.bool, device=device),
-        "temp": torch.zeros((B,), dtype=torch.float32, device=device),
-        "top_k": torch.zeros((B,), **i32),
-        "top_p": torch.ones((B,), dtype=torch.float32, device=device),
-        "seed": torch.zeros((B,), dtype=torch.int64, device=device),
-        "stop": torch.full((B, STOP_WIDTH), -1, **i32),
-    }
+class DeviceState:
+    """The serve state's fixed device buffers (``state[field]``), idle at
+    construction: the same fields, shapes and dtypes as
+    :meth:`SlotTable.mirrors`."""
+
+    def __init__(self, batch_slots: int, device):
+        self.buffers = {
+            name: torch.full((batch_slots, *tail), idle, dtype=dtype,
+                             device=device)
+            for name, (tail, dtype, idle) in STATE_FIELDS.items()
+        }
+        self._uploader = Uploader(self.buffers)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.buffers[name]
+
+    def load(self, table: "SlotTable") -> None:
+        """Copy every mirror of ``table`` into the buffers (lifecycle
+        events only — steady-state decode advances the buffers on the
+        device)."""
+        self._uploader.put(table.mirrors())
 
 
 class SlotTable:
@@ -115,16 +161,10 @@ class SlotTable:
         return rid
 
     # -- device state ------------------------------------------------------
-    def device_state(self, device) -> dict:
-        """Fresh device serve state from the mirrors (lifecycle events
-        only — steady-state decode carries the state on the device)."""
+    def mirrors(self) -> dict[str, np.ndarray]:
+        """The mirrors under the :data:`STATE_FIELDS` names."""
         return {
-            "tokens": upload(self.last_tokens, np.int32, device),
-            "lengths": upload(self.lengths, np.int32, device),
-            "active": upload(self.active, bool, device),
-            "temp": upload(self.temp, np.float32, device),
-            "top_k": upload(self.top_k, np.int32, device),
-            "top_p": upload(self.top_p, np.float32, device),
-            "seed": upload(self.seed, np.int64, device),
-            "stop": upload(self.stop, np.int32, device),
+            "tokens": self.last_tokens, "lengths": self.lengths,
+            "active": self.active, "temp": self.temp, "top_k": self.top_k,
+            "top_p": self.top_p, "seed": self.seed, "stop": self.stop,
         }

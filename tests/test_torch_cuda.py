@@ -831,6 +831,181 @@ def test_ssm_model_on_card_matches_cpu(arch):
 
 
 # ---------------------------------------------------------------------------
+# the serve steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _fixed(engine) -> dict:
+    """Every tensor a captured serve step reads or writes."""
+    out = {f"state.{k}": v for k, v in engine.state.buffers.items()}
+    out.update({f"prefill.{k}": v for k, v in engine.prefill_in.items()})
+    out["out"] = engine.out
+    out.update({f"cache.{i}": t for i, t in enumerate(tree_leaves(engine.caches))})
+    return out
+
+
+def _replay_equals_eager(engine, name) -> None:
+    """From one snapshot, a replay of graph ``name`` and an eager call of
+    the step it captured write the same buffers and caches bit for bit;
+    the snapshot is restored after, so the server's mirrors stay true."""
+    fixed = _fixed(engine)
+    snap = {k: t.clone() for k, t in fixed.items()}
+    engine._graphs[name].replay()
+    torch.cuda.synchronize()
+    graphed = {k: t.clone() for k, t in fixed.items()}
+    for k, t in fixed.items():
+        t.copy_(snap[k])
+    getattr(engine, f"_{name}_step")()
+    torch.cuda.synchronize()
+    assert any(not torch.equal(graphed[k], snap[k]) for k in fixed), "wrote nothing"
+    for k, t in fixed.items():
+        assert torch.equal(graphed[k], t), k
+        t.copy_(snap[k])
+
+
+def _graph_server(arch="yi-6b", dtype="bfloat16", **kw):
+    from repro_torch.serve import ServeConfig, Server
+
+    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype=dtype))
+    params = tb.init_params(torch.Generator(device="cuda").manual_seed(0))
+    return Server(tb, ServeConfig(batch_slots=3, max_len=64, prefill_chunk=8),
+                  params, device="cuda", **kw)
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "zamba2-1.2b"])
+def test_decode_graph_replay_matches_eager_step_after_admission_and_retirement(arch):
+    """The decode graph, replayed after an admission and after a
+    retirement changed the fixed state buffers in place, writes what the
+    eager step writes from the same state, bit for bit: the sampled
+    tokens of a temperature/top-k/top-p request (a function of every
+    logit), the greedy ones, lengths and every cache leaf."""
+    from repro_torch.serve import SamplingParams
+
+    server = _graph_server(arch)
+    eng = server.engine
+    assert eng.graphed and set(eng.graph_launches) == {"decode", "prefill"}
+    server.submit(np.arange(1, 12), max_new_tokens=2)
+    server.submit(np.arange(5, 9), max_new_tokens=9,
+                  sampling=SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=7))
+    server.step()                                   # admission + one replay
+    _replay_equals_eager(eng, "decode")
+    server.step()
+    server.step()                                   # the first request retires
+    assert len(server.table.active_slots()) == 1
+    _replay_equals_eager(eng, "decode")
+    server.submit(np.arange(2, 30), max_new_tokens=3)
+    server.step()                                   # admission into the freed slot
+    _replay_equals_eager(eng, "decode")
+    assert eng.counters["decode_replays"] == eng.counters["decode_steps"] == 4
+
+
+@requires_cuda
+def test_graph_and_eager_servers_give_the_same_tokens():
+    """The same requests through a graphed and an eager server on the
+    same weights: the same tokens per rid, greedy and sampled, and the
+    graph's launches per replay x replays equal the layer counts x steps."""
+    from repro_torch.serve import SamplingParams
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 500, n).astype(np.int32) for n in (9, 30, 2, 17, 1)]
+    runs = {}
+    for eager in (False, True):
+        server = _graph_server("yi-6b", eager=eager)
+        reqs = [server.submit(p, max_new_tokens=6, sampling=SamplingParams(
+                    temperature=0.7 * (i % 2), top_k=10, seed=i))
+                for i, p in enumerate(prompts)]
+        server.run_until_done(max_steps=200)
+        runs[eager] = ([r.out_tokens for r in reqs], server)
+    assert runs[False][0] == runs[True][0]
+    eng = runs[False][1].engine
+    st = eng.counters
+    L = eng.bundle.cfg.n_layers
+    assert eng.graph_launches["decode"] == {"decode_attention": L}
+    assert eng.graph_launches["prefill"] == {"prefill_attention": L}
+    assert st["decode_replays"] == st["decode_steps"] > 0
+    assert st["prefill_replays"] == st["prefill_dispatches"] > 0
+    assert runs[True][1].engine.counters["decode_replays"] == 0
+
+
+@requires_cuda
+def test_prefill_graph_leaves_rows_without_new_tokens_bit_for_bit():
+    server = _graph_server("zamba2-1.2b")
+    for n in (9, 6, 12):
+        server.submit(np.arange(1, 1 + n), max_new_tokens=4)
+    server.step()
+    eng = server.engine
+    lengths = server.table.lengths.copy()
+    eng._prefill_up.put({"tokens": np.full((3, 8), 5, np.int32),
+                         "new_lens": np.asarray([0, 5, 0], np.int32),
+                         "offsets": lengths})
+    torch.cuda.synchronize()
+    before = [t.clone() for t in tree_leaves(eng.caches)]
+    eng._graphs["prefill"].replay()
+    torch.cuda.synchronize()
+    moved = False
+    for old, new in zip(before, tree_leaves(eng.caches)):
+        for row in (0, 2):
+            assert torch.equal(old[:, row], new[:, row])
+        moved |= not torch.equal(old[:, 1], new[:, 1])
+    assert moved
+    _replay_equals_eager(eng, "prefill")
+
+
+_CAPTURE_SCRIPT = r"""
+import dataclasses, pathlib, sys
+import numpy as np, torch
+from repro_torch.configs import smoke_config
+from repro_torch.kernels import _build
+from repro_torch.models.model_zoo import ModelBundle
+from repro_torch.serve import ServeConfig, Server
+from repro_torch.serve.engine import Executor
+
+assert not _build._LIBS
+tb = ModelBundle(dataclasses.replace(smoke_config("zamba2-1.2b"), dtype="bfloat16"))
+params = tb.init_params(torch.Generator(device="cuda").manual_seed(0))
+cfg = ServeConfig(batch_slots=2, max_len=32, prefill_chunk=4)
+# nothing built: the warm-up before each capture builds every kernel
+server = Server(tb, cfg, params, device="cuda")
+assert {"decode_attention", "prefill_attention", "ssd_scan"} <= set(_build._LIBS)
+built = sorted(p.name for p in pathlib.Path(_build.build_dir()).glob("*.so"))
+assert built, built
+req = server.submit(np.arange(1, 7), max_new_tokens=3)
+server.run_until_done(max_steps=20)
+assert req.done and len(req.out_tokens) == 3
+
+# a step that cannot be captured raises; nothing falls back to eager
+def bad_step(self):
+    self.state["lengths"].sum().item()
+Executor._decode_step = bad_step
+try:
+    Executor(tb, cfg, params, "cuda")
+except RuntimeError as e:
+    print("capture refused:", str(e).splitlines()[0])
+    sys.exit(0)
+sys.exit("a capture that syncs the host did not raise")
+"""
+
+
+@requires_cuda
+def test_capture_builds_its_kernels_first_and_a_failed_capture_raises(tmp_path):
+    """In a fresh process with an empty build directory, constructing a
+    server builds every kernel in the warm-up before the capture and then
+    serves; a step that cannot be captured raises from the constructor."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               REPRO_TORCH_BUILD_DIR=str(tmp_path / "kernels"))
+    res = subprocess.run([sys.executable, "-c", _CAPTURE_SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "capture refused" in res.stdout
+
+
+# ---------------------------------------------------------------------------
 # the GEMM study's kernel and the memory microbenchmark kernels
 # ---------------------------------------------------------------------------
 

@@ -61,6 +61,10 @@ def test_packages_import_without_building_or_jax():
         "import repro_torch.benchmarks.bench_managed_vs_system\n"
         "import repro_torch.launch.calibrate, repro_torch.kernels.blocked_matmul\n"
         "import repro_torch.kernels.membench\n"
+        "import repro_torch.core.placement, repro_torch.core.planner\n"
+        "import repro_torch.benchmarks.bench_llm_inference\n"
+        "import repro_torch.benchmarks.bench_datapath_bounds\n"
+        "import repro_torch.examples.quickstart, repro_torch.serve.engine\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._LIBS and not _build.BUILD_LOG\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"

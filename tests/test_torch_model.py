@@ -142,7 +142,7 @@ def _bundles(arch):
     return JaxBundle(jcfg), ModelBundle(tcfg)
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b", "granite-8b"])
 def test_prefill_then_decode_matches_reference(arch):
     jb, tb = _bundles(arch)
     jparams = jb.init_params(jax.random.PRNGKey(0), "float32")

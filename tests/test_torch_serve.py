@@ -52,7 +52,7 @@ def _pair(arch):
     return jb, jparams, tb, tparams
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "olmo-1b", "granite-8b"])
 def test_server_tokens_match_reference_oversubscribed(arch):
     jb, jparams, tb, tparams = _pair(arch)
     rng = np.random.default_rng(7)
@@ -195,12 +195,13 @@ def test_sampled_request_is_seed_and_position_deterministic():
 
 
 def test_idle_state_has_the_slot_table_schema():
-    from repro_torch.serve.state import SlotTable, idle_device_state
+    from repro_torch.serve.state import DeviceState, SlotTable
 
-    idle = idle_device_state(3, "cpu")
-    live = SlotTable(3).device_state("cpu")
-    assert idle.keys() == live.keys()
-    for k in idle:
+    idle = DeviceState(3, "cpu")
+    live = DeviceState(3, "cpu")
+    live.load(SlotTable(3))
+    assert idle.buffers.keys() == live.buffers.keys() == SlotTable(3).mirrors().keys()
+    for k in idle.buffers:
         assert (idle[k].shape, idle[k].dtype) == (live[k].shape, live[k].dtype), k
         assert torch.equal(idle[k], live[k]), k
 

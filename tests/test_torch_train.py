@@ -50,7 +50,7 @@ jax.config.update("jax_platform_name", "cpu")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["yi-6b", "olmo-1b"]
+ARCHS = ["yi-6b", "olmo-1b", "granite-8b"]
 
 
 def _t(a):
