@@ -15,6 +15,8 @@ module names so each counterpart is easy to find:
 * :mod:`repro_torch.data`, :mod:`repro_torch.checkpoint`,
   :mod:`repro_torch.runtime` — the synthetic data pipeline, checkpoints in
   the reference's layout, the supervisor;
+* :mod:`repro_torch.api` — the ``Runtime``: device, placement policy and
+  planner, realizing host placements;
 * :mod:`repro_torch.launch` — the ``serve`` and ``train`` entry points;
 * :mod:`repro_torch.convert` — carries reference weights and train state
   across.

@@ -1,7 +1,14 @@
 """Paper Fig. 17: LLM decode throughput against physical memory placement.
 
-Counterpart of the reference's ``benchmarks/bench_llm_inference.py``, two
-of its four legs:
+Counterpart of the reference's ``benchmarks/bench_llm_inference.py``,
+three of its four legs:
+
+* **measured** — smoke yi-6b decoding 32 tokens for 4 rows after a
+  64-token prompt under ``hbm_resident``, ``kv_host`` and
+  ``weights_stream``, each realized by the serving ``Runtime`` (on the
+  card: the KV cache or the weights in pinned host memory, streamed layer
+  by layer inside the CUDA graphs); the mean decode step and tok/s per
+  policy, and the greedy tokens, which must agree across the three.
 
 * **serve** — the continuous-batching server end to end (compiled steps:
   CUDA graphs on the card), prefill and decode tokens/s reported
@@ -15,9 +22,7 @@ of its four legs:
   256 chips: the paper's figure as a table, priced on the active
   ``SystemSpec``.
 
-Not ported: the **measured** leg (decode under ``hbm_resident``,
-``kv_host`` and ``weights_stream`` placements) needs realized host tiers
-(ROADMAP A9, second half); the **queued** leg needs preemption (A11).
+Not ported: the **queued** leg needs preemption (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -30,11 +35,7 @@ import torch
 
 from repro_torch.benchmarks.common import emit
 from repro_torch.configs import SHAPES, ShapeSpec, get_config
-from repro_torch.core.placement import (
-    donor_allow_flags,
-    get_policy,
-    registered_policies,
-)
+from repro_torch.core.placement import donor_allow_flags, registered_policies
 from repro_torch.core.planner import PolicyPrediction, decode_profile, plan, predict
 from repro_torch.models.model_zoo import ModelSizing, get_smoke_bundle
 
@@ -43,6 +44,47 @@ OUT = pathlib.Path(__file__).resolve().parents[3] / "build" / "BENCH_serve.json"
 
 ANALYTIC_ARCHS = ("yi-6b", "gemma3-27b", "deepseek-v2-236b")
 ANALYTIC_CHIPS = 256
+#: the measured leg's policies and shape (the reference's)
+MEASURED_POLICIES = ("hbm_resident", "kv_host", "weights_stream")
+MEASURED_SHAPE = dict(batch=4, prompt_len=64, new_tokens=32)
+
+
+def measured(device, *, batch: int = MEASURED_SHAPE["batch"],
+             prompt_len: int = MEASURED_SHAPE["prompt_len"],
+             new_tokens: int = MEASURED_SHAPE["new_tokens"]) -> dict:
+    """Decode under each of :data:`MEASURED_POLICIES`, through the serving
+    ``Runtime``: ``batch`` rows prefill ``prompt_len`` tokens in one
+    dispatch, then decode ``new_tokens`` greedy steps.  Returns per policy
+    the mean decode step (all steps, as the reference divides its loop by
+    the token count), the runtime's step EWMA, the tokens and what the
+    runtime ran under."""
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    bundle = get_smoke_bundle("yi-6b")
+    params = bundle.init_params(torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, bundle.cfg.vocab, prompt_len + 1).astype(np.int32)
+               for _ in range(batch)]
+    out = {}
+    for name in MEASURED_POLICIES:
+        cfg = ServeConfig(batch_slots=batch, max_len=prompt_len + new_tokens + 8,
+                          prefill_chunk=prompt_len, policy=name)
+        server = Server(bundle, cfg, params, device=device)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+                for i, p in enumerate(prompts)]
+        server.add_requests(reqs)
+        server.run_until_done()
+        c = server.stats()
+        step_s = c["decode_s"] / c["decode_steps"]
+        out[name] = {
+            "step_s": step_s,
+            "measured_step_s": server.engine.measured_step_s,
+            "decode_steps": c["decode_steps"],
+            "tokens": [r.out_tokens for r in reqs],
+            **server.runtime.describe(),
+        }
+        emit(f"decode[{name}]", step_s * 1e6, f"{batch / step_s:.1f}tok/s")
+    return out
 
 
 def analytic() -> list[tuple[str, float, str]]:
@@ -86,11 +128,12 @@ def phase_table(phase: str, best: PolicyPrediction,
     return "\n".join(lines)
 
 
-def describe(bundle, batch_slots: int, max_len: int, prefill_chunk: int) -> dict:
-    """What the server ran under: the policy's JSON, no mesh, and the
+def describe(bundle, batch_slots: int, max_len: int, prefill_chunk: int,
+             device, policy) -> dict:
+    """What the server ran under: its policy's JSON, no mesh, and the
     planner's pick and top 3 for the decode and prefill profiles of the
-    shape (the reference's ``Runtime.describe()``).  One card realizes
-    only ``hbm_resident``, so only it is eligible."""
+    shape (the reference's ``Runtime.describe()``), over the tiers
+    ``device`` realizes."""
     shape = ShapeSpec("serve", max_len, batch_slots, "decode")
     profiles = {
         "decode": bundle.decode_workload(shape),
@@ -98,11 +141,11 @@ def describe(bundle, batch_slots: int, max_len: int, prefill_chunk: int) -> dict
     }
     phases = {}
     for name, prof in profiles.items():
-        best, preds = plan(prof, **donor_allow_flags(None))
+        best, preds = plan(prof, **donor_allow_flags(None, device))
         phases[name] = {"picked": best.policy,
                         "top3": phase_table(name, best, preds)}
     return {
-        "policy": json.loads(get_policy("hbm_resident").to_json()),
+        "policy": json.loads(policy.to_json()),
         "mesh_axes": None,
         "phases": phases,
     }
@@ -140,7 +183,8 @@ def serve(device, out_path=None, *, requests: int = 8, prompt_len: int = 24,
             "requests": requests,
             "prompt_len": prompt_len,
             "max_new": max_new,
-            **describe(bundle, cfg.batch_slots, cfg.max_len, chunk),
+            **describe(bundle, cfg.batch_slots, cfg.max_len, chunk, device,
+                       server.policy),
             **tp,
         }
         emit(f"serve_prefill[{key}]", 1e6 / max(tp["prefill_tps"], 1e-9),
@@ -156,3 +200,4 @@ def serve(device, out_path=None, *, requests: int = 8, prompt_len: int = 24,
 def main(device) -> None:
     analytic()
     serve(device)
+    measured(device)

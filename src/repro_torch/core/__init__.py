@@ -7,11 +7,13 @@ Counterpart of ``repro/core``:
 * :mod:`repro_torch.core.membench`    — paper-methodology measurement (CUDA events).
 * :mod:`repro_torch.core.replay`      — predicted-vs-measured per calibrated term.
 * :mod:`repro_torch.core.calibration` — measured terms from the card's own sweeps.
-* :mod:`repro_torch.core.placement`   — per-role memory placement policies.
+* :mod:`repro_torch.core.placement`   — per-role memory placement policies,
+  and their realization on one device (pinned host arenas, ``HostStream``).
 * :mod:`repro_torch.core.planner`     — policy selection from predicted step time.
 
-The placement realization (host and donor tiers, the ``Runtime``) and the
-roofline reports are not ported yet (ROADMAP A9, second half).
+The ``Runtime`` that owns them is :mod:`repro_torch.api`.  The donor
+tiers' realization needs a mesh (ROADMAP A10); the roofline reports read
+XLA HLO (ROADMAP A12).
 """
 
 from repro_torch.core.hardware import (  # noqa: F401

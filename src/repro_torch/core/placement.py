@@ -1,4 +1,4 @@
-"""Placement policies: where every tensor role physically lives (analysis half).
+"""Placement policies: where every tensor role physically lives.
 
 Counterpart of ``repro/core/placement.py``: the tensor roles, the policy
 grammar (``role=tier[:strategy],...``), the :class:`PlacementPolicy` value
@@ -13,12 +13,25 @@ of each buffer decides performance, per role: GEMM sources care (reads
 dominate), the destination does not; read-mostly buffers like the KV cache
 gain from the big slow pool only when the fast pool is full.
 
+The realization half, on one device instead of a mesh: the local tiers a
+card reaches are its own memory (``HBM``) and pinned host memory
+(``HOST``).  :func:`host_available`, :func:`to_device` / :func:`to_host`
+(a host tree is one :class:`HostArena`: pinned and mapped for a card,
+plain memory for the CPU, where host memory *is* the device's),
+:func:`place_tree` (a tree under a role's placement) and :class:`HostStream`
+(the one-card counterpart of the reference's ``DonorStream``: windows of a
+host-resident stack staged through ``depth`` device slots).  The
+``Runtime`` (:mod:`repro_torch.api`) is their one user-facing owner.
+
 What is left out, and why:
 
-* the realization (``sharding``, the placing helpers, ``to_device``/
-  ``to_host``, ``DonorStream``, the memory-kind queries and
-  ``host_available``): placing a tensor in pinned host memory or on a
-  donor card is A9's second half (ROADMAP);
+* the donor tiers' realization (``sharding``, ``DonorStream``): a peer or
+  remote tier needs a donor mesh axis, which one card does not have, so a
+  peer or remote placement is refused exactly as on a reference mesh
+  without one;
+* the memory-kind queries (``available_memory_kinds``,
+  ``resolve_memory_kind``): JAX's memory kinds have no torch counterpart;
+  a tensor is on the card or in host memory, pinned or not;
 * ``PoolSplit``/``extract_pool_split``, the disaggregated-serve grammar
   (ROADMAP A13);
 * the deprecated read-only view of the registry.
@@ -26,18 +39,22 @@ What is left out, and why:
 The reference's donor checks read ``mesh.shape``; the port has no device
 mesh, so :func:`donor_axes_for`, :func:`donor_allow_flags` and
 :func:`validate_policy_for_mesh` take a mapping of mesh axis names to sizes
-(``None`` for no mesh).  On one card there is no donor axis, so a peer or
-remote placement is refused exactly as on a reference mesh without one.
+(``None`` for no mesh).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 import json
+import weakref
 from typing import Mapping
 
+import torch
+
 from repro_torch.core.hardware import MemoryTier
+from repro_torch.models.sharding import tree_leaves, tree_map
 
 
 class Role(str, enum.Enum):
@@ -152,16 +169,23 @@ def donor_axes_for(mesh_axes: Mapping[str, int] | None,
     return (axis,)
 
 
-def donor_allow_flags(mesh_axes: Mapping[str, int] | None) -> dict[str, bool]:
+def host_available(device: str | torch.device | None = None) -> bool:
+    """Is there a host tier distinct from ``device``'s memory?  True on a
+    CUDA device (pinned host memory behind PCIe); False on the CPU, where
+    host memory *is* the device's memory, and with no device at all
+    (analysis only)."""
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def donor_allow_flags(mesh_axes: Mapping[str, int] | None,
+                      device: str | torch.device | None = None) -> dict[str, bool]:
     """``allow_*`` kwargs for :func:`repro_torch.core.planner.plan`: peer
     tiers need a :data:`DONOR_AXIS`, remote tiers a
-    :data:`REMOTE_DONOR_AXIS`.  Host tiers need a realization the port
-    does not have yet (A9's second half), so ``allow_host`` is False, as
-    the reference's ``host_available()`` gives on a backend with no
-    distinct host memory."""
+    :data:`REMOTE_DONOR_AXIS`, host tiers a device with distinct host
+    memory (:func:`host_available`)."""
     axes = _axes(mesh_axes)
     return {
-        "allow_host": False,
+        "allow_host": host_available(device),
         "allow_peer": axes.get(DONOR_AXIS, 1) > 1,
         "allow_remote": axes.get(REMOTE_DONOR_AXIS, 1) > 1,
     }
@@ -523,3 +547,257 @@ KV_REMOTE_HBM = _policy(
     "KV cache resident in a remote pod's HBM, read in place over DCN",
     kv_cache=REMOTE_HBM,
 )
+
+
+def donation_compatible(policy: PlacementPolicy, role: Role) -> bool:
+    """May a step update ``role``'s buffers in place under ``policy``
+    (the reference's donation rule)?  Exactly for RESIDENT placements: a
+    STREAM placement's host copy stays the source of truth while a step
+    works on a staged window of it."""
+    return policy.placement(role).strategy is not Strategy.STREAM
+
+
+# ---------------------------------------------------------------------------
+# Realization on one device: its memory and (pinned) host memory
+# ---------------------------------------------------------------------------
+
+#: byte alignment of each leaf in a host arena and a staging slot
+_ALIGN = 256
+
+
+def _layout(leaves) -> tuple[list[int], int]:
+    """Aligned byte offsets of ``leaves`` packed one after another, and
+    the total."""
+    offsets, end = [], 0
+    for t in leaves:
+        offsets.append(end)
+        end += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+    return offsets, end
+
+
+def _carve(base: torch.Tensor, offset: int, like: torch.Tensor) -> torch.Tensor:
+    """A tensor shaped and typed like ``like`` over ``base``'s bytes at
+    ``offset``."""
+    n = like.numel() * like.element_size()
+    return base[offset:offset + n].view(like.dtype).view(like.shape)
+
+
+class HostArena:
+    """One block of host memory that holds a tree's leaves.
+
+    For a CUDA device the block is pinned in place and mapped for the
+    card (``cudaHostRegister``; exact size, where PyTorch's pinned
+    allocator rounds a request up to a power of two) and unpinned when
+    the arena is collected; every leaf carved from it keeps the arena
+    alive.  For the CPU it is plain memory: host memory *is* the
+    device's, so the arena only gives a host tree storage of its own.
+    """
+
+    def __init__(self, nbytes: int, device: torch.device):
+        self.device = torch.device(device)
+        self.base = torch.empty(max(int(nbytes), 1), dtype=torch.uint8)
+        self.pinned = self.device.type == "cuda"
+        if self.pinned:
+            from repro_torch.kernels import kv_stream
+
+            kv_stream.register(self.base)
+            done = weakref.finalize(self, kv_stream.unregister, self.base.data_ptr())
+            done.atexit = False      # the process's end releases it anyway
+
+    def carve(self, offset: int, like: torch.Tensor) -> torch.Tensor:
+        out = _carve(self.base, offset, like)
+        out._host_arena = self       # the arena lives as long as its leaves
+        return out
+
+
+def to_host(tree, device: str | torch.device):
+    """A copy of ``tree`` in host memory for ``device``: one
+    :class:`HostArena`, pinned and mapped when ``device`` is a card.
+    Raises if a leaf does not land pinned there (never a pageable host
+    copy the card cannot stream from)."""
+    device = torch.device(device)
+    leaves = tree_leaves(tree)
+    offsets, total = _layout(leaves)
+    arena = HostArena(total, device)
+    it = iter(offsets)
+    out = tree_map(lambda t: arena.carve(next(it), t).copy_(t), tree)
+    if arena.pinned and not all(t.is_pinned() for t in tree_leaves(out)):
+        raise RuntimeError(f"host placement of {total} bytes did not land in "
+                           "pinned host memory")
+    return out
+
+
+def to_device(tree, device: str | torch.device):
+    """A copy of ``tree`` in ``device``'s memory, leaf by leaf."""
+    device = torch.device(device)
+    return tree_map(lambda t: t.to(device, copy=True).contiguous(), tree)
+
+
+def host_bytes(tree) -> int:
+    """Bytes of the tree's leaves (what a host copy of it holds)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def place_tree(tree, placement: Placement, device: str | torch.device):
+    """``tree`` under ``placement`` for ``device``: in host memory for a
+    host tier (RESIDENT or STREAM: a streamed role lives there and is
+    staged window by window by a :class:`HostStream`), in the device's
+    memory for ``HBM``.  Peer and remote tiers need a donor axis one
+    device does not have (:class:`DonorAxisError`)."""
+    if placement.on_host:
+        if placement.tier is not MemoryTier.HOST:
+            donor_axes_for(None, placement.tier)
+        return to_host(tree, device)
+    if placement.tier is not MemoryTier.HBM:
+        donor_axes_for(None, placement.tier)
+    return to_device(tree, device)
+
+
+#: how many window fetches a HostStream remembers, newest last
+FETCH_LOG = 4096
+
+
+class HostStream:
+    """Windows of a host-resident tree, staged through device slots.
+
+    The executable form of ``Strategy.STREAM`` from host memory on one
+    device (the planner's ``copy_bound(HOST, HBM)``), and the one-card
+    counterpart of the reference's ``DonorStream``.  ``windows`` is a list
+    of trees of contiguous host tensors (:meth:`stacked` cuts a tree
+    stacked on dim 0 into its slices).  :meth:`window` returns window
+    ``i`` in device staging slot ``i % depth``, having already issued the
+    copies of the next ``depth - 1`` windows behind it, so the next copy
+    crosses PCIe while the caller computes on window ``i``.  At most
+    ``depth`` windows are held on the device: the ``2 * bytes /
+    stream_chunks`` staging footprint the planner charges to HBM for
+    ``depth = 2`` (each slot is as large as the largest window).
+
+    On a card the copies run on a copy stream of their own.  A copy into
+    a slot waits on an event recorded on the caller's stream when it was
+    issued, which is after the last read of that slot's previous window
+    (window ``i - 1`` is consumed before window ``i`` is asked for);
+    :meth:`window` makes the caller's stream wait for its window's copy;
+    :meth:`finish` joins the copy stream back into the caller's, so a
+    step that streams can be captured in a CUDA graph (the copies go
+    through ``cudaMemcpyAsync`` on pinned memory).  :meth:`write_back`
+    copies a window's slot back into host memory (the updated optimizer
+    state).  On the CPU the copies are plain synchronous copies between
+    host tensors, so the window logic runs there too.
+    """
+
+    def __init__(self, windows: list, device: str | torch.device, depth: int = 2):
+        if not windows:
+            raise ValueError("a HostStream needs at least one window")
+        self.windows = windows
+        self.n_windows = len(windows)
+        self.depth = max(int(depth), 2)
+        self.device = torch.device(device)
+        self._leaves = [tree_leaves(w) for w in windows]
+        layouts = [_layout(ls) for ls in self._leaves]
+        self._offsets = [o for o, _ in layouts]
+        self.slot_bytes = max(n for _, n in layouts)
+        self._slots = [torch.empty(max(self.slot_bytes, 1), dtype=torch.uint8,
+                                   device=self.device) for _ in range(self.depth)]
+        self._views: dict[tuple[int, int], object] = {}
+        #: window index -> slot, for the windows staged now
+        self._held: dict[int, int] = {}
+        #: window indices in the order their copies were issued (the last
+        #: FETCH_LOG of them)
+        self.fetches: collections.deque[int] = collections.deque(maxlen=FETCH_LOG)
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            from repro_torch.kernels import kv_stream
+
+            for w, ls in enumerate(self._leaves):
+                for t in ls:
+                    if not (t.device.type == "cpu" and t.is_contiguous()
+                            and t.is_pinned()):
+                        raise ValueError(
+                            f"window {w}: a HostStream streams contiguous pinned "
+                            f"host tensors, got one on {t.device} (pinned: "
+                            f"{t.device.type == 'cpu' and t.is_pinned()})")
+            self._copy = kv_stream.copy_async
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._ready = [torch.cuda.Event() for _ in range(self.depth)]
+
+    @classmethod
+    def stacked(cls, tree, n_windows: int, device, depth: int = 2) -> "HostStream":
+        """Windows ``tree[i]`` (every leaf sliced on dim 0), ``i <
+        n_windows``."""
+        for t in tree_leaves(tree):
+            if t.shape[0] != n_windows:
+                raise ValueError(f"leaf of shape {tuple(t.shape)} is not stacked "
+                                 f"{n_windows} deep on dim 0")
+        return cls([tree_map(lambda t: t[i], tree) for i in range(n_windows)],
+                   device, depth)
+
+    @property
+    def window_bytes(self) -> list[int]:
+        """Bytes each window moves from host memory."""
+        return [sum(t.numel() * t.element_size() for t in ls) for ls in self._leaves]
+
+    def _view(self, slot: int, i: int):
+        key = (slot, i)
+        if key not in self._views:
+            it = iter(self._offsets[i])
+            self._views[key] = tree_map(
+                lambda t: _carve(self._slots[slot], next(it), t), self.windows[i])
+        return self._views[key]
+
+    def _fetch(self, j: int) -> None:
+        slot = j % self.depth
+        self._held[j] = slot
+        self.fetches.append(j)
+        staged = tree_leaves(self._view(slot, j))
+        if not self._cuda:
+            for dst, src in zip(staged, self._leaves[j]):
+                dst.copy_(src)
+            return
+        # the slot's previous window was consumed before this call
+        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+        for dst, src in zip(staged, self._leaves[j]):
+            self._copy(dst, src, self._copy_stream)
+        self._ready[slot].record(self._copy_stream)
+
+    def begin(self) -> None:
+        """Forget what is staged: the next :meth:`window` copies afresh
+        (a step starts; its windows are read from host memory again)."""
+        self._held.clear()
+
+    def window(self, i: int):
+        """Window ``i`` in device memory; the copies of the next ``depth -
+        1`` windows are issued behind it."""
+        if not 0 <= i < self.n_windows:
+            raise IndexError(f"window {i} of {self.n_windows}")
+        keep = range(i, min(i + self.depth, self.n_windows))
+        for k in [k for k in self._held if k not in keep]:
+            del self._held[k]          # its slot is free for a prefetch
+        for j in keep:                 # j == i first: the caller's window
+            if j not in self._held:
+                self._fetch(j)
+        slot = self._held[i]
+        if self._cuda:
+            torch.cuda.current_stream(self.device).wait_event(self._ready[slot])
+        return self._view(slot, i)
+
+    def write_back(self, i: int) -> None:
+        """Copy window ``i``'s slot, as the caller's stream has left it,
+        back into its host tensors."""
+        slot = self._held[i]
+        staged = tree_leaves(self._view(slot, i))
+        if not self._cuda:
+            for dst, src in zip(self._leaves[i], staged):
+                dst.copy_(src)
+            return
+        self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+        for dst, src in zip(self._leaves[i], staged):
+            self._copy(dst, src, self._copy_stream)
+
+    def finish(self) -> None:
+        """Join the copy stream back into the caller's stream."""
+        if self._cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self._copy_stream)
+
+    def buffers(self) -> list[torch.Tensor]:
+        """The device staging slots (fixed for the stream's life)."""
+        return list(self._slots)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention, SSD, GEMM and membench kernels.
+"""Plain PyTorch versions of the attention, SSD, GEMM, membench and KV
+write-back kernels.
 
 Counterpart of ``repro/kernels/ref.py``.  These are the correctness
 references the CUDA kernels are held to (``chip_smoke.py`` and the card
@@ -333,3 +334,33 @@ def chase(perm: torch.Tensor, steps: int, pos: torch.Tensor) -> torch.Tensor:
     for _ in range(steps):
         idx = p[idx]
     return pos.copy_(idx.reshape(pos.shape))
+
+
+# ---------------------------------------------------------------------------
+# KV write-back into the host tier (no Pallas original: csrc/kv_stream.cu)
+# ---------------------------------------------------------------------------
+
+def kv_write_back(
+    src_k: torch.Tensor,      # (B, H, S, D) the layer's staging window
+    src_v: torch.Tensor,
+    dst_k: torch.Tensor,      # (B, H, S, D) the layer's slab of the cache
+    dst_v: torch.Tensor,
+    pos: torch.Tensor,        # (B,) int32 first position each row wrote
+    n: torch.Tensor,          # (B,) int32 positions each row wrote
+) -> None:
+    """Copy the rows a step wrote from ``src`` into ``dst``, in place: per
+    row ``b`` the positions ``[pos[b], pos[b] + n[b])`` modulo ``S`` for
+    every head (only the last ``S`` when ``n[b] > S``; nothing when
+    ``n[b] == 0``).  ``src`` and ``dst`` may lie on different devices:
+    the rows are gathered on ``src``'s and scattered on ``dst``'s."""
+    B, H, S, D = src_k.shape
+    cnt = n.long().clamp(min=0)
+    W = cnt.clamp(max=S)
+    j = torch.arange(S, device=src_k.device)[None, :]             # (1, S)
+    slot = (pos.long()[:, None] + cnt[:, None] - W[:, None] + j) % S
+    take = j < W[:, None]                                         # (B, S)
+    rows = torch.arange(B, device=src_k.device)[:, None].expand(B, S)[take]
+    slots = slot[take]
+    for src, dst in ((src_k, dst_k), (src_v, dst_v)):
+        picked = src[rows, :, slots]                              # (R, H, D)
+        dst[rows.to(dst.device), :, slots.to(dst.device)] = picked.to(dst.device)

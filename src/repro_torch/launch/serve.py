@@ -3,7 +3,12 @@
 Continuous-batching server over the port's model zoo on one device, with
 random weights drawn from a seeded ``torch.Generator`` on that device.
 Feeds a synthetic request stream and reports tokens/s per phase.  Runs on
-``cuda`` unless ``--device cpu`` is given.
+``cuda`` unless ``--device cpu`` is given.  ``--policy`` places the params
+and the KV cache (``auto``: the planner picks for the serve phase;
+otherwise a registered name, the ``role=tier[:strategy]`` grammar or JSON),
+``--calibration`` prices the planner's pick on a measured hardware model.
+The reference's ``pools=`` directive (disaggregated serving) is ROADMAP
+A13.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.placement import registered_policies
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.serve import Request, SamplingParams, ServeConfig, Server
 
@@ -42,10 +48,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0,
                     help="weight seed and per-request sampling seed base "
                          "(request rid is added)")
+    ap.add_argument(
+        "--policy", default="auto",
+        help="'auto' consults the placement planner; otherwise a registered "
+             f"name ({', '.join(registered_policies())}), the compact "
+             "role=tier[:strategy][,...] grammar (e.g. "
+             "'kv=host:stream,params=host:stream'), or policy JSON")
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="price placements on a measured hardware model: load "
+                         "this calibration.json, or calibrate on the device and "
+                         "save it there (spec-sheet constants otherwise)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     device = resolve_device(args.device)
+    if args.calibration:
+        from repro_torch.core.calibration import load_or_calibrate
+
+        cal = load_or_calibrate(args.calibration, activate=True, device=device)
+        log.info("calibrated hardware model active:\n%s", cal.summary())
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = ModelBundle(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -56,10 +77,12 @@ def main(argv=None) -> dict:
             batch_slots=args.slots,
             max_len=args.max_len,
             prefill_chunk=args.prefill_chunk,
+            policy=None if args.policy == "auto" else args.policy,
         ),
         params,
         device=device,
     )
+    log.info("serving under placement policy %s", server.policy.name)
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         server.add_request(Request(

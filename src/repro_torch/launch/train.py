@@ -6,10 +6,12 @@ with async checkpoints and straggler monitoring.  Runs on ``cuda`` unless
 ``--device cpu`` is given (the smoke configs run end to end on a CPU);
 asking for CUDA without a card raises.
 
-Left out until ROADMAP A9 (mesh, runtime and placement): the reference's
-``--mesh``, ``--donor``, ``--remote-donor``, ``--policy``,
-``--calibration`` and ``--compress-pod-grads``.  The port trains under
-the ``hbm_resident`` placement.
+``--policy`` places the train state (``auto``: the planner picks for the
+train phase; otherwise any ``parse_policy`` spelling — ``opt_host``
+streams the optimizer state from pinned host memory), ``--calibration``
+prices the pick on a measured hardware model.  Left out until the mesh is
+ported (ROADMAP A9/A8/A10): the reference's ``--mesh``, ``--donor``,
+``--remote-donor`` and ``--compress-pod-grads``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api import Runtime
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
@@ -55,7 +58,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "repository root)")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--policy", default="auto",
+                    help="'auto' consults the placement planner for the train "
+                         "phase; otherwise a registered name (e.g. opt_host), "
+                         "the role=tier[:strategy] grammar, or policy JSON")
+    ap.add_argument("--calibration", default=None, metavar="PATH",
+                    help="price placements on a measured hardware model: load "
+                         "this calibration.json, or calibrate on the device and "
+                         "save it there")
     return ap.parse_args(argv)
+
+
+def pick_policy(bundle, args, device) -> str:
+    """The run's placement policy: forced, or the planner's pick for the
+    train phase at this batch and sequence length."""
+    if args.policy != "auto":
+        return args.policy
+    rt = Runtime.auto(bundle, device, phase="train", batch=args.batch,
+                      seq=args.seq, remat=args.remat != "none")
+    log.info("planner picked %s\n%s", rt.policy.name, rt.explain("train"))
+    return rt.policy.name
 
 
 def train(args: argparse.Namespace) -> dict:
@@ -64,11 +86,18 @@ def train(args: argparse.Namespace) -> dict:
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = ModelBundle(cfg)
+    if args.calibration:
+        from repro_torch.core.calibration import load_or_calibrate
+
+        cal = load_or_calibrate(args.calibration, activate=True, device=device)
+        log.info("calibrated hardware model active:\n%s", cal.summary())
     tcfg = TrainConfig(
         remat=args.remat,
         n_microbatches=args.microbatches,
         optimizer=AdamWConfig(lr=args.lr, warmup_steps=min(50, args.steps // 5 + 1)),
+        policy=pick_policy(bundle, args, device),
     )
+    log.info("training under placement policy %s", tcfg.policy)
     gen = torch.Generator(device=device).manual_seed(0)
     params, opt_state, ef = init_train_state(bundle, gen, tcfg)
     step_fn = make_train_step(bundle, tcfg)

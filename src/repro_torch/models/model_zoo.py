@@ -216,12 +216,14 @@ class ModelBundle(ModelSizing):
             params, batch["tokens"], batch["labels"], self.cfg, remat=remat
         )
 
-    def prefill(self, params, batch: dict, caches):
+    def prefill(self, params, batch: dict, caches, *, feed=None):
         """Fill ``caches`` (in place) from ``batch["tokens"]`` at position 0;
-        returns (last-token logits, caches)."""
-        return tf_mod.lm_prefill(params, batch["tokens"], caches, self.cfg)
+        returns (last-token logits, caches).  ``feed``: see
+        :class:`~repro_torch.models.transformer.ResidentFeed`."""
+        return tf_mod.lm_prefill(params, batch["tokens"], caches, self.cfg,
+                                 feed=feed)
 
-    def prefill_at(self, params, batch: dict, caches, offsets):
+    def prefill_at(self, params, batch: dict, caches, offsets, *, feed=None):
         """Chunked batched prefill at per-row cache offsets.
 
         ``batch`` holds ``tokens`` (B, S) — one prompt chunk per row — and
@@ -232,12 +234,13 @@ class ModelBundle(ModelSizing):
         """
         return tf_mod.lm_prefill_at(
             params, batch["tokens"], caches, offsets, batch["new_lens"],
-            self.cfg,
+            self.cfg, feed=feed,
         )
 
-    def decode_step(self, params, batch: dict, caches):
+    def decode_step(self, params, batch: dict, caches, *, feed=None):
         return tf_mod.lm_decode_step(
-            params, batch["tokens"], caches, batch["lengths"], self.cfg
+            params, batch["tokens"], caches, batch["lengths"], self.cfg,
+            feed=feed,
         )
 
 

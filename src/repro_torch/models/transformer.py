@@ -6,8 +6,11 @@ params and caches keep the reference's pytree — one stacked dict per
 stage of ``cfg.stages()``, plus the model-level ``shared_attn`` block
 whose params every ``S`` layer reuses over concat(hidden, embedding
 output) — and the reference's ``scan`` over the stacked layer dim becomes
-a Python loop that hands each layer views of its slice.  Caches are
-updated in place through those views.  In training the slices come from
+a Python loop that asks a *feed* for each layer's params and cache:
+views of its slice when both are resident on the device
+(:class:`ResidentFeed`), staging windows streamed from host memory under
+a host placement (``repro_torch.serve.engine.PlacedFeed``).  Caches are
+updated in place through what the feed hands out.  In training the slices come from
 one ``unbind`` per stacked leaf, so each leaf's gradient is stacked once
 per step rather than scattered into a zero stack per layer.  Training
 through ``M``/``S`` layers waits for the SSM-training slice.
@@ -240,25 +243,86 @@ def _run_stages_train(cfg, params, x, remat: str):
     return x, x.new_zeros((), dtype=torch.float32)
 
 
-def _run_stages_step(cfg, params, caches, x, lengths, mode, new_lens=None):
-    """Every layer in order.  ``emb0`` (the embedding output, only when the
-    pattern has ``S`` layers) and the shared block's params go into every
-    stage, as the reference's scans close over them."""
-    shared = params.get("shared_attn")
+class ResidentFeed:
+    """Where a serving step's params and caches come from, layer by layer,
+    when both lie on the compute device (the ``hbm_resident`` placement):
+    each layer gets views of its slice of the stacked trees, and nothing
+    is copied or launched.
+
+    A feed is the model's one interface to placement: a streamed role's
+    feed (``repro_torch.serve.engine.PlacedFeed``) answers the same calls
+    with device staging windows instead, and writes back what a layer
+    wrote in :meth:`layer_done`.
+    """
+
+    def __init__(self, params, caches):
+        self.params, self.caches = params, caches
+
+    def begin(self, pos, counts) -> None:
+        """A step starts: row ``b`` will write ``counts[b]`` cache positions
+        from ``pos[b]`` (``(B,)`` int32 device tensors; ``pos`` None means
+        0 and an int ``counts`` the same count for every row)."""
+
+    def top(self, part: str) -> dict:
+        """The non-layer params the step needs first (``"embed"``) or last
+        (``"tail"``: final norm and head, which reads the embedding when
+        tied)."""
+        return self.params
+
+    def shared(self):
+        return self.params.get("shared_attn")
+
+    def layer(self, stage: int, layer: int):
+        """(params, cache) of one layer of a stage: views of its slice."""
+        lp = tree_map(lambda t: t[layer], self.params["stages"][stage])
+        cache = tree_map(lambda t: t[layer], self.caches["stages"][stage])
+        return lp, cache
+
+    def layer_done(self, stage: int, layer: int, cache) -> None:
+        """The layer's writes into ``cache`` are issued."""
+
+
+def _run_stages_step(cfg, feed, x, lengths, mode, new_lens=None):
+    """Every layer in order, fed by ``feed``.  ``emb0`` (the embedding
+    output, only when the pattern has ``S`` layers) and the shared block's
+    params go into every stage, as the reference's scans close over them."""
+    shared = feed.shared()
     emb0 = x if "S" in cfg.layer_pattern else None
-    for (codes, count, start), stage_params, stage_cache in zip(
-        cfg.stages(), params["stages"], caches["stages"]
-    ):
+    for s, (codes, count, start) in enumerate(cfg.stages()):
         for layer in range(count):
-            lp = tree_map(lambda t: t[layer], stage_params)
-            cache = tree_map(lambda t: t[layer], stage_cache)
+            lp, cache = feed.layer(s, layer)
             for j, code in enumerate(codes):
                 key = f"{j}{code}"
                 x = _apply_layer_step(
                     cfg, code, lp[key], cache[key], x, emb0, lengths, shared,
                     mode, new_lens,
                 )
+            feed.layer_done(s, layer, cache)
     return x
+
+
+def leaf_windows(tree) -> list[dict]:
+    """A params-shaped tree (params, grads, the optimizer's master and
+    moments, or a cache tree) cut into windows that hold every leaf once:
+    each top-level entry but the stages, then one window per stacked index
+    of each stage (a layer of a dense model)."""
+    windows = [{k: v} for k, v in tree.items() if k != "stages"]
+    for stage in tree["stages"]:
+        count = tree_leaves(stage)[0].shape[0]
+        windows += [tree_map(lambda t: t[i], stage) for i in range(count)]
+    return windows
+
+
+def param_windows(cfg, params) -> list[dict]:
+    """The windows in which a serving step reads ``params``, in step
+    order: the embedding, each layer, then the tail (final norm and head,
+    with the embedding again when the head is tied to it).
+    ``cfg.n_layers + 2`` windows for a dense model."""
+    tail = {k: params[k] for k in ("final_norm", "head")}
+    if cfg.tie_embeddings:
+        tail["embed"] = params["embed"]
+    return ([{"embed": params["embed"]}]
+            + leaf_windows({"stages": params["stages"]}) + [tail])
 
 
 # ---------------------------------------------------------------------------
@@ -287,21 +351,30 @@ def lm_loss(params, tokens, labels, cfg: ArchConfig, *,
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
-def lm_prefill(params, tokens, caches, cfg: ArchConfig):
+def _tail_logits(cfg, feed, x):
+    top = feed.top("tail")
+    x = apply_norm(top["final_norm"], x, cfg.norm)
+    return apply_head(top["head"], top.get("embed"), x)[:, 0]
+
+
+def lm_prefill(params, tokens, caches, cfg: ArchConfig, *, feed=None):
     """Fill the caches from a prompt at position 0.
 
     Returns (last-token logits (B, vocab), caches filled in place).
+    ``feed`` (default: views of ``params`` and ``caches``) supplies each
+    layer's params and cache; see :class:`ResidentFeed`.
     """
-    x = apply_embed(params["embed"], tokens)
+    feed = feed or ResidentFeed(params, caches)
+    feed.begin(None, tokens.shape[1])
+    x = apply_embed(feed.top("embed")["embed"], tokens)
     lengths = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.int32,
                          device=x.device)
-    x = _run_stages_step(cfg, params, caches, x, lengths, "prefill")
-    x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
-    logits = apply_head(params["head"], params["embed"], x)
-    return logits[:, 0], caches
+    x = _run_stages_step(cfg, feed, x, lengths, "prefill")
+    return _tail_logits(cfg, feed, x[:, -1:]), caches
 
 
-def lm_prefill_at(params, tokens, caches, offsets, new_lens, cfg: ArchConfig):
+def lm_prefill_at(params, tokens, caches, offsets, new_lens, cfg: ArchConfig, *,
+                  feed=None):
     """Chunked batched prefill: write one prompt chunk per row at an offset.
 
     ``tokens`` (B, S) holds one chunk of each row's prompt; row ``b``
@@ -310,23 +383,24 @@ def lm_prefill_at(params, tokens, caches, offsets, new_lens, cfg: ArchConfig):
     logits of each row's last *valid* chunk position — garbage for
     ``new_lens == 0`` rows — and ``caches``, updated in place.
     """
-    x = apply_embed(params["embed"], tokens)
-    x = _run_stages_step(cfg, params, caches, x, offsets, "prefill_at", new_lens)
+    feed = feed or ResidentFeed(params, caches)
+    feed.begin(offsets, new_lens)
+    x = apply_embed(feed.top("embed")["embed"], tokens)
+    x = _run_stages_step(cfg, feed, x, offsets, "prefill_at", new_lens)
     last = torch.clamp(new_lens.long() - 1, 0, tokens.shape[1] - 1)
     x = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = apply_head(params["head"], params["embed"], x)
-    return logits[:, 0], caches
+    return _tail_logits(cfg, feed, x), caches
 
 
-def lm_decode_step(params, tokens, caches, lengths, cfg: ArchConfig):
+def lm_decode_step(params, tokens, caches, lengths, cfg: ArchConfig, *,
+                   feed=None):
     """One decode step; tokens (B,1); lengths (B,) current cache fill.
 
     Returns (logits (B, vocab), caches updated in place).  The caller
-    advances lengths.
+    advances lengths.  Every row writes one cache position, at its length.
     """
-    x = apply_embed(params["embed"], tokens)
-    x = _run_stages_step(cfg, params, caches, x, lengths, "decode")
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = apply_head(params["head"], params["embed"], x)
-    return logits[:, 0], caches
+    feed = feed or ResidentFeed(params, caches)
+    feed.begin(lengths, 1)
+    x = apply_embed(feed.top("embed")["embed"], tokens)
+    x = _run_stages_step(cfg, feed, x, lengths, "decode")
+    return _tail_logits(cfg, feed, x), caches

@@ -3,9 +3,14 @@
 Counterpart of ``repro/optim/adamw.py``.  Mixed precision as in the
 reference: live params in the model dtype, an f32 master copy and two f32
 moments — 12 bytes of optimizer state per parameter against 2 of bf16
-weights.  The port keeps that state in device memory (the reference's
-``hbm_resident`` placement); the host-offload placements and their
-``to_compute``/``to_storage`` hooks wait for ROADMAP A9.
+weights.  Under ``hbm_resident`` that state lives in device memory.  Under
+``opt_host`` (``master`` and ``opt_state`` at ``host:stream``) it lives in
+pinned host memory and :func:`apply_updates` streams it through the
+update window by window (``streams``): each window is staged on the device
+(the reference's ``to_compute``), updated there, and copied back (its
+``to_storage``), while params and grads stay on the device.  The update
+is elementwise, so a window's values are bit for bit those of the whole
+tensor's update.
 
 The master and the moments are updated **in place** (the port's
 counterpart of the reference's donated state buffers: no second 12-byte
@@ -20,6 +25,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.sharding import tree_leaves, tree_map
+from repro_torch.models.transformer import leaf_windows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +63,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
+def apply_updates(params, grads, state: dict, cfg: AdamWConfig, *, streams=None):
     """One AdamW step -> (new params, state, {"grad_norm", "lr"}).
 
     ``state``'s master and moments are updated in place; its ``step`` is
     replaced.  Every scalar stays a device tensor: no host sync.
+    ``streams`` (``{"master": HostStream | None, "opt": HostStream | None}``
+    over :func:`master_windows` and :func:`opt_windows`) streams a host-resident role through
+    the update window by window; None updates every role in place.
     """
     step = state["step"] + 1
     lr = schedule(cfg, step)
@@ -81,8 +90,46 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
         w.sub_(lr * ((m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
                      + cfg.weight_decay * w))
 
-    tree_map(update, state["master"], grads, state["mu"], state["nu"])
-    new_params = tree_map(lambda p, w: w.to(p.dtype, copy=True), params,
-                          state["master"])
+    if streams is None:
+        tree_map(update, state["master"], grads, state["mu"], state["nu"])
+        new_params = tree_map(lambda p, w: w.to(p.dtype, copy=True), params,
+                              state["master"])
+    else:
+        new_params = _streamed_update(update, params, grads, state, streams)
     state["step"] = step
     return new_params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def master_windows(state: dict) -> list[dict]:
+    """The windows in which a streamed update reads the master: each
+    top-level param entry, then each layer (``leaf_windows``)."""
+    return leaf_windows(state["master"])
+
+
+def opt_windows(state: dict) -> list[dict]:
+    """The moments' windows, ``{"mu", "nu"}`` of the same leaves as
+    :func:`master_windows`."""
+    return [{"mu": m, "nu": v} for m, v in
+            zip(leaf_windows(state["mu"]), leaf_windows(state["nu"]))]
+
+
+def _streamed_update(update, params, grads, state, streams):
+    """``update`` window by window, each host-resident role staged on the
+    device and written back after; the new params cast from each window's
+    master into place."""
+    new_params = tree_map(torch.empty_like, params)
+    out_w, grad_w = leaf_windows(new_params), leaf_windows(grads)
+    master_w, opt_w = master_windows(state), opt_windows(state)
+    live = [st for st in (streams.get("master"), streams.get("opt")) if st is not None]
+    for st in live:
+        st.begin()
+    for i in range(len(out_w)):
+        w = master_w[i] if streams.get("master") is None else streams["master"].window(i)
+        mv = opt_w[i] if streams.get("opt") is None else streams["opt"].window(i)
+        tree_map(update, w, grad_w[i], mv["mu"], mv["nu"])
+        tree_map(lambda dst, src: dst.copy_(src), out_w[i], w)
+        for st in live:
+            st.write_back(i)
+    for st in live:
+        st.finish()
+    return new_params

@@ -10,7 +10,7 @@ resumes.  ``Supervisor.run`` wraps the step loop with:
 * straggler monitoring wired to a checkpoint-now callback.
 
 Left out until their prerequisites are ported: the serve-step
-``Watchdog`` (ROADMAP A11) and ``rescale`` onto a new mesh (ROADMAP A9).
+``Watchdog`` (ROADMAP A11) and ``rescale`` onto a new mesh (ROADMAP A10).
 """
 
 from __future__ import annotations

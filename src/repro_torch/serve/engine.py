@@ -30,53 +30,191 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   device; the only per-step device→host traffic is one packed ``(2, B)``
   next-token/stopped vector, fetched once into a pinned buffer.
 
-Placement (the reference's ``Runtime``), preemption, replan/evacuate and
-fault injection are not ported yet; on one device with no host tier the
-reference picks ``hbm_resident``, which is what this executor does.
+* **Placement** — the Executor owns a :class:`~repro_torch.api.Runtime`:
+  ``cfg.policy`` forces a policy (any ``parse_policy`` spelling), else the
+  planner picks one for the serve phase (``Runtime.auto``; on the card
+  the host policies are eligible, on the CPU only ``hbm_resident``).  The
+  params and the KV cache are realized under it.  A ``host:stream``
+  placement keeps the role in pinned host memory and the steps read it
+  through a :class:`PlacedFeed`: each layer's weights and cache are
+  staged into device slots window by window (``HostStream``, the copies
+  on a copy stream inside the captured graphs), and each layer's new
+  cache rows go back to host memory through the hand-written write-back
+  kernel (``kernels/kv_stream.py``).  Under ``hbm_resident`` the steps
+  take views of the resident trees and launch and copy exactly what they
+  did before placement was realized.  A RESIDENT host placement and any
+  host placement of a model with ``M``/``S`` layers raise
+  ``NotImplementedError`` (ROADMAP A9c).
+
+Preemption, replan/evacuate and fault injection are not ported yet
+(ROADMAP A11).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api import Runtime
+from repro_torch.core.placement import HostStream, Role
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import flash_prefill
+from repro_torch.kernels.kv_stream import kv_write_back
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.sharding import tree_leaves
 from repro_torch.serve import sampling as sampling_mod
 from repro_torch.serve.state import DeviceState, Uploader
 
+log = logging.getLogger("repro_torch.serve.engine")
+
 #: the kernel wrappers a serving step may launch, by kernel name
 KERNELS = {"decode_attention": flash_decode, "prefill_attention": flash_prefill,
-           "ssd_scan": ssd_scan}
+           "ssd_scan": ssd_scan, "kv_stream": kv_write_back}
 #: eager runs on a side stream before a capture (PyTorch's CUDA-graph notes)
 WARMUP_RUNS = 3
-#: weights of the decode-step wall-time EWMA (the reference's)
-_EWMA_OLD, _EWMA_NEW = 0.8, 0.2
 
 
 def _launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+class PlacedFeed(tf_mod.ResidentFeed):
+    """The layer feed of a step under a policy that streams a role from
+    host memory (see :class:`~repro_torch.models.transformer.ResidentFeed`
+    for the interface).
+
+    A streamed role's host tree is cut into the windows a step reads in
+    order (:func:`~repro_torch.models.transformer.param_windows`: the
+    embedding, each layer, the tail; :func:`~repro_torch.models.
+    transformer.leaf_windows` of the cache: each layer) and staged through
+    a :class:`~repro_torch.core.placement.HostStream` of two device slots.
+    A resident role is fed as views, as :class:`ResidentFeed` does.  After
+    a layer, the rows the step wrote into a staged cache window go back to
+    the host cache through :func:`~repro_torch.kernels.kv_stream.
+    kv_write_back`, one launch a layer.  Every buffer is allocated here,
+    once, so the steps can be captured.
+    """
+
+    def __init__(self, cfg, params, caches, *, stream_params: bool,
+                 stream_kv: bool, batch_slots: int, device):
+        super().__init__(params, caches)
+        self.device = torch.device(device)
+        self.batch_slots = batch_slots
+        counts = [count for _, count, _ in cfg.stages()]
+        #: global window index of each stage's first layer
+        self._first = [sum(counts[:s]) for s in range(len(counts))]
+        self.weights = (HostStream(tf_mod.param_windows(cfg, params), device)
+                        if stream_params else None)
+        self.kv = (HostStream(tf_mod.leaf_windows(caches), device)
+                   if stream_kv else None)
+        self._consts: dict[int, torch.Tensor] = {}
+        self._pos = self._n = None
+
+    def _const(self, value: int) -> torch.Tensor:
+        if value not in self._consts:
+            self._consts[value] = torch.full((self.batch_slots,), value,
+                                             dtype=torch.int32, device=self.device)
+        return self._consts[value]
+
+    def streams(self) -> dict[str, HostStream]:
+        return {name: st for name, st in (("params", self.weights), ("kv_cache", self.kv))
+                if st is not None}
+
+    def buffers(self) -> list[torch.Tensor]:
+        """Every tensor a step reads or writes besides the Executor's own:
+        the staging slots and the host trees."""
+        out = [b for st in self.streams().values() for b in st.buffers()]
+        return out + tree_leaves(self.params) + tree_leaves(self.caches)
+
+    def h2d_bytes(self) -> int:
+        """Bytes one step copies from host memory (every window once)."""
+        return sum(sum(st.window_bytes) for st in self.streams().values())
+
+    def begin(self, pos, counts) -> None:
+        self._pos = self._const(0) if pos is None else pos
+        self._n = counts if torch.is_tensor(counts) else self._const(int(counts))
+        for st in self.streams().values():
+            st.begin()
+
+    def top(self, part: str) -> dict:
+        if self.weights is None:
+            out = self.params
+        elif part == "embed":
+            return self.weights.window(0)
+        else:
+            out = self.weights.window(self.weights.n_windows - 1)
+        if part == "tail":      # the step's last window: join the copies
+            for st in self.streams().values():
+                st.finish()
+        return out
+
+    def layer(self, stage: int, layer: int):
+        lp, cache = super().layer(stage, layer)
+        g = self._first[stage] + layer
+        if self.weights is not None:
+            lp = self.weights.window(1 + g)
+        if self.kv is not None:
+            cache = self.kv.window(g)
+        return lp, cache
+
+    def layer_done(self, stage: int, layer: int, cache) -> None:
+        if self.kv is None:
+            return
+        host = self.kv.windows[self._first[stage] + layer]
+        for key, staged in cache.items():
+            kv_write_back(staged["k"], staged["v"], host[key]["k"], host[key]["v"],
+                          self._pos, self._n)
+
+
 class Executor:
     """Decode/prefill dispatches over one model bundle.
 
-    ``cfg`` is the scheduler's ``ServeConfig`` (only the shape fields are
-    read here).  ``params`` must already lie on ``device``.  On a CUDA
-    device the steps are captured as CUDA graphs here, unless ``eager``.
+    ``cfg`` is the scheduler's ``ServeConfig`` (the shape fields and
+    ``policy`` are read here).  ``params`` must already lie on ``device``;
+    they are realized under the policy (a streamed copy in pinned host
+    memory under ``weights_stream``).  On a CUDA device the steps are
+    captured as CUDA graphs here, unless ``eager``.
     """
 
     def __init__(self, bundle, cfg, params, device=None, *, eager: bool = False):
         self.bundle = bundle
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = params
         B, C = cfg.batch_slots, max(int(cfg.prefill_chunk), 1)
-        self.caches = bundle.init_cache(B, cfg.max_len, device=self.device)
+        if cfg.policy is not None:
+            self.runtime = Runtime(bundle, self.device, cfg.policy)
+        else:
+            self.runtime = Runtime.auto(
+                bundle, self.device, phase="serve", batch_slots=B,
+                max_len=cfg.max_len, prefill_chunk=C,
+            )
+            log.info("planner picked %s for %s (%d slots x %d ctx, prefill chunk %d)",
+                     self.runtime.policy.name, bundle.cfg.name, B, cfg.max_len, C)
+        policy = self.runtime.policy
+        if (policy.placement(Role.PARAMS).on_host
+                or policy.placement(Role.KV_CACHE).on_host) and (
+                set(bundle.cfg.layer_codes()) & {"M", "S"}):
+            raise NotImplementedError(
+                f"{bundle.cfg.name} under {policy.name!r}: host placements of "
+                "models with M/S layers (their recurrent state, the shared "
+                "block) are not ported yet (ROADMAP A9c)")
+        stream_params = self.runtime.streamed(Role.PARAMS)
+        stream_kv = self.runtime.streamed(Role.KV_CACHE)
+        self.params = self.runtime.realize(params, Role.PARAMS)
+        # a streamed cache is made in host memory, never on the card
+        caches = bundle.init_cache(B, cfg.max_len,
+                                   device="cpu" if stream_kv else self.device)
+        self.caches = self.runtime.realize(caches, Role.KV_CACHE)
+        #: the layer feed of the steps (None: views of resident trees)
+        self.feed = (PlacedFeed(bundle.cfg, self.params, self.caches,
+                                stream_params=stream_params, stream_kv=stream_kv,
+                                batch_slots=B, device=self.device)
+                     if stream_params or stream_kv else None)
         #: the serve state's fixed buffers (the decode graph's inputs)
         self.state = DeviceState(B, self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -95,7 +233,6 @@ class Executor:
             "decode_tokens": 0, "decode_s": 0.0, "decode_steps": 0,
             "decode_replays": 0, "prefill_replays": 0,
         }
-        self._step_ewma: float | None = None
         self.graphed = self.device.type == "cuda" and not eager
         #: per graph, the kernel launches one replay makes (counted while
         #: capturing: the wrappers' counters tick at capture, not replay)
@@ -105,6 +242,11 @@ class Executor:
             self._graphs["decode"] = self._capture("decode", self._decode_step)
             self._graphs["prefill"] = self._capture("prefill", self._prefill_step)
 
+    @property
+    def policy(self):
+        """The placement policy in force (the runtime's)."""
+        return self.runtime.policy
+
     # -- the steps the graphs capture ---------------------------------------
     @torch.no_grad()
     def _decode_step(self) -> None:
@@ -113,7 +255,7 @@ class Executor:
         s = self.state
         logits, _ = self.bundle.decode_step(
             self.params, {"tokens": s["tokens"], "lengths": s["lengths"]},
-            self.caches,
+            self.caches, feed=self.feed,
         )
         # greedy rows (temp == 0) take the plain argmax
         next_tok = sampling_mod.sample_tokens(logits, s)            # (B,)
@@ -133,7 +275,7 @@ class Executor:
         p = self.prefill_in
         self.bundle.prefill_at(
             self.params, {"tokens": p["tokens"], "new_lens": p["new_lens"]},
-            self.caches, p["offsets"],
+            self.caches, p["offsets"], feed=self.feed,
         )
 
     def _capture(self, name: str, step) -> torch.cuda.CUDAGraph:
@@ -186,15 +328,14 @@ class Executor:
         self.counters["decode_s"] += dt
         self.counters["decode_steps"] += 1
         if self.counters["decode_steps"] > 1:       # the first pays set-up
-            self._step_ewma = (dt if self._step_ewma is None
-                               else _EWMA_OLD * self._step_ewma + _EWMA_NEW * dt)
+            self.runtime.observe_decode_step(self.cfg.batch_slots, self.cfg.max_len, dt)
         return out[0], out[1].astype(bool)
 
     @property
     def measured_step_s(self) -> float | None:
-        """EWMA of the decode step's wall time after its first call (None
-        before the second step)."""
-        return self._step_ewma
+        """The runtime's EWMA of the decode step's wall time under the
+        policy in force, from the second step on (None before)."""
+        return self.runtime.measured_step_s(self.cfg.batch_slots, self.cfg.max_len)
 
     # -- prefill (admission) ----------------------------------------------
     def prefill(self, new, table) -> None:

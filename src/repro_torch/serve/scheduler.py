@@ -5,10 +5,14 @@ queue with FIFO admission, batched chunked prefill of newly admitted
 requests while other rows keep decoding, streaming per-token callbacks,
 and retirement on a stop token, ``max_new_tokens`` or the cache extent.
 
-Not ported yet (ROADMAP queue A): placement policies other than
-``hbm_resident``, planner-priced preemption and promotion, replan and
-tier-loss evacuation, fault injection, the watchdog, cancel/deadlines, and
-the asyncio ``Scheduler``.  ``ServeConfig`` carries none of their fields.
+Placement: ``ServeConfig.policy`` forces a placement policy, or leaves
+the pick to the planner; the :class:`Executor` realizes it through its
+:class:`~repro_torch.api.Runtime` (``server.runtime``).
+
+Not ported yet (ROADMAP A11): planner-priced preemption and promotion,
+replan and tier-loss evacuation, fault injection, the watchdog,
+cancel/deadlines, and the asyncio ``Scheduler``.  ``ServeConfig`` carries
+none of their fields.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.core.placement import PlacementPolicy, parse_policy
 from repro_torch.serve.engine import Executor
 from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.serve.state import SlotTable
@@ -80,19 +85,17 @@ class ServeConfig:
     max_len: int = 512
     #: tokens per chunked-prefill dispatch during admission
     prefill_chunk: int = 32
-    #: None or "hbm_resident": everything lives in device memory.  Other
-    #: placement policies wait for the placement port.
-    policy: str | None = None
+    #: None: the planner picks for the serve phase (``Runtime.auto``);
+    #: otherwise any ``parse_policy`` spelling — a PlacementPolicy value,
+    #: a registered name, ``"kv=host:stream,..."``, or policy JSON.
+    policy: PlacementPolicy | str | dict | None = None
     #: bound on *waiting* (not yet admitted) requests; None = unbounded.
     #: add_request raises QueueFullError beyond it.
     max_queue: int | None = None
 
     def __post_init__(self):
-        if self.policy not in (None, "hbm_resident"):
-            raise NotImplementedError(
-                f"placement policy {self.policy!r} is not ported yet; the "
-                "port serves hbm_resident only (ROADMAP queue A)"
-            )
+        if self.policy is not None:
+            self.policy = parse_policy(self.policy)
 
 
 class Server:
@@ -122,6 +125,16 @@ class Server:
     @property
     def params(self):
         return self.engine.params
+
+    @property
+    def runtime(self):
+        """The executor's :class:`~repro_torch.api.Runtime` (device,
+        policy, planner)."""
+        return self.engine.runtime
+
+    @property
+    def policy(self) -> PlacementPolicy:
+        return self.engine.policy
 
     @property
     def queue_depth(self) -> int:

@@ -1,14 +1,21 @@
 """Training step: loss and grads by autograd, then AdamW, on one device.
 
-Counterpart of ``repro/train/train_step.py`` under its default placement
-(``hbm_resident``): params, grads and the optimizer state all live in the
-device's memory.  The step is a plain function — PyTorch runs eagerly,
-so there is no ``jit`` to wrap it in.
+Counterpart of ``repro/train/train_step.py``.  ``TrainConfig.policy``
+places the optimizer state: under ``hbm_resident`` (the default) params,
+grads and the optimizer state all live in the device's memory; under
+``opt_host`` (``master`` and ``opt_state`` at ``host:stream``) the f32
+master and both moments live in pinned host memory and each step streams
+them through the update window by window
+(:func:`repro_torch.optim.adamw.apply_updates`), the reference's
+``to_compute`` / ``to_storage``; params and grads stay on the device.  The
+step is a plain function — PyTorch runs eagerly, so there is no ``jit``
+to wrap it in.
 
-What the port leaves out until ROADMAP A9 (mesh, runtime and placement),
-each raising ``NotImplementedError`` when asked for: sharding-rule
-overrides (``rules``), other FSDP axes or ZeRO stages than the defaults,
-and cross-pod gradient compression.
+What the port leaves out, each raising ``NotImplementedError`` when asked
+for: sharding-rule overrides (``rules``), other FSDP axes or ZeRO stages
+than the defaults, and cross-pod gradient compression (they need a mesh,
+ROADMAP A9/A8); host placements of params, grads or activations in
+training (ROADMAP A9c).
 """
 
 from __future__ import annotations
@@ -17,9 +24,20 @@ import dataclasses
 
 import torch
 
+from repro_torch.api import Runtime
+from repro_torch.core.placement import HostStream, PlacementPolicy, Role
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.sharding import tree_leaves, tree_map
-from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    apply_updates,
+    init_opt_state,
+    master_windows,
+    opt_windows,
+)
+
+#: roles a training step can place in host memory (streamed)
+_HOST_ROLES = (Role.MASTER, Role.OPT_STATE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +49,9 @@ class TrainConfig:
     rules: dict | None = None       # sharding-rule overrides (needs a mesh)
     fsdp_axes: tuple = ("data",)    # ZeRO axes (needs a mesh)
     zero_stage: int = 3
+    #: placement of the train state: None = hbm_resident; any
+    #: ``parse_policy`` spelling (``"opt_host"``, ``"opt=host:stream,..."``)
+    policy: PlacementPolicy | str | None = None
 
     def check_ported(self) -> None:
         """Raise for the settings that need a mesh or compression."""
@@ -50,6 +71,39 @@ class TrainConfig:
             raise ValueError(f"remat {self.remat!r}")
         if self.n_microbatches < 1:
             raise ValueError(f"n_microbatches {self.n_microbatches}")
+
+    def runtime(self, bundle, device) -> Runtime:
+        """The :class:`~repro_torch.api.Runtime` of this config's policy
+        on ``device``; raises for a placement the step cannot realize."""
+        rt = Runtime(bundle, device, self.policy)
+        for role in Role:
+            if role in _HOST_ROLES:
+                rt.streamed(role)          # a RESIDENT host placement raises
+            elif role is not Role.KV_CACHE and rt.policy.placement(role).on_host:
+                raise NotImplementedError(
+                    f"policy {rt.policy.name!r} places {role.value} in host "
+                    "memory: in training only the optimizer state (master, "
+                    "opt_state) streams from the host so far (ROADMAP A9c)")
+        return rt
+
+
+def place_opt_state(rt: Runtime, opt_state: dict) -> dict:
+    """``opt_state``'s master and moments where ``rt``'s policy puts them
+    (rebound in place; a tree already there is kept as it is)."""
+    opt_state["master"] = rt.realize(opt_state["master"], Role.MASTER)
+    for k in ("mu", "nu"):
+        opt_state[k] = rt.realize(opt_state[k], Role.OPT_STATE)
+    return opt_state
+
+
+def _host_streams(rt: Runtime, opt_state: dict) -> dict:
+    """The HostStreams of the streamed optimizer roles over their windows."""
+    out = {}
+    if rt.streamed(Role.MASTER):
+        out["master"] = HostStream(master_windows(opt_state), rt.device)
+    if rt.streamed(Role.OPT_STATE):
+        out["opt"] = HostStream(opt_windows(opt_state), rt.device)
+    return out
 
 
 def loss_and_grads(bundle: ModelBundle, params, batch: dict, remat: str):
@@ -74,9 +128,24 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig):
     grads are summed and divided by n, and the loss is their mean; the
     other metrics are the last microbatch's, as in the reference.  ``ef``
     (the compression error feedback) passes through unchanged.
-    ``opt_state``'s master and moments are updated in place.
+    ``opt_state``'s master and moments are updated in place; under a
+    policy that streams them from host memory they are realized there on
+    the first step (and after a restore), and streamed through the update.
     """
     tcfg.check_ported()
+    placed = {}      # the runtime and the streams over the current state
+
+    def streams_for(params, opt_state):
+        if "rt" not in placed:
+            placed["rt"] = tcfg.runtime(bundle, tree_leaves(params)[0].device)
+        rt = placed["rt"]
+        if not any(rt.streamed(r) for r in _HOST_ROLES):
+            return None
+        place_opt_state(rt, opt_state)      # again after a restore
+        key = tuple(id(tree_leaves(opt_state[k])[0]) for k in ("master", "mu", "nu"))
+        if placed.get("key") != key:
+            placed["key"], placed["streams"] = key, _host_streams(rt, opt_state)
+        return placed["streams"]
 
     def step(params, opt_state, ef, batch):
         n = tcfg.n_microbatches
@@ -98,7 +167,8 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig):
             loss, metrics, grads = loss_and_grads(bundle, params, batch,
                                                   tcfg.remat)
         new_params, new_opt, opt_metrics = apply_updates(
-            params, grads, opt_state, tcfg.optimizer
+            params, grads, opt_state, tcfg.optimizer,
+            streams=streams_for(params, opt_state),
         )
         return new_params, new_opt, ef, {"loss": loss, **metrics, **opt_metrics}
 
@@ -108,11 +178,13 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig):
 def init_train_state(bundle: ModelBundle, generator: torch.Generator,
                      tcfg: TrainConfig):
     """(params, opt_state, ef): weights drawn from ``generator`` on its
-    device, the f32 optimizer state beside them, and ``ef`` as the
-    reference makes it without compression (one f32 zero per leaf)."""
+    device, the f32 optimizer state placed under ``tcfg.policy`` (beside
+    them, or in pinned host memory), and ``ef`` as the reference makes it
+    without compression (one f32 zero per leaf)."""
     tcfg.check_ported()
+    rt = tcfg.runtime(bundle, generator.device)
     params = bundle.init_params(generator)
-    opt_state = init_opt_state(params)
+    opt_state = place_opt_state(rt, init_opt_state(params))
     ef = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
                                         device=p.device), params)
     return params, opt_state, ef

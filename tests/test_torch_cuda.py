@@ -1181,3 +1181,98 @@ def test_membench_chase_ends_where_numpy_does(where):
     assert membench.chase.launches == before + 2
     plain = torch.full((), 5, dtype=torch.int32, device="cuda")
     assert int(ref.chase(t.cuda(), 2 * steps, plain)) == walk[2 * steps]
+
+
+# ---------------------------------------------------------------------------
+# host placements: the KV write-back kernel, placed serving through graphs
+# ---------------------------------------------------------------------------
+
+def _write_back_case(B, H, S, D, pos, n, dtype, seed=0):
+    from repro_torch.core.placement import to_host
+
+    src_k = _randn(B, H, S, D, dtype=dtype, seed=seed)
+    src_v = _randn(B, H, S, D, dtype=dtype, seed=seed + 1)
+    dst = to_host({"k": _randn(B, H, S, D, dtype=dtype, seed=seed + 2),
+                   "v": _randn(B, H, S, D, dtype=dtype, seed=seed + 3)}, "cuda")
+    want = {k: t.clone() for k, t in dst.items()}
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    c = torch.tensor(n, dtype=torch.int32, device="cuda")
+    ref.kv_write_back(src_k, src_v, want["k"], want["v"], p, c)
+    return src_k, src_v, dst, want, p, c
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,D,pos,n", [
+    (8, 4, 2048, 128, [0, 7, 100, 2047, 1500, 64, 9, 2046], [1] * 8),        # decode
+    (8, 4, 2048, 128, [0, 256, 1800, 1900, 5, 0, 2047, 30],
+     [256, 0, 256, 200, 13, 0, 256, 1]),                                     # prefill, wrap
+    (3, 1, 48, 16, [40, 3, 47], [20, 0, 100]),                               # n > S
+])
+def test_kv_write_back_kernel_matches_plain_into_pinned_memory(B, H, S, D, pos, n, dtype):
+    from repro_torch.kernels.kv_stream import kv_write_back
+
+    src_k, src_v, dst, want, p, c = _write_back_case(B, H, S, D, pos, n, dtype)
+    assert dst["k"].is_pinned()
+    before = kv_write_back.launches
+    kv_write_back(src_k, src_v, dst["k"], dst["v"], p, c)
+    torch.cuda.synchronize()
+    assert kv_write_back.launches == before + 1
+    assert torch.equal(dst["k"], want["k"]) and torch.equal(dst["v"], want["v"])
+    # into device memory the same
+    dk, dv = want["k"].cuda(), want["v"].cuda()
+    kv_write_back(src_k, src_v, dk, dv, p, c)
+    torch.cuda.synchronize()
+    assert torch.equal(dk.cpu(), want["k"]) and torch.equal(dv.cpu(), want["v"])
+
+
+@requires_cuda
+def test_kv_write_back_refuses_pageable_memory_and_bad_shapes():
+    from repro_torch.kernels.kv_stream import kv_write_back
+
+    src = _randn(2, 1, 8, 16, dtype=torch.float32, seed=0)
+    p = torch.zeros(2, dtype=torch.int32, device="cuda")
+    pageable = torch.zeros(2, 1, 8, 16)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kv_write_back(src, src, pageable, pageable, p, p + 1)
+    with pytest.raises(ValueError):
+        kv_write_back(src, src, src[:, :, :4].contiguous(), src, p, p)
+    with pytest.raises(ValueError):
+        kv_write_back(src, src, src.clone(), src.clone(), p.long(), p)
+
+
+@requires_cuda
+@pytest.mark.parametrize("policy", ["kv_host", "weights_stream",
+                                    "kv=host:stream,params=host:stream"])
+def test_placed_graphs_replay_after_lengths_change_and_match_hbm(policy):
+    """A host-placed server's decode graph, replayed after admissions and a
+    retirement changed the lengths, writes what the eager step writes
+    (host cache included, bit for bit), and the placed server's tokens
+    equal hbm_resident's on the same weights."""
+    from repro_torch.serve import ServeConfig, Server
+    from repro_torch.core.placement import Role
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("yi-6b"), dtype="bfloat16"))
+    params = tb.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 500, n).astype(np.int32) for n in (9, 30, 2, 17, 1)]
+    tokens = {}
+    for pol in ("hbm_resident", policy):
+        server = Server(tb, ServeConfig(batch_slots=3, max_len=64, prefill_chunk=8,
+                                        policy=pol), params, device="cuda")
+        eng = server.engine
+        reqs = [server.submit(p, max_new_tokens=6) for p in prompts]
+        server.step()
+        if pol != "hbm_resident":
+            placed = eng.policy.placement(Role.KV_CACHE).on_host
+            if placed:
+                assert all(t.is_pinned() for t in tree_leaves(eng.caches))
+                assert eng.graph_launches["decode"]["kv_stream"] == tb.cfg.n_layers
+            _replay_equals_eager(eng, "decode")
+            for _ in range(3):
+                server.step()                # lengths moved, admissions, retirements
+            _replay_equals_eager(eng, "decode")
+        server.run_until_done(max_steps=200)
+        tokens[pol] = [r.out_tokens for r in reqs]
+        assert eng.counters["decode_replays"] == eng.counters["decode_steps"] > 0
+    assert tokens[policy] == tokens["hbm_resident"]

@@ -25,6 +25,7 @@ from repro.serve import Server as JaxServer
 from repro.serve.sampling import filter_logits_ref as jax_filter_logits_ref
 from repro_torch import convert
 from repro_torch.configs import smoke_config
+from repro_torch.core.placement import DonorAxisError
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.serve import (
     QueueFullError,
@@ -130,11 +131,18 @@ def test_add_request_validation_matches_reference():
 
 
 def test_unported_policy_and_hang_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        ServeConfig(policy="kv_host")
+    # streamed host placements serve (tests/test_torch_placed_serve.py); a
+    # RESIDENT host placement waits for A9c, a peer tier needs a donor axis
+    ServeConfig(policy="kv_host")
     ServeConfig(policy="hbm_resident")
     tb = ModelBundle(smoke_config("olmo-1b"))
     params = tb.init_params(torch.Generator().manual_seed(0), "float32")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
+        Server(tb, ServeConfig(batch_slots=1, max_len=16, policy="kv=host"),
+               params, device="cpu")
+    with pytest.raises(DonorAxisError):
+        Server(tb, ServeConfig(batch_slots=1, max_len=16, policy="kv_peer_hbm"),
+               params, device="cpu")
     server = Server(tb, ServeConfig(batch_slots=1, max_len=16), params,
                     device="cpu")
     server.submit(np.arange(1, 4), max_new_tokens=8)
