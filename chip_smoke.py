@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions, and an ``nvcc`` build of every ``src/repro_torch/csrc/*.cu``,
    with ``-Xptxas -v``'s registers, spills and shared memory for each
    kernel of ``flash_attention.cu``, ``prefill_attention.cu``,
-   ``blocked_matmul.cu``, ``decode_attention.cu`` and ``ssd_scan.cu``;
+   ``blocked_matmul.cu``, ``decode_attention.cu``, ``ssd_scan.cu`` and
+   ``ssd_scan_bwd.cu``;
 2. each CUDA kernel against its plain PyTorch version on the card, in
    bfloat16 and float32.  Serving kernels at the serving path's shapes
    (yi-6b: 8 slots, 32/4 heads, head dim 128, 2048 cache slots, 256-token
@@ -26,7 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    yi-6b-smoke and granite-8b-smoke in float32 through ``Server`` (the
    card's through its CUDA graphs; greedy tokens identical per request),
    then olmo-1b-smoke and yi-6b-smoke in float32 for 3 AdamW steps of the
-   same batches (losses and grad norms within tolerance);
+   same batches (losses and grad norms within tolerance); (3c) the same
+   for mamba2-smoke and zamba2-smoke (the SSD scan's forward and backward
+   kernels, launches counted);
 4. serving: full-width, full-depth yi-6b in bfloat16, weights drawn on the
    card from a seeded generator: 16 requests (prompts of 128-1536 tokens,
    64 new tokens each) through 8 slots, the server's decode step and
@@ -51,7 +54,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    0, AdamW steps under ``Supervisor.run``): finite losses and grad norms,
    no restart, and 2 x 16 forward and 16 backward attention launches per
    step; step time, training tokens/s, peak memory, and a
-   ``torch.profiler`` window over one more step;
+   ``torch.profiler`` window over one more step; (6b) the same for
+   full-depth mamba2-780m (4 steps) and zamba2-1.2b (2 steps), 4 x 2048
+   tokens each: 2 forward and 1 backward scan launches per ``M`` layer
+   per step (and zamba2's shared block through the attention kernels);
 7. times of the training attention kernels at the phase 6 shape, beside
    their plain versions, SDPA and their bounds, with each one's TFLOP/s,
    its fraction of the operation bound and its ratio to SDPA;
@@ -70,7 +76,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    scans and 6 prefill-attention launches, 6 decode-attention launches
    per step); (e) the scan's times at (c)'s shape and ``torch.profiler``
    windows over one mamba2 prefill dispatch and a few decode steps,
-   graph replays and then eager;
+   graph replays and then eager; (f) the scan's backward kernel against
+   autograd through the plain scan (``ref.ssd_scan_bwd``) in float32 and
+   bfloat16: the smoke widths, several chunks, T off the chunk, with and
+   without an initial state and a final-state gradient, and mamba2-780m's
+   and zamba2-1.2b's training shapes (B 4, T 2048; H 48, P 64, N 128 and
+   H 64, P 64, N 64), two calls bit-identical, and its time at mamba2's
+   beside its bound and the plain version's;
 9. the paper's single-GPU study.  (a) ``blocked_matmul`` against its plain
    version in bfloat16 and float32 at the reference test's three shapes,
    4096^3 in both output dtypes and a non-square shape, and a tiling with
@@ -337,7 +349,7 @@ def phase_build():
 
 #: the libraries whose kernels phase 1 logs by name and template arguments
 PTXAS_NAMED = ("flash_attention", "prefill_attention", "blocked_matmul",
-               "decode_attention", "ssd_scan")
+               "decode_attention", "ssd_scan", "ssd_scan_bwd")
 
 
 def log_ptxas(lib, out):
@@ -372,6 +384,9 @@ def log_ptxas(lib, out):
             m = MAMBA
             return ssd_scan.smem_bytes(P, N, ssd_scan.heads_per_block(
                 m["B"], m["H"], P, sm_count(0)))
+        if kernel in ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel"):
+            return ssd_scan.smem_bytes_bwd(int(args[1]), int(args[2]),
+                                           int(kernel == "ssd_bwd_chunk_kernel"))
         return None
 
     name, spill = None, ""
@@ -381,6 +396,7 @@ def log_ptxas(lib, out):
             # mangled kernel<T, D...>: "...fa_fwd_mma_kernelILi128EEEvPK..."
             k = re.search(r"(prefill_mma_kernel|prefill_kernel|mm_wgmma_kernel|mm_fma_kernel"
                           r"|decode_mma_kernel|decode_fma_kernel|ssd_mma_kernel|ssd_fma_kernel"
+                          r"|ssd_bwd_state_kernel|ssd_bwd_chunk_kernel"
                           r"|fa_\w+?_kernel)I(.*?)EEv",
                           m.group(1))
             args = ["bf16" if t.startswith("13") else "f32" if t == "f" else t[2:-1]
@@ -989,6 +1005,56 @@ def phase_train_parity():
         log(f"  {arch}-smoke: losses card {lc} cpu {lp}; grad norms card {gc} cpu {gp}")
 
 
+def phase_ssm_train_parity():
+    """3c: mamba2-smoke and zamba2-smoke training in float32, card against
+    CPU, at phase 3b's limits; the scan's launches counted."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    log("== phase 3c: mamba2-smoke and zamba2-smoke training, float32, card against CPU")
+    tcfg = TrainConfig(remat="full", optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    for arch in ("mamba2-780m", "zamba2-1.2b"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        bundle = ModelBundle(cfg)
+        params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+        batches = [next(data) for _ in range(3)]
+        n_m = cfg.layer_codes().count("M")
+        res = {}
+        for dev in ("cuda", "cpu"):
+            params = tree_map(lambda t: t.to(dev, copy=True), params_cpu)
+            opt = init_opt_state(params)
+            step = make_train_step(bundle, tcfg)
+            before = (ssd_scan.launches, ssd_scan_bwd.launches)
+            losses, gnorms = [], []
+            for b in batches:
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                params, opt, _, m = step(params, opt, None, batch)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            res[dev] = (losses, gnorms)
+            if dev == "cuda":
+                n = (ssd_scan.launches - before[0], ssd_scan_bwd.launches - before[1])
+                if n != (2 * n_m * 3, n_m * 3):
+                    raise AssertionError(f"{arch}: scan launches {n} != "
+                                         f"{(2 * n_m * 3, n_m * 3)}")
+        (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+        for i in range(3):
+            lim = 1e-5 if i == 0 else 1e-3
+            if abs(lc[i] - lp[i]) > lim * abs(lp[i]) or abs(gc[i] - gp[i]) > 1e-2 * abs(gp[i]):
+                raise AssertionError(f"{arch} step {i + 1}: card loss {lc[i]} grad norm "
+                                     f"{gc[i]} vs CPU {lp[i]} {gp[i]}")
+        log(f"  {cfg.name}: losses card {lc} cpu {lp}; grad norms card {gc} cpu {gp}")
+
+
 def phase_train_full():
     import logging
 
@@ -1040,9 +1106,10 @@ def phase_train_full():
     return out, launches
 
 
-def profile_train(out):
+def profile_train(out, arch="olmo-1b", B=OLMO_TRAIN["B"], S=OLMO_TRAIN["S"],
+                  steps=OLMO_TRAIN["steps"]):
     """Where a training step's time goes: ``torch.profiler`` over one more
-    step of the phase 6 run (its state, the next SyntheticLM batch)."""
+    step of a phase 6 run (its state, the next SyntheticLM batch)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1053,12 +1120,11 @@ def profile_train(out):
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, make_train_step
 
-    o = OLMO_TRAIN
-    cfg = get_config("olmo-1b")
+    cfg = get_config(arch)
     step = make_train_step(ModelBundle(cfg), TrainConfig(
         remat="full", optimizer=AdamWConfig(lr=3e-4, warmup_steps=2)))
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=o["S"], global_batch=o["B"]))
-    data.restore({"step": o["steps"], "seed": 0})
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B))
+    data.restore({"step": steps, "seed": 0})
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
     st = out["state"]
     torch.cuda.synchronize()
@@ -1075,6 +1141,70 @@ def profile_train(out):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:90]}")
     return dict(wall_ms=wall * 1e3, busy_ms=busy)
+
+
+def phase_ssm_train_full():
+    """6b: full-depth mamba2-780m and zamba2-1.2b training in bf16 through
+    ``launch/train.py``; returns mamba2's scan launches."""
+    import logging
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    from repro_torch.launch.train import parse_args, train
+
+    logging.basicConfig(level=logging.INFO, format="  %(message)s")
+    t = MAMBA_TRAIN
+    B, S = t["B"], t["T"]
+    result = None
+    for arch, steps in (("mamba2-780m", t["steps"]), ("zamba2-1.2b", 2)):
+        cfg = get_config(arch)
+        codes = cfg.layer_codes()
+        n_m, n_s = codes.count("M"), codes.count("S")
+        log(f"== phase 6b: training {cfg.name} bfloat16, {n_m} M layers"
+            f"{f' and {n_s} shared-block applications' if n_s else ''}, d_model "
+            f"{cfg.d_model}, batch {B} x {S}, remat full, {steps} AdamW steps")
+        args = parse_args([
+            "--arch", arch, "--steps", str(steps), "--batch", str(B), "--seq", str(S),
+            "--remat", "full", "--lr", "3e-4",
+            "--ckpt-dir", str(ROOT / "build" / "ckpt-chip-smoke"),
+            "--ckpt-every", "1000000", "--log-every", "1",
+        ])
+        torch.cuda.reset_peak_memory_stats()
+        for fn in (ssd_scan, ssd_scan_bwd, flash_attention, flash_attention_bwd):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ssd_scan": ssd_scan.launches, "ssd_scan_bwd": ssd_scan_bwd.launches,
+                    "attention_fwd": flash_attention.launches,
+                    "attention_bwd": flash_attention_bwd.launches}
+        if out["steps"] != steps or len(out["losses"]) != steps:
+            raise AssertionError(f"ran {out['steps']} steps, {len(out['losses'])} losses")
+        bad = [v for v in out["losses"] + out["grad_norms"]
+               if not v == v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"non-finite losses / grad norms {bad}")
+        if out["restarts"] != 0:
+            raise AssertionError(f"supervisor restarted {out['restarts']} times")
+        want = {"ssd_scan": 2 * n_m * steps, "ssd_scan_bwd": n_m * steps,
+                "attention_fwd": 2 * n_s * steps, "attention_bwd": n_s * steps}
+        if launches != want:
+            raise AssertionError(f"{arch} launches {launches} != {want}")
+        steady = statistics.median(out["step_s"][1:])
+        log(f"  {steps} steps in {wall:.2f} s (set-up included); losses {out['losses']}; "
+            f"grad norms {out['grad_norms']}")
+        log(f"  step times {[round(v, 4) for v in out['step_s']]} s; steady step "
+            f"{steady:.4f} s -> {B * S / steady:.1f} training tokens/s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {launches}")
+        profile_train(out, arch, B, S, steps)
+        if result is None:
+            result = launches
+        del out
+        torch.cuda.empty_cache()
+    return result
 
 
 def phase_train_times(launches, errs):
@@ -1220,6 +1350,100 @@ def phase_ssd_kernels():
                 log("  state written in place == state in a fresh buffer")
             del x, dt, A, Bm, Cm, h0, y, h, want_y, want_h
     return errs
+
+
+#: the SSD scan's gradients against ref.ssd_scan_bwd, each leaf at rel x
+#: its largest |value| (tests/test_kernels.py:96's f32 and bf16 limits)
+SSD_GRAD_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+
+#: Mamba-2 training path (mamba2-780m: batch 4 x 2048 tokens)
+MAMBA_TRAIN = dict(B=4, T=2048, steps=4)
+
+
+def check_scaled(name, got, want, rel):
+    """|got - want| <= rel x max |want| + rel |want|, elementwise."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    scale = float(w.abs().max())
+    bad = err > rel * scale + rel * w.abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    log(f"  {name}: max_abs_err {max_err:.3e} (limit {rel} x max |want| "
+        f"{scale:.3e} + {rel} |want|)")
+    if not bool(torch.isfinite(g).all()) or bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements out of tolerance")
+    return max_err
+
+
+def phase_ssd_bwd_kernels():
+    """8f: the backward kernel against ref.ssd_scan_bwd; its time at the
+    mamba2-780m training shape.  Returns (timing record, max abs error of
+    the bf16 training-shape check)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import BWD_CHUNK, ssd_scan_bwd
+
+    m, z, t = MAMBA, ZAMBA, MAMBA_TRAIN
+    log("== phase 8f: the SSD scan's backward kernel against autograd through the "
+        "plain scan on the card")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    names = ("dx", "ddt", "dA", "dB", "dC", "d_init")
+    cases = [   # tag, B, T, H, P, N, initial state, final-state gradient
+        ("smoke", 2, 64, 4, 32, 16, False, False),
+        ("chunks", 2, 256, 6, m["P"], m["N"], True, True),
+        ("T100", 2, 100, m["H"], m["P"], m["N"], True, False),
+        ("T257", 2, 257, 8, z["P"], z["N"], False, True),
+        ("mamba2-train", t["B"], t["T"], m["H"], m["P"], m["N"], False, False),
+        ("zamba2-train", t["B"], t["T"], z["H"], z["P"], z["N"], False, False),
+    ]
+    err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for tag, B, T, H, P, N, state, dstate in cases:
+            x, dt, A, Bm, Cm, h0 = ssd_inputs(B, T, H, P, N, dtype, gen, state=state)
+            dy = torch.randn(B, T, H, P, generator=gen, device="cuda").to(dtype)
+            dh = torch.randn(B, H, P, N, generator=gen, device="cuda") if dstate else None
+            got = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, init_state=h0, d_state_out=dh)
+            torch.cuda.synchronize()
+            want = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=64 if T % 64 == 0 else T,
+                                    init_state=h0, d_state_out=dh)
+            shape = (f"B{B} T{T} H{H} P{P} N{N}{' init_state' if state else ''}"
+                     f"{' d_state_out' if dstate else ''}")
+            errs = [check_scaled(f"ssd_scan_bwd {n} {tag} {dn} {shape}", g, w,
+                                 SSD_GRAD_TOL[dn])
+                    for n, g, w in zip(names, got, want) if w is not None]
+            if tag == "mamba2-train" and dn == "bfloat16":
+                err = max(errs)
+                again = ssd_scan_bwd(x, dt, A, Bm, Cm, dy)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got[:5], again[:5])):
+                    raise AssertionError("ssd_scan_bwd: a rerun is not bit-identical")
+                log("  two calls: every gradient bit-identical")
+            del x, dt, A, Bm, Cm, h0, dy, dh, got, want
+        torch.cuda.empty_cache()
+
+    B, T, H, P, N = t["B"], t["T"], m["H"], m["P"], m["N"]
+    sets = []
+    for _ in range(2):   # 2 x (x, dy: 100 MB) > L2
+        x, dt, A, Bm, Cm, _ = ssd_inputs(B, T, H, P, N, torch.bfloat16, gen, state=False)
+        sets.append((x, dt, A, Bm, Cm,
+                     torch.randn(B, T, H, P, generator=gen, device="cuda").bfloat16()))
+    kern = time_ms(lambda *a: ssd_scan_bwd(*a), sets)
+    plain = time_ms(lambda *a: ref.ssd_scan_bwd(*a, chunk=64), sets, iters=2)
+    nbytes = (3 * B * T * H * P * 2          # x, dy read, dx written (bf16)
+              + 2 * B * T * H * 4 + 2 * H * 4  # dt, ddt, A, dA (f32)
+              + 4 * B * T * N * 2)           # B, C read, dB, dC written (bf16)
+    # the chunked algorithm at the kernel's chunk: the state pass's two
+    # updates (2 P N a position), the chunk pass's g·B, dy·h_s and x·G_e
+    # (3 P N) and its four 32-wide products (dy·xᵀ, Mᵀ·dy, W·B, Wᵀ·C)
+    flops = 2 * B * H * T * (5 * P * N + 2 * BWD_CHUNK * (P + N))
+    log(f"  ssd_scan_bwd at B{B} T{T} H{H} P{P} N{N} bf16: kernel {kern:.4f} ms, plain "
+        f"{plain:.4f} ms; {nbytes} bytes, {flops} flops "
+        f"({flops / kern / 1e9:.1f} TFLOP/s)")
+    del sets
+    torch.cuda.empty_cache()
+    return dict(ms=kern, plain_ms=plain, library_ms=None, bytes=nbytes, flops=flops), err
 
 
 def phase_ssm_parity():
@@ -1861,7 +2085,9 @@ def replay_traffic(label, fn):
     process).  So the window opens with ``TRACE_LEAD_SPINS`` spin kernels,
     then the call, then one more spin, and only the records between the
     last leading spin and the closing one are counted.  A window with
-    fewer spins than that is taken again, up to three times."""
+    fewer spins than that, or with no kernel between them (the tracer
+    dropped the call's records: every call measured here launches
+    kernels), is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1884,13 +2110,17 @@ def replay_traffic(label, fn):
         spins = sorted(e["ts"] for e in events
                        if e.get("cat") == "kernel" and "spin" in e.get("name", ""))
         if len(spins) >= 2:
-            break
-        log(f"  ({label}: the profiler kept {len(spins)} of its spin markers; taken again)")
+            lo, hi = spins[-2], spins[-1]
+            inside = [e for e in events if lo < e.get("ts", lo) < hi]
+            kernels = [e for e in inside if e.get("cat") == "kernel"]
+            if kernels:
+                break
+            log(f"  ({label}: the profiler kept its markers but no kernel of the call; "
+                "taken again)")
+        else:
+            log(f"  ({label}: the profiler kept {len(spins)} of its spin markers; taken again)")
     else:
-        raise AssertionError(f"{label}: three profiler windows without their markers")
-    lo, hi = spins[-2], spins[-1]
-    inside = [e for e in events if lo < e.get("ts", lo) < hi]
-    kernels = [e for e in inside if e.get("cat") == "kernel"]
+        raise AssertionError(f"{label}: three profiler windows without the call's records")
     copies = [e for e in inside if e.get("cat") == "gpu_memcpy"]
 
     def nbytes(direction):
@@ -2200,8 +2430,10 @@ def main() -> int:
     errs = phase_kernels()
     errs.update(phase_train_kernels())
     errs.update(phase_ssd_kernels())
+    bwd_rec, bwd_err = phase_ssd_bwd_kernels()
     phase_smoke_parity()
     phase_train_parity()
+    phase_ssm_train_parity()
     phase_ssm_parity()
     launches, stats, plens, server, eager = phase_full()
     measured = {"graphs": server.engine.measured_step_s,
@@ -2223,6 +2455,10 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
     rows += phase_train_times(train_launches, errs)
+    ssm_train_launches = phase_ssm_train_full()
+    rows.append(kernel_row("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+                           "src/repro/kernels/ops.py:162", bwd_rec,
+                           ssm_train_launches["ssd_scan_bwd"], bwd_err))
     phase_gemm_kernel()
     rows.append(phase_gemm_study())
     torch.cuda.empty_cache()

@@ -12,9 +12,11 @@ to the plain version.
 
 Gradients: on the CPU autograd differentiates the plain version, as the
 reference's ``jax.vjp`` differentiates its oracle.  On the card
-:func:`attention` is a :class:`torch.autograd.Function` whose forward and
-backward are both CUDA kernels.  :func:`ssd_scan` has no backward
-kernel yet: a CUDA input that requires grad raises.
+:func:`attention` and :func:`ssd_scan` each run a
+:class:`torch.autograd.Function` whose forward and backward are both CUDA
+kernels.  The scan's Function runs on the CPU too, with the plain forward
+and the plain backward (:func:`ref.ssd_scan_bwd`), so its bookkeeping is
+tested there.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from repro_torch.kernels.flash_attention import (
     flash_prefill,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd_scan_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd as ssd_scan_bwd_kernel
 
 
 def _route(t: torch.Tensor) -> str:
@@ -64,6 +67,36 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, out, lse, dout.contiguous(), **ctx.mask
         )
         return dq, dk, dv, None, None, None, None, None
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan with its backward: on the card the forward and backward
+    kernels, on the CPU the plain versions.  The forward saves its inputs;
+    the backward recomputes the chunk states from them (under
+    ``checkpoint`` the forward kernel runs again first).  The gradient of
+    the returned final state, when it is used, seeds the backward at the
+    last position; the gradient of ``init_state`` is what reaches position
+    0."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, init_state, return_state, chunk):
+        if _route(x) == "cuda":
+            out = ssd_scan_kernel(x, dt, A, Bmat, Cmat, init_state=init_state,
+                                  return_state=return_state)
+        else:
+            out = ref.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk,
+                               init_state=init_state, return_state=return_state)
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat, init_state)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, d_state=None):
+        x, dt, A, Bmat, Cmat, init_state = ctx.saved_tensors
+        bwd = ssd_scan_bwd_kernel if _route(x) == "cuda" else ref.ssd_scan_bwd
+        grads = bwd(x, dt, A, Bmat, Cmat, dy, chunk=ctx.chunk,
+                    init_state=init_state, d_state_out=d_state)
+        return (*grads, None, None)
 
 
 def attention(
@@ -149,25 +182,25 @@ def ssd_scan(
     reference runs its Pallas kernel only without one); a CPU tensor takes
     :func:`ref.ssd_scan`.  ``state_out`` (with ``return_state``) receives
     the final state in place and may be ``init_state`` itself: the serving
-    cache is updated without a copy.  The kernel has no backward yet, so a
-    CUDA input that requires grad raises.
+    cache is updated without a copy.  When an input requires grad the scan
+    goes through :class:`_SSDScan`, whose backward on the card is
+    ``csrc/ssd_scan_bwd.cu`` (``state_out`` is serving's and is refused
+    there).
     """
+    if state_out is not None and not return_state:
+        raise ValueError("state_out needs return_state=True")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, A, Bmat, Cmat, init_state)
+    ):
+        if state_out is not None:
+            raise ValueError("state_out is an in-place serving buffer: it takes "
+                             "no gradient")
+        return _SSDScan.apply(x, dt, A, Bmat, Cmat, init_state, return_state, chunk)
     if _route(x) == "cuda":
-        if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, dt, A, Bmat, Cmat, init_state)
-        ):
-            raise NotImplementedError(
-                "ssd_scan has no backward kernel yet: training through "
-                "Mamba-2 layers on the card is the SSM-training slice "
-                "(ROADMAP A5)"
-            )
         return ssd_scan_kernel(
             x, dt, A, Bmat, Cmat, init_state=init_state,
             return_state=return_state, chunk=chunk, state_out=state_out,
         )
-    if state_out is not None and not return_state:
-        raise ValueError("state_out needs return_state=True")
     out = ref.ssd_scan(x, dt, A, Bmat, Cmat, chunk=chunk,
                        init_state=init_state, return_state=return_state)
     if state_out is None:

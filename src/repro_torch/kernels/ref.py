@@ -274,6 +274,32 @@ def ssd_scan(
     return y
 
 
+def ssd_scan_bwd(
+    x, dt, A, Bmat, Cmat, dy, *,
+    chunk: int = 64,
+    init_state: torch.Tensor | None = None,
+    d_state_out: torch.Tensor | None = None,
+):
+    """Gradients of :func:`ssd_scan` by autograd through it: the plain
+    version of the backward kernel.
+
+    ``dy`` (B, T, H, P) is the gradient of ``y``; ``d_state_out`` (B, H, P,
+    N), when given, that of the returned final state.  Returns ``(dx, ddt,
+    dA, dB, dC, d_init_state)`` in the inputs' dtypes; ``d_init_state`` is
+    None without an ``init_state``.
+    """
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bmat, Cmat)]
+        h0 = None if init_state is None else init_state.detach().requires_grad_()
+        y, h = ssd_scan(*ins, chunk=chunk, init_state=h0, return_state=True)
+        outs, grads = [y], [dy]
+        if d_state_out is not None:
+            outs.append(h)
+            grads.append(d_state_out)
+        got = torch.autograd.grad(outs, ins + ([] if h0 is None else [h0]), grads)
+    return (*got[:5], got[5] if h0 is not None else None)
+
+
 def ssd_decode_step(
     x: torch.Tensor,       # (B, H, P)
     dt: torch.Tensor,      # (B, H)

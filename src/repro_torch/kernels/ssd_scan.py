@@ -4,7 +4,10 @@ Counterpart of ``repro/kernels/ssd_scan.py`` (``ssd_scan``).  The kernel
 lives in ``repro_torch/csrc/ssd_scan.cu``; it is built with ``nvcc`` on
 first use.  Unlike the Pallas kernel it takes an initial state and returns
 the final one, so it carries serving prefill as well.  The plain version
-of the same function is :func:`repro_torch.kernels.ref.ssd_scan`.
+of the same function is :func:`repro_torch.kernels.ref.ssd_scan`.  Its
+backward (:func:`ssd_scan_bwd`, ``csrc/ssd_scan_bwd.cu``) stands where the
+reference's ``custom_vjp`` recomputes through its oracle; its plain
+version is :func:`repro_torch.kernels.ref.ssd_scan_bwd`.
 
 What bounds it: bytes at the serving shape, once its products run on the
 tensor cores (as f32 FMAs they would take ~5x longer than the bytes).  In
@@ -29,6 +32,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WARPS = 12          # a bf16 block: heads_per_block x P / 16 warps
 
 _fn = None
+_bwd_fn = None
 
 
 def _launcher():
@@ -42,6 +46,19 @@ def _launcher():
         fn.restype = I
         _fn = fn
     return _fn
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = _build.load("ssd_scan_bwd")
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn = lib.ssd_scan_bwd_launch
+        fn.argtypes = ([P, L, L, L, P, L, L, L, P, P, L, L, P, L, L, P, L, L, L]
+                       + [P] * 10 + [I] * 6 + [P])
+        fn.restype = I
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def heads_per_block(B: int, H: int, P: int, sms: int) -> int:
@@ -69,6 +86,24 @@ def smem_bytes(P: int, N: int, hb: int) -> int:
     return 2 * stage + hb * 2 * q * (2 * q + 16) + q * (q + 8) * 4
 
 
+#: positions a chunk of the backward kernels
+BWD_CHUNK = 32
+
+
+def smem_bytes_bwd(P: int, N: int, kernel: int) -> int:
+    """Dynamic shared memory of the backward's state pass (``kernel`` 0:
+    the transposed x·dt or dy rows, B or C rows, the state, two decay
+    vectors) or of its chunk pass (1: B, C, x and dy rows, h_s and G_e,
+    four 32 x 32 tiles, four vectors, the per-row partials of dy·h_s C,
+    x·g B and x·G_e B, and one float a warp), all f32; rows padded by 4
+    floats (``StateSmem`` / ``ChunkSmem`` in the source)."""
+    q, qs, ns, ps = BWD_CHUNK, BWD_CHUNK + 4, N + 4, P + 4
+    if kernel == 0:
+        return 4 * (P * qs + q * ns + P * ns + 2 * q)
+    return 4 * (2 * q * ns + 2 * q * ps + 2 * P * ns + 4 * q * qs + 4 * q
+                + q * (N // 4) + 2 * q * (P // 32) + 256 // 32)
+
+
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` if every row (last dim) starts 16-byte aligned, as the bf16
     kernel's cp.async copies need; else a contiguous copy, which does."""
@@ -84,6 +119,39 @@ def _check_state(name, t, shape, device):
     if tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {shape} tensor, got "
                          f"{tuple(t.shape)}")
+
+
+def _check_inputs(x, dt, A, Bmat, Cmat):
+    """(B, T, H, P, N) of the scan's inputs; raises for what the kernels
+    do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on CUDA tensors, got {x.device}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"ssd_scan takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4:
+        raise ValueError(f"x must be (B, T, H, P), got {tuple(x.shape)}")
+    Bsz, T, H, P = x.shape
+    N = Bmat.shape[-1]
+    if P not in SUPPORTED_P or N not in SUPPORTED_N:
+        raise ValueError(f"head dim P={P} / state N={N} not in "
+                         f"{SUPPORTED_P} / {SUPPORTED_N}")
+    if tuple(dt.shape) != (Bsz, T, H) or tuple(A.shape) != (H,):
+        raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    for name, t in (("Bmat", Bmat), ("Cmat", Cmat)):
+        if tuple(t.shape) != (Bsz, T, N):
+            raise ValueError(f"{name} must be {(Bsz, T, N)}, got {tuple(t.shape)}")
+    for name, t, dtype in (("dt", dt, torch.float32), ("A", A, torch.float32),
+                           ("Bmat", Bmat, x.dtype), ("Cmat", Cmat, x.dtype)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if x.stride(3) != 1 or Bmat.stride(2) != 1 or Cmat.stride(2) != 1:
+        raise ValueError("the last dim of x, Bmat and Cmat must be contiguous")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    return Bsz, T, H, P, N
 
 
 def ssd_scan(
@@ -116,33 +184,7 @@ def ssd_scan(
     dim must be contiguous, and in bf16 a view whose rows do not start
     16-byte aligned is copied first.
     """
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on CUDA tensors, got {x.device}")
-    if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"ssd_scan takes float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 4:
-        raise ValueError(f"x must be (B, T, H, P), got {tuple(x.shape)}")
-    Bsz, T, H, P = x.shape
-    N = Bmat.shape[-1]
-    if P not in SUPPORTED_P or N not in SUPPORTED_N:
-        raise ValueError(f"head dim P={P} / state N={N} not in "
-                         f"{SUPPORTED_P} / {SUPPORTED_N}")
-    if tuple(dt.shape) != (Bsz, T, H) or tuple(A.shape) != (H,):
-        raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} do not "
-                         f"match x {tuple(x.shape)}")
-    for name, t in (("Bmat", Bmat), ("Cmat", Cmat)):
-        if tuple(t.shape) != (Bsz, T, N):
-            raise ValueError(f"{name} must be {(Bsz, T, N)}, got {tuple(t.shape)}")
-    for name, t, dtype in (("dt", dt, torch.float32), ("A", A, torch.float32),
-                           ("Bmat", Bmat, x.dtype), ("Cmat", Cmat, x.dtype)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if x.stride(3) != 1 or Bmat.stride(2) != 1 or Cmat.stride(2) != 1:
-        raise ValueError("the last dim of x, Bmat and Cmat must be contiguous")
-    if not A.is_contiguous():
-        raise ValueError("A must be contiguous")
+    Bsz, T, H, P, N = _check_inputs(x, dt, A, Bmat, Cmat)
     if state_out is not None and not return_state:
         raise ValueError("state_out needs return_state=True")
     shape = (Bsz, H, P, N)
@@ -182,3 +224,77 @@ def ssd_scan(
 
 #: launches of the SSD kernel since the last reset
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,      # (B, T, H, P)
+    dt: torch.Tensor,     # (B, T, H) float32
+    A: torch.Tensor,      # (H,) float32
+    Bmat: torch.Tensor,   # (B, T, N)
+    Cmat: torch.Tensor,   # (B, T, N)
+    dy: torch.Tensor,     # (B, T, H, P), x's dtype
+    *,
+    init_state: torch.Tensor | None = None,    # (B, H, P, N) float32
+    d_state_out: torch.Tensor | None = None,   # (B, H, P, N) float32
+    chunk: int | None = None,
+):
+    """Launch the SSD scan's backward on ``x``'s device and current stream.
+
+    ``dy`` is the gradient of ``y``, ``d_state_out`` (optional) that of the
+    final state.  Returns ``(dx, ddt, dA, dB, dC, d_init_state)``: dx, dB
+    and dC in x's dtype, ddt, dA and d_init_state in float32, each shaped
+    like its input (``d_init_state`` is None without ``init_state``).  The
+    inputs may be the strided views the forward takes (last dim
+    contiguous); ``chunk`` is accepted for the reference's signature and
+    not used (the kernels walk chunks of :data:`BWD_CHUNK` positions).
+
+    Two kernels: the first writes every chunk's start state and end-state
+    gradient into scratch of (B, H, ceil(T / 32), P, N) float32 each, the
+    second every chunk's gradients, summing dB and dC over the heads in
+    the block.  dA comes out as one partial a (row, chunk, head), summed
+    here with ``torch.sum``.
+    """
+    Bsz, T, H, P, N = _check_inputs(x, dt, A, Bmat, Cmat)
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be a {x.dtype} {tuple(x.shape)} tensor on "
+                         f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if dy.stride(3) != 1:
+        dy = dy.contiguous()
+    shape = (Bsz, H, P, N)
+    if init_state is not None:
+        _check_state("init_state", init_state, shape, x.device)
+    if d_state_out is not None:
+        _check_state("d_state_out", d_state_out, shape, x.device)
+
+    nc = -(-T // BWD_CHUNK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    S = torch.empty((Bsz, H, nc, P, N), **f32)
+    G = torch.empty((Bsz, H, nc, P, N), **f32)
+    dx = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bsz, T, H), **f32)
+    dB = torch.empty((Bsz, T, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty((Bsz, T, N), dtype=x.dtype, device=x.device)
+    dA_part = torch.empty((Bsz, nc, H), **f32)
+    d_init = None if init_state is None else torch.empty(shape, **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x.device):
+        status = _bwd_launcher()(
+            x.data_ptr(), *x.stride()[:3],
+            dt.data_ptr(), *dt.stride(),
+            A.data_ptr(),
+            Bmat.data_ptr(), *Bmat.stride()[:2],
+            Cmat.data_ptr(), *Cmat.stride()[:2],
+            dy.data_ptr(), *dy.stride()[:3],
+            ptr(init_state), ptr(d_state_out), S.data_ptr(), G.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            ptr(d_init), dA_part.data_ptr(),
+            Bsz, T, H, P, N, DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(status, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA_part.sum((0, 1)), dB, dC, d_init
+
+
+#: launches of the SSD backward (its two kernels) since the last reset
+ssd_scan_bwd.launches = 0

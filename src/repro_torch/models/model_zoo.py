@@ -1,11 +1,10 @@
 """Model bundle: one object per architecture, its train and serve entry points.
 
 Counterpart of ``repro/models/model_zoo.py``.  The port trains and serves
-dense decoders whose layers are all full-attention GQA (``F``), and serves
-the SSM and hybrid families whose layers are Mamba-2 (``M``) and Zamba-style
-shared GQA attention (``S``) — mamba2 and zamba2; their training waits for
-the SSM-training slice.  Every other family or layer code raises
-``NotImplementedError`` naming ROADMAP queue A.
+dense decoders whose layers are all full-attention GQA (``F``), and the
+SSM and hybrid families whose layers are Mamba-2 (``M``) and Zamba-style
+shared GQA attention (``S``) — mamba2 and zamba2.  Every other family or
+layer code raises ``NotImplementedError`` naming ROADMAP queue A.
 
 The sizing half — the bytes, flops and planner profiles of a shape — is
 pure arithmetic over the config and lives in :class:`ModelSizing`, which
@@ -207,11 +206,6 @@ class ModelBundle(ModelSizing):
     # -- compute entry points ---------------------------------------------
     def train_loss(self, params, batch: dict, *, remat: str = "full"):
         """(loss, {"ce", "aux"}) of ``batch`` (``tokens``, ``labels``)."""
-        if set(self.cfg.layer_codes()) & set(tf_mod.SSM_CODES):
-            raise NotImplementedError(
-                f"{self.cfg.name}: training through M/S layers is not ported "
-                "yet (ROADMAP A5: ssm_train and the ssd_scan backward kernel)"
-            )
         return tf_mod.lm_loss(
             params, batch["tokens"], batch["labels"], self.cfg, remat=remat
         )

@@ -1,10 +1,11 @@
 """Mamba-2 block (SSD) with its prefill and decode paths.
 
 Counterpart of ``repro/models/ssm.py`` (``ssm_defs``, ``ssm_cache_defs``,
-``ssm_prefill``, ``ssm_prefill_at``, ``ssm_decode``; ``ssm_train`` waits
-for the SSM-training slice).  Prefill runs the chunked SSD scan
-(:func:`repro_torch.kernels.ops.ssd_scan`: the CUDA kernel on the card,
-carrying the recurrent state); decode is the O(1) recurrence against the
+``ssm_train``, ``ssm_prefill``, ``ssm_prefill_at``, ``ssm_decode``).
+Training and prefill run the chunked SSD scan
+(:func:`repro_torch.kernels.ops.ssd_scan`: on the card the CUDA kernel,
+carrying the recurrent state in prefill, with its backward kernel in
+training); decode is the O(1) recurrence against the
 (conv, ssm) state cache — the SSM's answer to the KV cache, whose bytes
 are constant in sequence length.
 
@@ -106,6 +107,23 @@ def _chunk(S: int) -> int:
     kernel walks its own chunks whatever this is)."""
     chunk = min(SSD_CHUNK, S)
     return S if S % chunk else chunk
+
+
+def ssm_train(params, x, d_model: int, spec: SSMSpec):
+    """x (B, S, d) -> (B, S, d), from zero state, differentiable: the scan
+    goes through its autograd Function (the backward kernel on the card)."""
+    B, S, _ = x.shape
+    di, h, n, p = spec.d_inner(d_model), spec.n_heads(d_model), spec.d_state, spec.head_dim
+
+    proj = x @ params["w_in"]
+    z, xs, bmat, cmat, dt = _split(proj, di, n, h)
+    xbc = torch.cat([xs, bmat, cmat], dim=-1)
+    full = F.pad(xbc, (0, 0, spec.d_conv - 1, 0))
+    conv = _causal_conv(full, params, S, spec.d_conv, x.dtype)
+    xs, bmat, cmat, dtf, A = _scan_inputs(params, conv, dt, di, n)
+    xh = xs.reshape(B, S, h, p)
+    y = ops.ssd_scan(xh, dtf, A, bmat, cmat, chunk=_chunk(S))
+    return _finish(params, y, xh, z, di)
 
 
 def ssm_prefill(params, x, cache, d_model: int, spec: SSMSpec):

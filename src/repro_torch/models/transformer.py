@@ -12,8 +12,7 @@ views of its slice when both are resident on the device
 a host placement (``repro_torch.serve.engine.PlacedFeed``).  Caches are
 updated in place through what the feed hands out.  In training the slices come from
 one ``unbind`` per stacked leaf, so each leaf's gradient is stacked once
-per step rather than scattered into a zero stack per layer.  Training
-through ``M``/``S`` layers waits for the SSM-training slice.
+per step rather than scattered into a zero stack per layer.
 """
 
 from __future__ import annotations
@@ -45,8 +44,6 @@ from repro_torch.models.sharding import Param, stack_defs, tree_leaves, tree_map
 
 #: layer codes ported so far; L/G/C (ring caches) wait for ROADMAP queue A
 LAYER_CODES = ("F", "M", "S")
-#: layer codes the training path does not take yet (ROADMAP A5)
-SSM_CODES = ("M", "S")
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +132,17 @@ def lm_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _apply_layer_train(cfg, code, lp, x):
+def _apply_layer_train(cfg, code, lp, x, emb0, shared):
+    """One layer of the training forward.  An ``M`` layer has no MLP; an
+    ``S`` layer runs the ``shared`` block over concat(x, emb0)."""
     _check_code(code)
-    if code in SSM_CODES:
-        raise NotImplementedError(
-            f"training through layer code {code!r} is not ported yet: it needs "
-            "ssm_train and a backward kernel for ssd_scan (ROADMAP A5)"
+    if code == "M":
+        return x + ssm_mod.ssm_train(
+            lp["ssm"], apply_norm(lp["norm"], x, cfg.norm), cfg.d_model, cfg.ssm
         )
+    if code == "S":
+        xin = apply_norm(shared["norm"], torch.cat([x, emb0], dim=-1), cfg.norm)
+        return x + attn.gqa_train(shared, xin, cfg.attention, "F")
     h = apply_norm(lp["attn_norm"], x, cfg.norm)
     x = x + attn.gqa_train(lp["attn"], h, cfg.attention, code)
     h = apply_norm(lp["mlp_norm"], x, cfg.norm)
@@ -217,26 +218,31 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _stage_body(cfg, codes, x, lp):
+def _stage_body(cfg, codes, x, lp, emb0, shared):
     for j, code in enumerate(codes):
-        x = _apply_layer_train(cfg, code, lp[f"{j}{code}"], x)
+        x = _apply_layer_train(cfg, code, lp[f"{j}{code}"], x, emb0, shared)
     return x
 
 
 def _run_stages_train(cfg, params, x, remat: str):
-    """Every layer in order; ``remat`` = none | full | dots."""
+    """Every layer in order; ``remat`` = none | full | dots.  ``emb0`` (the
+    embedding output, when the pattern has ``S`` layers) and the shared
+    block's params go into every stage's checkpoint, as the reference's
+    scans close over them."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat {remat!r}")
+    shared = params.get("shared_attn")
+    emb0 = x if "S" in cfg.layer_pattern else None
     for (codes, count, _), stage_params in zip(cfg.stages(), params["stages"]):
         body = functools.partial(_stage_body, cfg, codes)
         for lp in _layer_slices(stage_params, count):
             if remat == "none":
-                x = body(x, lp)
+                x = body(x, lp, emb0, shared)
             elif remat == "full":
-                x = checkpoint(body, x, lp, use_reentrant=False)
+                x = checkpoint(body, x, lp, emb0, shared, use_reentrant=False)
             else:
                 x = checkpoint(
-                    body, x, lp, use_reentrant=False,
+                    body, x, lp, emb0, shared, use_reentrant=False,
                     context_fn=functools.partial(
                         create_selective_checkpoint_contexts, _save_dots),
                 )

@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_prefill,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.sharding import tree_leaves, tree_map
 
@@ -777,9 +777,18 @@ def test_decode_and_scan_smem_bytes_match_the_kernels():
 @requires_cuda
 def test_ssd_kernel_refuses_what_it_does_not_take():
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(1, 8, 2, 64, 128, torch.bfloat16, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        ops.ssd_scan(x.requires_grad_(), dt, A, Bm, Cm)
-    x = x.detach()
+    # an input that requires grad takes the backward kernel
+    before = ssd_scan_bwd.launches
+    xg = x.clone().requires_grad_()
+    ops.ssd_scan(xg, dt, A, Bm, Cm).float().sum().backward()
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 1
+    want = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, torch.ones_like(x), chunk=8)[0]
+    _scaled(xg.grad, want, 5e-2)
+    with pytest.raises(ValueError, match="serving buffer"):
+        ops.ssd_scan(xg, dt, A, Bm, Cm, init_state=h0, return_state=True, state_out=h0)
+    with pytest.raises(ValueError, match="dy must be"):
+        ssd_scan_bwd(x, dt, A, Bm, Cm, x.float())
     with pytest.raises(ValueError, match="head dim"):
         ssd_scan(x[..., :48], dt, A, Bm, Cm)
     with pytest.raises(TypeError):
@@ -788,6 +797,163 @@ def test_ssd_kernel_refuses_what_it_does_not_take():
         ssd_scan(x.half(), dt, A, Bm.half(), Cm.half())
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan(x, dt, A, Bm, Cm, init_state=h0.transpose(2, 3), return_state=True)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's backward kernel and Mamba-2 training
+# ---------------------------------------------------------------------------
+
+#: gradients against ref.ssd_scan_bwd, per leaf at rel x its largest |value|
+#: (tests/test_kernels.py:96's f32 and bf16 limits): f32 sums in another
+#: order and chunking; in bf16 one rounding of the same f32 results
+SSD_GRAD_TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "d_init")
+
+
+def _ssd_bwd_matches_plain(x, dt, A, Bm, Cm, h0, dy, dhT, dtype):
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, init_state=h0, d_state_out=dhT)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 1
+    T = x.shape[1]
+    want = ref.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=64 if T % 64 == 0 else T,
+                            init_state=h0, d_state_out=dhT)
+    for name, g, w, t in zip(GRAD_NAMES, got, want, (x, dt, A, Bm, Cm, h0)):
+        if t is None:
+            assert g is None
+            continue
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        _scaled(g, w, SSD_GRAD_TOL[dtype])
+    return got
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,P,N,state", [
+    (2, 256, 6, 64, 128, True),     # mamba2-780m's P, N, several chunks
+    (2, 100, 4, 64, 64, True),      # zamba2-1.2b's P, N, T off the chunk
+    (2, 16, 4, 32, 16, False),      # the smoke P, N, half a chunk
+    (2, 257, 3, 32, 32, False),     # one past a chunk
+    (3, 1, 2, 64, 128, True),       # one position
+])
+def test_ssd_bwd_kernel_matches_plain(B, T, H, P, N, state, dtype):
+    """dx, ddt, dA, dB, dC (and with a state the initial state's gradient,
+    seeded by the final state's) against autograd through the plain scan."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(B, T, H, P, N, dtype, seed=T + N + 1, state=state)
+    dy = _randn(B, T, H, P, dtype=dtype, seed=T + 5)
+    dhT = _randn(B, H, P, N, dtype=torch.float32, seed=T + 6) if state else None
+    _ssd_bwd_matches_plain(x, dt, A, Bm, Cm, h0, dy, dhT, dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,P,N", [(48, 64, 128), (64, 64, 64)])
+def test_ssd_bwd_kernel_training_shapes(H, P, N, dtype):
+    """mamba2-780m's (H 48, P 64, N 128) and zamba2-1.2b's (H 64, P 64,
+    N 64) widths at batch 2 x 512 positions (chip_smoke.py phase 8f runs
+    4 x 2048); rows whose dt is 0 past a length get dx = 0 there."""
+    B, T = 2, 512
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(B, T, H, P, N, dtype, seed=H, state=False)
+    dt[1, 300:] = 0.0
+    dy = _randn(B, T, H, P, dtype=dtype, seed=H + 1)
+    dx = _ssd_bwd_matches_plain(x, dt, A, Bm, Cm, None, dy, None, dtype)[0]
+    assert not dx[1, 300:].any()
+
+
+@requires_cuda
+def test_ssd_bwd_kernel_strided_views_and_reruns():
+    """x, B and C as bf16 slices of one conv output, as models/ssm.py
+    passes them (rows not 16-byte aligned too); two calls in a row give
+    the same gradients bit for bit."""
+    B, T, H, P, N = 2, 100, 8, 64, 128
+    g = torch.Generator(device="cuda").manual_seed(95)
+    _, dt, A, _, _, h0 = _ssd_inputs(B, T, H, P, N, torch.float32, seed=96)
+    dy = _randn(B, T, H, P, dtype=torch.bfloat16, seed=97)
+    for pad in (0, 1):
+        conv = (torch.randn(B, T, H * P + 2 * N + pad, generator=g, device="cuda")
+                * 0.5).to(torch.bfloat16)
+        x = conv[..., pad:pad + H * P].reshape(B, T, H, P)
+        Bm = conv[..., pad + H * P:pad + H * P + N]
+        Cm = conv[..., pad + H * P + N:]
+        assert not x.is_contiguous() and not Bm.is_contiguous()
+        first = _ssd_bwd_matches_plain(x, dt, A, Bm, Cm, h0, dy, None, torch.bfloat16)
+        again = ssd_scan_bwd(x, dt, A, Bm, Cm, dy, init_state=h0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_function_under_checkpoint(dtype):
+    """``torch.utils.checkpoint`` around the autograd Function: the forward
+    kernel runs again in the backward, the backward kernel once, and the
+    gradients equal those without the checkpoint bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(2, 96, 4, 64, 64, dtype, seed=7)
+    w = _randn(2, 96, 4, 64, dtype=dtype, seed=8)
+
+    def f(x, dt, A, Bm, Cm, h0):
+        y, h = ops.ssd_scan(x, dt, A, Bm, Cm, init_state=h0, return_state=True)
+        return (y.float() * w.float()).sum() + h.square().sum()
+
+    grads = {}
+    for mode in ("plain", "checkpoint"):
+        ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, h0)]
+        f0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+        loss = f(*ins) if mode == "plain" else checkpoint(f, *ins, use_reentrant=False)
+        grads[mode] = torch.autograd.grad(loss, ins)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches - f0 == (1 if mode == "plain" else 2)
+        assert ssd_scan_bwd.launches - b0 == 1
+    assert all(torch.equal(a, b) for a, b in zip(grads["plain"], grads["checkpoint"]))
+
+
+@requires_cuda
+def test_ssd_bwd_smem_bytes_match_the_kernels():
+    """The Python mirror of both backward kernels' shared memory."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as scan
+
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for P in scan.SUPPORTED_P:
+        for N in scan.SUPPORTED_N:
+            for kernel in (0, 1):
+                assert fn(P, N, kernel) == scan.smem_bytes_bwd(P, N, kernel)
+
+
+@requires_cuda
+@pytest.mark.parametrize("remat,fwd_per_layer", [("none", 1), ("full", 2), ("dots", 2)])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_train_loss_on_card_matches_cpu(arch, remat, fwd_per_layer):
+    """A float32 SSM smoke model's loss and grads on the card (the scan's
+    forward and backward kernels; zamba2's S layers through the attention
+    kernels) and on the CPU (the plain versions), same weights and batch,
+    at test_train_loss_on_card_matches_cpu's limits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, tb.cfg.vocab, (2, 40)).astype(np.int32))
+    n_m = tb.cfg.layer_codes().count("M")
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(d, copy=True).requires_grad_(), params)
+        f0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+        loss, _ = tb.train_loss(p, {"tokens": toks.to(d), "labels": toks.to(d)},
+                                remat=remat)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert ssd_scan.launches - f0 == fwd_per_layer * n_m
+            assert ssd_scan_bwd.launches - b0 == n_m
+        out[d] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-5, rtol=1e-5)
+    for g, w in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, w, atol=1e-3 * float(w.abs().max()), rtol=1e-4)
 
 
 @requires_cuda

@@ -435,15 +435,6 @@ def test_bf16_smoke_serves_on_cpu():
     assert server.engine.caches["stages"][0]["0M"]["ssm"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", SSM_ARCHS)
-def test_training_through_ssm_layers_raises(arch):
-    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="float32"))
-    params = tb.init_params(torch.Generator().manual_seed(0))
-    toks = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tb.train_loss(params, {"tokens": toks, "labels": toks})
-
-
 def test_shared_block_defs_match_reference():
     jb = JaxBundle(jax_smoke_config("zamba2-1.2b"))
     tb = ModelBundle(smoke_config("zamba2-1.2b"))

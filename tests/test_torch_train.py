@@ -3,8 +3,11 @@
 Weights and optimizer state come from the reference (``init_params`` /
 ``init_train_state``) and are carried across with ``repro_torch.convert``;
 batches are numpy arrays from the same seed, fed to both.  Models are
-yi-6b-smoke (GQA, G = 8) and olmo-1b-smoke (G = 1, non-parametric LN) in
-float32, where the port takes its plain attention path.
+yi-6b-smoke (GQA, G = 8), olmo-1b-smoke (G = 1, non-parametric LN),
+granite-8b-smoke, mamba2-smoke (``M`` layers: the SSD scan's autograd
+Function with its plain forward and backward) and zamba2-smoke (``M``
+layers and the shared ``S`` block over concat(hidden, embedding)) in
+float32, where the port takes its plain attention and scan paths.
 
 Tolerances: 1e-4 for one forward/backward (f32 sums in another order),
 with gradients held per leaf (see :func:`_grads_close`); after AdamW
@@ -50,7 +53,7 @@ jax.config.update("jax_platform_name", "cpu")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["yi-6b", "olmo-1b", "granite-8b"]
+ARCHS = ["yi-6b", "olmo-1b", "granite-8b", "mamba2-780m", "zamba2-1.2b"]
 
 
 def _t(a):
@@ -186,9 +189,23 @@ def test_lm_prefill_matches_reference(arch):
     tlogits, same = tb.prefill(tparams, {"tokens": _t(toks)}, tcache)
     assert same is tcache                          # filled in place
     _close(tlogits, jlogits)
-    _tree_close(tcache, jcache)
-    # positions past the prompt stay zero, as in the reference
-    assert all(float(t[:, :, :, 12:].abs().max()) == 0 for t in tree_leaves(tcache))
+    # KV leaves at TOL; an M layer's conv and f32 SSM state (entries up to
+    # ~1e2 from random weights) at 1e-4 x the leaf's largest |value|, the
+    # scale-aware bound of tests/test_torch_ssm.py
+    for stage, jstage in zip(tcache["stages"], jcache["stages"]):
+        for key, layer in stage.items():
+            for name, t in layer.items():
+                want = np.asarray(jstage[key][name], np.float32)
+                if name in ("k", "v"):
+                    _close(t, want)
+                else:
+                    _close(t, want, rtol=1e-4,
+                           atol=1e-4 * max(float(np.abs(want).max()), 1.0))
+    # KV positions past the prompt stay zero, as in the reference (an M
+    # layer's conv and SSM state have no position axis)
+    kv = [t for stage in tcache["stages"] for layer in stage.values()
+          for name, t in layer.items() if name in ("k", "v")]
+    assert all(float(t[:, :, :, 12:].abs().max()) == 0 for t in kv)
 
 
 # ---------------------------------------------------------------------------
@@ -356,11 +373,8 @@ def test_microbatched_matches_full_batch():
                                rtol=1e-2)
 
 
-def test_reference_checkpoint_restores_in_port(tmp_path):
-    """The reference's Checkpointer writes a bf16 train state with its
-    compression error feedback; the port restores it bit for bit into its
-    own template, int32 step included."""
-    jb, tb = _bundles("olmo-1b", dtype="bfloat16")
+def _reference_checkpoint_restores_in_port(tmp_path, arch):
+    jb, tb = _bundles(arch, dtype="bfloat16")
     mesh = make_mesh_for((1,), ("data",))
     params, opt, ef = jax_init_train_state(jb, mesh, jax.random.PRNGKey(3),
                                            JaxTrainConfig())
@@ -378,8 +392,8 @@ def test_reference_checkpoint_restores_in_port(tmp_path):
     _tree_close(restored["opt"], opt, atol=0, rtol=0)
 
 
-def test_port_checkpoint_restores_in_reference(tmp_path):
-    jb, tb = _bundles("olmo-1b", dtype="bfloat16")
+def _port_checkpoint_restores_in_reference(tmp_path, arch):
+    jb, tb = _bundles(arch, dtype="bfloat16")
     params, opt, ef = init_train_state(tb, torch.Generator().manual_seed(1), TrainConfig())
     ck = Checkpointer(str(tmp_path))
     ck.save(2, {"params": params, "opt": opt, "ef": ef})       # async write
@@ -391,6 +405,28 @@ def test_port_checkpoint_restores_in_reference(tmp_path):
     assert restored["params"]["embed"]["embedding"].dtype == jnp.bfloat16
     _tree_close(params, restored["params"], atol=0, rtol=0)
     _tree_close(opt, restored["opt"], atol=0, rtol=0)
+
+
+def test_reference_checkpoint_restores_in_port(tmp_path):
+    """The reference's Checkpointer writes a bf16 train state with its
+    compression error feedback; the port restores it bit for bit into its
+    own template, int32 step included."""
+    _reference_checkpoint_restores_in_port(tmp_path, "olmo-1b")
+
+
+def test_port_checkpoint_restores_in_reference(tmp_path):
+    _port_checkpoint_restores_in_reference(tmp_path, "olmo-1b")
+
+
+@pytest.mark.parametrize("direction", ["reference_to_port", "port_to_reference"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_checkpoints_round_trip(tmp_path, arch, direction):
+    """An M/S model's train state (SSM params, the shared block) crosses
+    between the two Checkpointers bit for bit, either way."""
+    if direction == "reference_to_port":
+        _reference_checkpoint_restores_in_port(tmp_path, arch)
+    else:
+        _port_checkpoint_restores_in_reference(tmp_path, arch)
 
 
 def test_supervisor_restores_after_a_failed_step(tmp_path):
@@ -418,14 +454,25 @@ def test_supervisor_restores_after_a_failed_step(tmp_path):
     assert int(state["opt"]["step"]) == 4
 
 
-def test_launch_train_cpu_smoke(tmp_path):
+def _launch_train_cpu_smoke(tmp_path, arch, seq):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "olmo-1b",
-         "--smoke", "--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "16",
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--device", "cpu", "--steps", "3", "--batch", "2", "--seq", str(seq),
          "--log-every", "1", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)],
         env=env, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stderr
     assert "done: 3 steps" in res.stderr and "restarts 0" in res.stderr, res.stderr
     assert sorted(os.listdir(tmp_path)) == ["step_00000002"]
+
+
+def test_launch_train_cpu_smoke(tmp_path):
+    _launch_train_cpu_smoke(tmp_path, "olmo-1b", 16)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_launch_train_ssm_cpu_smoke(tmp_path, arch):
+    """``launch.train`` trains the SSM archs end to end (as the README's
+    smoke command runs them)."""
+    _launch_train_cpu_smoke(tmp_path, arch, 32)
