@@ -57,7 +57,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.profiler`` window over one more step; (6b) the same for
    full-depth mamba2-780m (4 steps) and zamba2-1.2b (2 steps), 4 x 2048
    tokens each: 2 forward and 1 backward scan launches per ``M`` layer
-   per step (and zamba2's shared block through the attention kernels);
+   per step (and zamba2's shared block through the attention kernels),
+   and the scan backward's share of the profiled step's device time;
 7. times of the training attention kernels at the phase 6 shape, beside
    their plain versions, SDPA and their bounds, with each one's TFLOP/s,
    its fraction of the operation bound and its ratio to SDPA;
@@ -76,13 +77,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    scans and 6 prefill-attention launches, 6 decode-attention launches
    per step); (e) the scan's times at (c)'s shape and ``torch.profiler``
    windows over one mamba2 prefill dispatch and a few decode steps,
-   graph replays and then eager; (f) the scan's backward kernel against
+   graph replays and then eager; (f) the scan's backward kernels against
    autograd through the plain scan (``ref.ssd_scan_bwd``) in float32 and
-   bfloat16: the smoke widths, several chunks, T off the chunk, with and
-   without an initial state and a final-state gradient, and mamba2-780m's
-   and zamba2-1.2b's training shapes (B 4, T 2048; H 48, P 64, N 128 and
-   H 64, P 64, N 64), two calls bit-identical, and its time at mamba2's
-   beside its bound and the plain version's;
+   bfloat16: the smoke widths, several chunks, T off the chunk (one short
+   of and one past the bf16 chunk of 64 too), with and without an initial
+   state and a final-state gradient, and mamba2-780m's and zamba2-1.2b's
+   training shapes (B 4, T 2048; H 48, P 64, N 128 and H 64, P 64, N 64),
+   two calls bit-identical, and its time at mamba2's beside its bound and
+   the plain version's, each pass's own device time, the scratch bytes a
+   call and the design's byte floor;
 9. the paper's single-GPU study.  (a) ``blocked_matmul`` against its plain
    version in bfloat16 and float32 at the reference test's three shapes,
    4096^3 in both output dtypes and a non-square shape, and a tiling with
@@ -350,6 +353,10 @@ def phase_build():
 #: the libraries whose kernels phase 1 logs by name and template arguments
 PTXAS_NAMED = ("flash_attention", "prefill_attention", "blocked_matmul",
                "decode_attention", "ssd_scan", "ssd_scan_bwd")
+#: the SSD backward's kernels in the order of ``ssd_scan.smem_bytes_bwd``'s
+#: index: the f32 state and chunk passes, then the bf16 ones
+BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel",
+               "ssd_bwd_state_mma_kernel", "ssd_bwd_chunk_mma_kernel")
 
 
 def log_ptxas(lib, out):
@@ -384,9 +391,9 @@ def log_ptxas(lib, out):
             m = MAMBA
             return ssd_scan.smem_bytes(P, N, ssd_scan.heads_per_block(
                 m["B"], m["H"], P, sm_count(0)))
-        if kernel in ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel"):
-            return ssd_scan.smem_bytes_bwd(int(args[1]), int(args[2]),
-                                           int(kernel == "ssd_bwd_chunk_kernel"))
+        if kernel in BWD_KERNELS:   # <E, P, N> (f32 route) or <P, N> (bf16 route)
+            P, N = int(args[-2]), int(args[-1])
+            return ssd_scan.smem_bytes_bwd(P, N, BWD_KERNELS.index(kernel))
         return None
 
     name, spill = None, ""
@@ -396,6 +403,7 @@ def log_ptxas(lib, out):
             # mangled kernel<T, D...>: "...fa_fwd_mma_kernelILi128EEEvPK..."
             k = re.search(r"(prefill_mma_kernel|prefill_kernel|mm_wgmma_kernel|mm_fma_kernel"
                           r"|decode_mma_kernel|decode_fma_kernel|ssd_mma_kernel|ssd_fma_kernel"
+                          r"|ssd_bwd_state_mma_kernel|ssd_bwd_chunk_mma_kernel"
                           r"|ssd_bwd_state_kernel|ssd_bwd_chunk_kernel"
                           r"|fa_\w+?_kernel)I(.*?)EEv",
                           m.group(1))
@@ -751,13 +759,15 @@ def profile_prefill(servers):
                        expect=expected_trace(server, "prefill"))
 
 
-def time_ms(fn, inputs, reps=3, iters=10):
+def time_ms(fn, inputs, reps=3, iters=10, by_kernel=None):
     """Device milliseconds per call: the card's own kernel records
     (``torch.profiler``, CUPTI) summed over ``iters`` calls, median of
     ``reps``.  Host launch overhead is left out — a CUDA-event window
     around these calls would time the Python wrapper, not the card.  The
     calls cycle through ``inputs``, copies big enough that the 50 MB L2
-    does not hold them, so each call finds its operands cold.
+    does not hold them, so each call finds its operands cold.  Given a dict
+    ``by_kernel``, fills it with each kernel's own device ms per call, by
+    the profiler's name, median over the repetitions that recorded it.
 
     A profiler window now and then comes back with no device records at
     all (seen once in a run of every phase); such a window is taken again,
@@ -775,7 +785,7 @@ def time_ms(fn, inputs, reps=3, iters=10):
     for i in range(3):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
-    per = []
+    per, parts = [], {}
     for _ in range(reps):
         for _attempt in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -783,6 +793,8 @@ def time_ms(fn, inputs, reps=3, iters=10):
             events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             if events:
                 per.append(sum(e.self_device_time_total for e in events) / 1e3 / iters)
+                for e in events:
+                    parts.setdefault(e.key, []).append(e.self_device_time_total / 1e3 / iters)
                 break
         else:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -793,6 +805,8 @@ def time_ms(fn, inputs, reps=3, iters=10):
             per.append(start.elapsed_time(end) / iters)
             log(f"  (torch.profiler recorded no device time three times: this "
                 f"repetition timed with CUDA events, {per[-1]:.4f} ms)")
+    if by_kernel is not None:
+        by_kernel.update({k: statistics.median(v) for k, v in parts.items()})
     return statistics.median(per)
 
 
@@ -1107,9 +1121,11 @@ def phase_train_full():
 
 
 def profile_train(out, arch="olmo-1b", B=OLMO_TRAIN["B"], S=OLMO_TRAIN["S"],
-                  steps=OLMO_TRAIN["steps"]):
+                  steps=OLMO_TRAIN["steps"], shares=()):
     """Where a training step's time goes: ``torch.profiler`` over one more
-    step of a phase 6 run (its state, the next SyntheticLM batch)."""
+    step of a phase 6 run (its state, the next SyntheticLM batch).
+    ``shares``: (label, name fragment) pairs whose kernels' summed device
+    time is printed with its share of the step's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1140,6 +1156,11 @@ def profile_train(out, arch="olmo-1b", B=OLMO_TRAIN["B"], S=OLMO_TRAIN["S"],
         f"device time ({100 * busy / (wall * 1e3):.1f} % busy)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:90]}")
+    for label, frag in shares:
+        part = [e for e in kernels if frag in e.key]
+        ms = sum(e.self_device_time_total for e in part) / 1e3
+        log(f"  {label}: {ms:.1f} ms of {busy:.1f} ms device time ({100 * ms / busy:.1f} %), "
+            f"{sum(e.count for e in part)} calls of {len(part)} kernels")
     return dict(wall_ms=wall * 1e3, busy_ms=busy)
 
 
@@ -1199,7 +1220,7 @@ def phase_ssm_train_full():
         log(f"  step times {[round(v, 4) for v in out['step_s']]} s; steady step "
             f"{steady:.4f} s -> {B * S / steady:.1f} training tokens/s; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {launches}")
-        profile_train(out, arch, B, S, steps)
+        profile_train(out, arch, B, S, steps, shares=(("the scan's backward", "ssd_bwd"),))
         if result is None:
             result = launches
         del out
@@ -1382,7 +1403,7 @@ def phase_ssd_bwd_kernels():
     the bf16 training-shape check)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import BWD_CHUNK, ssd_scan_bwd
+    from repro_torch.kernels.ssd_scan import BWD_CHUNK, bwd_scratch_bytes, ssd_scan_bwd
 
     m, z, t = MAMBA, ZAMBA, MAMBA_TRAIN
     log("== phase 8f: the SSD scan's backward kernel against autograd through the "
@@ -1394,6 +1415,8 @@ def phase_ssd_bwd_kernels():
         ("chunks", 2, 256, 6, m["P"], m["N"], True, True),
         ("T100", 2, 100, m["H"], m["P"], m["N"], True, False),
         ("T257", 2, 257, 8, z["P"], z["N"], False, True),
+        ("chunk-1", 2, BWD_CHUNK - 1, 8, m["P"], m["N"], True, True),
+        ("chunk+1", 2, BWD_CHUNK + 1, 8, m["P"], m["N"], False, False),
         ("mamba2-train", t["B"], t["T"], m["H"], m["P"], m["N"], False, False),
         ("zamba2-train", t["B"], t["T"], z["H"], z["P"], z["N"], False, False),
     ]
@@ -1429,18 +1452,29 @@ def phase_ssd_bwd_kernels():
         x, dt, A, Bm, Cm, _ = ssd_inputs(B, T, H, P, N, torch.bfloat16, gen, state=False)
         sets.append((x, dt, A, Bm, Cm,
                      torch.randn(B, T, H, P, generator=gen, device="cuda").bfloat16()))
-    kern = time_ms(lambda *a: ssd_scan_bwd(*a), sets)
+    passes = {}
+    kern = time_ms(lambda *a: ssd_scan_bwd(*a), sets, by_kernel=passes)
     plain = time_ms(lambda *a: ref.ssd_scan_bwd(*a, chunk=64), sets, iters=2)
     nbytes = (3 * B * T * H * P * 2          # x, dy read, dx written (bf16)
               + 2 * B * T * H * 4 + 2 * H * 4  # dt, ddt, A, dA (f32)
               + 4 * B * T * N * 2)           # B, C read, dB, dC written (bf16)
-    # the chunked algorithm at the kernel's chunk: the state pass's two
-    # updates (2 P N a position), the chunk pass's g·B, dy·h_s and x·G_e
-    # (3 P N) and its four 32-wide products (dy·xᵀ, Mᵀ·dy, W·B, Wᵀ·C)
-    flops = 2 * B * H * T * (5 * P * N + 2 * BWD_CHUNK * (P + N))
+    # the least work, the chunked algorithm at 32 positions (a longer chunk
+    # only adds products): the state pass's two updates (2 P N a position),
+    # the chunk pass's g·B, dy·h_s and x·G_e (3 P N) and its four 32-wide
+    # products (dy·xᵀ, Mᵀ·dy, W·B, Wᵀ·C); the bytes bound the call
+    flops = 2 * B * H * T * (5 * P * N + 2 * 32 * (P + N))
+    scratch = bwd_scratch_bytes(B, T, H, P, N, torch.bfloat16)
+    floor = nbytes + 2 * scratch       # the design's own: its scratch written and read once
+    hbm = peaks()[0]
     log(f"  ssd_scan_bwd at B{B} T{T} H{H} P{P} N{N} bf16: kernel {kern:.4f} ms, plain "
         f"{plain:.4f} ms; {nbytes} bytes, {flops} flops "
         f"({flops / kern / 1e9:.1f} TFLOP/s)")
+    for name in sorted(passes, key=lambda k: -passes[k]):
+        log(f"    {passes[name]:.4f} ms a call  {name[:90]}")
+    log(f"  scratch {scratch} bytes a call (chunk states and end-state gradients, bf16, "
+        f"chunks of {BWD_CHUNK}); the design's byte floor {floor} bytes = "
+        f"{floor / hbm * 1e3:.4f} ms at {hbm / 1e12:.2f} TB/s, beside the function's "
+        f"{nbytes / hbm * 1e3:.4f} ms")
     del sets
     torch.cuda.empty_cache()
     return dict(ms=kern, plain_ms=plain, library_ms=None, bytes=nbytes, flops=flops), err

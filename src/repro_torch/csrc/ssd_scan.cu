@@ -303,15 +303,6 @@ __device__ __forceinline__ float warp_incl_scan(float v) {
   return v;
 }
 
-// (a, b) as a bf16 pair hi and the pair of what it leaves out, lo:
-// a = hi.x + lo.x to ~2^-17 relative
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  const float2 f = __bfloat1622float2(h);
-  lo = pack_bf16(a - f.x, b - f.y);
-}
-
 template <int P, int N>
 __global__ void __launch_bounds__(MAX_WARPS * 32, 1) ssd_mma_kernel(
     const bf16* __restrict__ x, long long sxb, long long sxt, long long sxh,   // x[b,t,h,p]

@@ -1,8 +1,9 @@
-// Tensor-core building blocks shared by the bf16 attention kernels
-// (flash_attention.cu, prefill_attention.cu): cp.async copies into shared
+// Tensor-core building blocks shared by the bf16 kernels (attention,
+// decode, the SSD scan and its backward): cp.async copies into shared
 // memory, ldmatrix, mma.sync m16n8k16 with bf16 operands and f32
-// accumulators, and the register repacking that keeps a score tile's
-// softmax probabilities out of shared memory.
+// accumulators, the register repacking that keeps a score tile's softmax
+// probabilities out of shared memory, and the bf16 hi + lo split of an f32
+// operand.
 //
 // A warp's 16 x 8 accumulator tile gives lane l rows g = l / 4 and g + 8,
 // columns 2 (l % 4) and + 1; the same lane's A fragment of a 16 x 16
@@ -81,6 +82,15 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as a bf16 pair hi and the pair of what it leaves out, lo:
+// a = hi.x + lo.x to ~2^-17 relative (the scan kernels' f32 operands)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  const float2 f = __bfloat1622float2(h);
+  lo = pack_bf16(a - f.x, b - f.y);
 }
 
 // rows [r0, r0 + R) of an (n_rows, D) bf16 matrix into R padded rows at

@@ -7,7 +7,8 @@ the final one, so it carries serving prefill as well.  The plain version
 of the same function is :func:`repro_torch.kernels.ref.ssd_scan`.  Its
 backward (:func:`ssd_scan_bwd`, ``csrc/ssd_scan_bwd.cu``) stands where the
 reference's ``custom_vjp`` recomputes through its oracle; its plain
-version is :func:`repro_torch.kernels.ref.ssd_scan_bwd`.
+version is :func:`repro_torch.kernels.ref.ssd_scan_bwd`.  In bf16 it too
+runs its products on the tensor cores, in chunks of :data:`BWD_CHUNK`.
 
 What bounds it: bytes at the serving shape, once its products run on the
 tensor cores (as f32 FMAs they would take ~5x longer than the bytes).  In
@@ -86,22 +87,55 @@ def smem_bytes(P: int, N: int, hb: int) -> int:
     return 2 * stage + hb * 2 * q * (2 * q + 16) + q * (q + 8) * 4
 
 
-#: positions a chunk of the backward kernels
-BWD_CHUNK = 32
+#: positions a chunk of the backward's bf16 kernels (the tensor-core route)
+BWD_CHUNK = 64
+#: positions a chunk of its f32 kernels (f32 FMAs, one lane a position)
+BWD_CHUNK_F32 = 32
+
+
+def bwd_chunk(dtype: torch.dtype) -> int:
+    """Positions a chunk of the backward kernels for ``dtype``."""
+    return BWD_CHUNK if dtype == torch.bfloat16 else BWD_CHUNK_F32
+
+
+def bwd_scratch_bytes(B: int, T: int, H: int, P: int, N: int, dtype: torch.dtype) -> int:
+    """Bytes of the backward's scratch, the chunk start states and end-state
+    gradients (B, H, ceil(T / chunk), P, N) each: bf16 in the tensor-core
+    route, f32 in the FMA route.  Written once and read once a call."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return 2 * B * H * -(-T // bwd_chunk(dtype)) * P * N * itemsize
 
 
 def smem_bytes_bwd(P: int, N: int, kernel: int) -> int:
-    """Dynamic shared memory of the backward's state pass (``kernel`` 0:
-    the transposed x·dt or dy rows, B or C rows, the state, two decay
-    vectors) or of its chunk pass (1: B, C, x and dy rows, h_s and G_e,
-    four 32 x 32 tiles, four vectors, the per-row partials of dy·h_s C,
-    x·g B and x·G_e B, and one float a warp), all f32; rows padded by 4
-    floats (``StateSmem`` / ``ChunkSmem`` in the source)."""
-    q, qs, ns, ps = BWD_CHUNK, BWD_CHUNK + 4, N + 4, P + 4
-    if kernel == 0:
-        return 4 * (P * qs + q * ns + P * ns + 2 * q)
-    return 4 * (2 * q * ns + 2 * q * ps + 2 * P * ns + 4 * q * qs + 4 * q
-                + q * (N // 4) + 2 * q * (P // 32) + 256 // 32)
+    """Dynamic shared memory of the backward's kernels (``StateSmem``,
+    ``ChunkSmem``, ``StateMma``, ``ChunkMma`` in the source):
+
+    * 0, the f32 state pass: the transposed x·dt or dy rows, B or C rows,
+      the state, two decay vectors; 1, the f32 chunk pass: B, C, x and dy
+      rows, h_s and G_e, four 32 x 32 tiles, four vectors, the per-row
+      partials of dy·h_s C, x·g B and x·G_e B, one float a warp; all f32,
+      rows padded by 4 floats;
+    * 2, the bf16 state pass: three stages of a 64-position chunk's x or
+      dy rows, B or C rows and dt, then each warp's 16 staged rows of its
+      slice of the state; 3, the bf16 chunk pass: B and C rows, two stages
+      of a head's x and dy rows, h_s, G_e and dt, the three 64 x 64 tiles
+      M, W, W·dt, two sets of 13 x 64 + 16 per-position floats, and each
+      of its 8 warps' 16 staged rows of dx (P / 2 wide); bf16 rows padded
+      by 16 bytes.
+    """
+    if kernel in (0, 1):
+        q, qs, ns, ps = BWD_CHUNK_F32, BWD_CHUNK_F32 + 4, N + 4, P + 4
+        if kernel == 0:
+            return 4 * (P * qs + q * ns + P * ns + 2 * q)
+        return 4 * (2 * q * ns + 2 * q * ps + 2 * P * ns + 4 * q * qs + 4 * q
+                    + q * (N // 4) + 2 * q * (P // 32) + 256 // 32)
+    q, rn, rp, rq = BWD_CHUNK, 2 * N + 16, 2 * P + 16, 2 * BWD_CHUNK + 16
+    if kernel == 2:
+        rows, cols = P // 16, min(8 // (P // 16), N // 16)   # warps down and across
+        return 3 * (q * rp + q * rn + 4 * q) + rows * cols * 16 * (2 * (N // cols) + 16)
+    stage = 2 * q * rp + 2 * P * rn + 4 * q
+    return (2 * q * rn + 2 * stage + 3 * q * rq + 2 * 4 * (13 * q + 16)
+            + 8 * 16 * (P + 16))
 
 
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
@@ -245,12 +279,18 @@ def ssd_scan_bwd(
     and dC in x's dtype, ddt, dA and d_init_state in float32, each shaped
     like its input (``d_init_state`` is None without ``init_state``).  The
     inputs may be the strided views the forward takes (last dim
-    contiguous); ``chunk`` is accepted for the reference's signature and
-    not used (the kernels walk chunks of :data:`BWD_CHUNK` positions).
+    contiguous; in bf16 a view whose rows do not start 16-byte aligned is
+    copied first); ``chunk`` is accepted for the reference's signature and
+    not used (the kernels walk chunks of :func:`bwd_chunk` positions).
 
-    Two kernels: the first writes every chunk's start state and end-state
-    gradient into scratch of (B, H, ceil(T / 32), P, N) float32 each, the
-    second every chunk's gradients, summing dB and dC over the heads in
+    Two kernels.  A state pass writes every chunk's start state and
+    end-state gradient into scratch of (B, H, ceil(T / chunk), P, N) each:
+    in bf16 the forward and backward walks run as separate blocks on the
+    tensor cores, chunks of :data:`BWD_CHUNK` = 64, the scratch rounded to
+    bf16 (``tests/test_torch_ssd_bwd_rounding.py`` emulates which f32
+    operands take one rounding); in f32 one block walks both, chunks of
+    32, f32 scratch.  Then a chunk pass, one block per (chunk, row),
+    writes every head's dx and ddt and sums dB and dC over the heads in
     the block.  dA comes out as one partial a (row, chunk, head), summed
     here with ``torch.sum``.
     """
@@ -260,16 +300,20 @@ def ssd_scan_bwd(
                          f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
     if dy.stride(3) != 1:
         dy = dy.contiguous()
+    if x.dtype == torch.bfloat16:
+        x, Bmat, Cmat, dy = (_aligned_rows(t) for t in (x, Bmat, Cmat, dy))
     shape = (Bsz, H, P, N)
     if init_state is not None:
         _check_state("init_state", init_state, shape, x.device)
     if d_state_out is not None:
         _check_state("d_state_out", d_state_out, shape, x.device)
 
-    nc = -(-T // BWD_CHUNK)
+    nc = -(-T // bwd_chunk(x.dtype))
     f32 = dict(dtype=torch.float32, device=x.device)
-    S = torch.empty((Bsz, H, nc, P, N), **f32)
-    G = torch.empty((Bsz, H, nc, P, N), **f32)
+    scratch = dict(dtype=torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32,
+                   device=x.device)
+    S = torch.empty((Bsz, H, nc, P, N), **scratch)
+    G = torch.empty((Bsz, H, nc, P, N), **scratch)
     dx = torch.empty((Bsz, T, H, P), dtype=x.dtype, device=x.device)
     ddt = torch.empty((Bsz, T, H), **f32)
     dB = torch.empty((Bsz, T, N), dtype=x.dtype, device=x.device)

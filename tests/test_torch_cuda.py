@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_prefill,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+from repro_torch.kernels.ssd_scan import BWD_CHUNK, ssd_scan, ssd_scan_bwd
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.sharding import tree_leaves, tree_map
 
@@ -835,6 +835,10 @@ def _ssd_bwd_matches_plain(x, dt, A, Bm, Cm, h0, dy, dhT, dtype):
     (2, 16, 4, 32, 16, False),      # the smoke P, N, half a chunk
     (2, 257, 3, 32, 32, False),     # one past a chunk
     (3, 1, 2, 64, 128, True),       # one position
+    (2, 1, 3, 32, 16, False),       # one position, no state
+    (2, BWD_CHUNK - 1, 4, 64, 128, True),    # one short of the bf16 chunk
+    (2, BWD_CHUNK + 1, 4, 64, 128, False),   # one past it
+    (2, 257, 6, 64, 64, True),      # zamba2's N, four chunks and one position
 ])
 def test_ssd_bwd_kernel_matches_plain(B, T, H, P, N, state, dtype):
     """dx, ddt, dA, dB, dC (and with a state the initial state's gradient,
@@ -847,17 +851,23 @@ def test_ssd_bwd_kernel_matches_plain(B, T, H, P, N, state, dtype):
 
 @requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zero", ["tail", "row"])
 @pytest.mark.parametrize("H,P,N", [(48, 64, 128), (64, 64, 64)])
-def test_ssd_bwd_kernel_training_shapes(H, P, N, dtype):
+def test_ssd_bwd_kernel_training_shapes(H, P, N, zero, dtype):
     """mamba2-780m's (H 48, P 64, N 128) and zamba2-1.2b's (H 64, P 64,
     N 64) widths at batch 2 x 512 positions (chip_smoke.py phase 8f runs
-    4 x 2048); rows whose dt is 0 past a length get dx = 0 there."""
+    4 x 2048).  A row whose dt is 0 past a length ("tail") gets dx = 0
+    there; a row whose dt is 0 throughout ("row") gets dx = 0 and dB = 0,
+    exactly."""
     B, T = 2, 512
     x, dt, A, Bm, Cm, _ = _ssd_inputs(B, T, H, P, N, dtype, seed=H, state=False)
-    dt[1, 300:] = 0.0
+    start = 300 if zero == "tail" else 0
+    dt[1, start:] = 0.0
     dy = _randn(B, T, H, P, dtype=dtype, seed=H + 1)
-    dx = _ssd_bwd_matches_plain(x, dt, A, Bm, Cm, None, dy, None, dtype)[0]
-    assert not dx[1, 300:].any()
+    got = _ssd_bwd_matches_plain(x, dt, A, Bm, Cm, None, dy, None, dtype)
+    assert not got[0][1, start:].any()
+    if zero == "row":
+        assert not got[3][1].any()
 
 
 @requires_cuda
@@ -911,7 +921,8 @@ def test_ssd_scan_function_under_checkpoint(dtype):
 
 @requires_cuda
 def test_ssd_bwd_smem_bytes_match_the_kernels():
-    """The Python mirror of both backward kernels' shared memory."""
+    """The Python mirror of the four backward kernels' shared memory (f32
+    and bf16, state and chunk pass)."""
     import ctypes
 
     from repro_torch.kernels import _build
@@ -921,7 +932,7 @@ def test_ssd_bwd_smem_bytes_match_the_kernels():
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
     for P in scan.SUPPORTED_P:
         for N in scan.SUPPORTED_N:
-            for kernel in (0, 1):
+            for kernel in (0, 1, 2, 3):
                 assert fn(P, N, kernel) == scan.smem_bytes_bwd(P, N, kernel)
 
 
