@@ -112,7 +112,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    pinned host memory, against its plain version in bf16 and f32 at the
    yi-6b serving shape (decode and prefill row sets, ragged, ring wrap,
    rows that write nothing), into pinned host and device memory, pageable
-   memory refused; its time at the decode shape beside its bound;
+   memory refused; its time at the decode shape beside its bound and the
+   launch floor (an empty kernel on the same grid, one ``cudaMemcpyAsync``
+   of the same 16 KB into pinned memory), its time and GB/s at the
+   prefill shape;
    (b) the paper's Fig. 17: full-width, full-depth yi-6b in bf16 serving
    phase 4's first 8 prompts (16 new tokens each) through the CUDA graphs
    under ``hbm_resident``, ``kv_host``, ``weights_stream`` and
@@ -121,7 +124,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    per policy the tok/s, the runtime's step EWMA, the H2D and D2H bytes of
    one decode and one prefill replay from the profiler's memcpy records
    against the bytes the streamed windows hold, the write-back's bytes,
-   the kernels a replay launches, and the planner's step on the spec
+   its kernels (one a layer), their device time and stream against the
+   compute stream's (also for one eager ``kv_host`` decode step), a
+   SHA-256 of the tokens, the kernels a replay launches, and the
+   planner's step on the spec
    sheet and on 9d's calibration; (c) full-depth olmo-1b in bf16, 3 AdamW
    steps under ``opt_host`` and ``hbm_resident`` from the same weights and
    batches (losses and grad norms compared, pinned bytes, step times);
@@ -136,6 +142,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import pathlib
@@ -2090,17 +2097,31 @@ def phase_kv_stream_kernel():
         plain_ms=wall_ms(lambda: ref.kv_write_back(src["k"], src["v"], dst["k"], dst["v"],
                                                    p, c)),
         library_ms=None, bytes=2 * row_bytes, pcie_bytes=row_bytes, flops=0)
-    # the prefill shape, for the record
+    # the launch floor beside it: a kernel that does nothing on the same
+    # grid, and one cudaMemcpyAsync of the same bytes from the card into
+    # pinned host memory
+    blocks = kv_stream.write_back_blocks(S * row_bytes // kv_stream.CHUNK_BYTES,
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+    staged = torch.zeros(row_bytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.zeros(row_bytes, dtype=torch.uint8).pin_memory()
+    rec["empty_ms"] = study_ms(lambda: kv_stream.empty_launch(blocks), repeats=20)
+    rec["memcpy_ms"] = study_ms(
+        lambda: kv_stream.copy_async(pinned, staged, torch.cuda.current_stream()), repeats=20)
+    # the prefill shape: 8 x 256 positions at most a row
     _, pos, n = KV_CASES[1]
     pp = torch.tensor(pos, dtype=torch.int32, device="cuda")
     pc = torch.tensor(n, dtype=torch.int32, device="cuda")
-    pre_ms = study_ms(lambda: kv_stream.kv_write_back(src["k"], src["v"], dst["k"], dst["v"],
-                                                      pp, pc), repeats=5)
-    pre_bytes = 2 * sum(min(x, S) for x in n) * H * D * 2
-    log(f"  decode shape: {rec['ms']:.4f} ms a launch for {row_bytes} bytes "
-        f"(plain version {rec['plain_ms']:.4f} ms wall: gather, copy to the host, scatter "
-        f"there); prefill shape: {pre_ms:.4f} ms for {pre_bytes} bytes = "
-        f"{pre_bytes / pre_ms / 1e6:.2f} GB/s written over PCIe")
+    rec["prefill_ms"] = study_ms(lambda: kv_stream.kv_write_back(
+        src["k"], src["v"], dst["k"], dst["v"], pp, pc), repeats=5)
+    rec["prefill_bytes"] = 2 * sum(min(x, S) for x in n) * H * D * 2
+    rec["prefill_gbps"] = rec["prefill_bytes"] / rec["prefill_ms"] / 1e6
+    log(f"  decode shape: {rec['ms']:.4f} ms a launch for {row_bytes} bytes, {blocks} "
+        f"blocks (plain version {rec['plain_ms']:.4f} ms wall: gather, copy to the host, "
+        f"scatter there); launch floor: an empty kernel {rec['empty_ms']:.4f} ms, one "
+        f"cudaMemcpyAsync of the {row_bytes} bytes into pinned memory "
+        f"{rec['memcpy_ms']:.4f} ms")
+    log(f"  prefill shape: {rec['prefill_ms']:.4f} ms for {rec['prefill_bytes']} bytes = "
+        f"{rec['prefill_gbps']:.2f} GB/s written over PCIe")
     return rec, err
 
 
@@ -2165,10 +2186,42 @@ def replay_traffic(label, fn):
     for e in copies:
         key = (e.get("name", "?")[:22], int(e.get("args", {}).get("bytes", 0)))
         sizes[key] = sizes.get(key, 0) + 1
+    wb = [e for e in kernels if "write_back_kernel" in e.get("name", "")]
+    rest = [e for e in kernels if "write_back_kernel" not in e.get("name", "")]
+
+    def stream(e):
+        return e.get("args", {}).get("stream", e.get("tid"))
+
+    busy = []                 # the other kernels' union of intervals
+    for e in sorted(rest, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e.get("dur", 0)
+        if busy and lo <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], hi)
+        else:
+            busy.append([lo, hi])
+
+    def beside(a):            # microseconds of a that other kernels ran through
+        lo, hi = a["ts"], a["ts"] + a.get("dur", 0)
+        return sum(max(0, min(hi, b) - max(lo, a_)) for a_, b in busy)
+
     return dict(h2d=nbytes("HtoD"), d2h=nbytes("DtoH"), kernels=len(kernels), sizes=sizes,
-                write_backs=sum("write_back_kernel" in e.get("name", "") for e in kernels),
+                write_backs=len(wb), write_back_ms=sum(e.get("dur", 0) for e in wb) / 1e3,
+                write_back_streams=sorted({stream(e) for e in wb}, key=str),
+                compute_stream=statistics.mode(stream(e) for e in rest) if rest else None,
+                write_back_beside_ms=sum(beside(e) for e in wb) / 1e3,
                 copies=len(copies), device_ms=sum(e.get("dur", 0) for e in kernels) / 1e3,
                 copy_ms=sum(e.get("dur", 0) for e in copies) / 1e3, wall_ms=wall * 1e3)
+
+
+def log_write_backs(label, tr):
+    """Log the write-back kernels of one traced call: count, summed device
+    time, their stream against the compute stream (the stream most of
+    the other kernels ran on), and how much of their time other kernels
+    ran through."""
+    log(f"  {label}: write-back {tr['write_backs']} kernels, {tr['write_back_ms']:.4f} ms "
+        f"of device time, on stream(s) {tr['write_back_streams']} (compute stream "
+        f"{tr['compute_stream']}); {tr['write_back_beside_ms']:.4f} ms of it beside "
+        "other kernels")
 
 
 def planner_steps(sizing, policy, shape):
@@ -2257,13 +2310,27 @@ def phase_placed_serving():
                           f"expected the (2, {B}) fetch only")
         wb_dec = L * 2 * B * H * D * 2 if stream_kv else 0
         wb_pre = L * 2 * B * y["chunk"] * H * D * 2 if stream_kv else 0
+        for label, tr in (("decode", dec), ("prefill", pre)):
+            if tr["write_backs"] != (L if stream_kv else 0):
+                failed.append(f"{name} {label}: {tr['write_backs']} write-back kernels in "
+                              f"the trace, expected {L if stream_kv else 0}")
+            if stream_kv:
+                log_write_backs(f"{name} {label} replay", tr)
+        # with the weights resident, a prefill dispatch's write-backs run
+        # beside the layers, on a stream of their own
+        if (stream_kv and eng.feed.weights is None
+                and pre["compute_stream"] in pre["write_back_streams"]):
+            failed.append(f"{name} prefill: write-back kernels on the compute stream "
+                          f"{pre['compute_stream']}, expected a stream of their own")
         preds = planner_steps(bundle, eng.policy, shape)
         row = dict(policy=name, decode_tps=tp["decode_tps"], prefill_tps=tp["prefill_tps"],
                    step_ms=ewma * 1e3, replay_ms=dec["wall_ms"],
                    spec_ms=preds["spec"].step_s * 1e3, cal_ms=preds["calibrated"].step_s * 1e3,
                    limiting=preds["calibrated"].limiting, h2d=dec["h2d"], d2h=dec["d2h"],
                    writeback=wb_dec, pre_h2d=pre["h2d"], pre_writeback=wb_pre,
-                   kernels=dec["kernels"], pre_kernels=pre["kernels"])
+                   kernels=dec["kernels"], pre_kernels=pre["kernels"],
+                   wb_ms=dec["write_back_ms"], pre_wb_ms=pre["write_back_ms"],
+                   pre_replay_ms=pre["wall_ms"])
         table.append(row)
         log(f"  {name}: decode {tp['decode_tps']:.1f} tok/s, prefill {tp['prefill_tps']:.1f} "
             f"tok/s, step EWMA {ewma * 1e3:.2f} ms (Runtime.measured_step_s); planner "
@@ -2283,6 +2350,8 @@ def phase_placed_serving():
             if [r.out_tokens for r in ereqs] != tokens[name][:2]:
                 raise AssertionError("kv_host eager tokens differ from its graphs'")
             log("  kv_host eager (2 requests): greedy tokens identical to its graphs'")
+            log_write_backs("kv_host eager decode step",
+                            replay_traffic("kv_host eager decode", eager.engine.decode))
             del eager, ereqs
         del server, reqs, eng
         gc.collect()
@@ -2295,8 +2364,9 @@ def phase_placed_serving():
         failed.append(f"greedy tokens differ from hbm_resident's: {diff}")
     if failed:
         raise AssertionError("phase 10b:\n" + "\n".join(failed))
+    digest = hashlib.sha256(json.dumps(first).encode()).hexdigest()
     log(f"  greedy tokens identical across the {len(tokens)} placements for all "
-        f"{len(first)} requests")
+        f"{len(first)} requests (SHA-256 of every request's tokens {digest})")
     log("  Fig. 17 on the card (yi-6b, 8 slots x 2048, bf16): policy | decode step EWMA "
         "ms | planner spec / calibrated ms (limit) | decode H2D / D2H bytes a step | "
         "write-back bytes | decode tok/s | prefill tok/s")
@@ -2304,6 +2374,9 @@ def phase_placed_serving():
         log(f"    {r['policy']} | {r['step_ms']:.2f} | {r['spec_ms']:.3f} / {r['cal_ms']:.3f} "
             f"({r['limiting']}) | {r['h2d']} / {r['d2h']} | {r['writeback']} | "
             f"{r['decode_tps']:.1f} | {r['prefill_tps']:.1f}")
+    log("  write-back device ms in one decode / one prefill replay, prefill replay wall "
+        "ms: " + "; ".join(f"{r['policy']} {r['wb_ms']:.4f} / {r['pre_wb_ms']:.4f}, "
+                           f"{r['pre_replay_ms']:.2f}" for r in table))
     del params
     gc.collect()
     torch.cuda.empty_cache()

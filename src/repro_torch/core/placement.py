@@ -45,6 +45,7 @@ mesh, so :func:`donor_axes_for`, :func:`donor_allow_flags` and
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import enum
 import json
@@ -676,9 +677,12 @@ class HostStream:
     a slot waits on an event recorded on the caller's stream when it was
     issued, which is after the last read of that slot's previous window
     (window ``i - 1`` is consumed before window ``i`` is asked for);
-    :meth:`window` makes the caller's stream wait for its window's copy;
-    :meth:`finish` joins the copy stream back into the caller's, so a
-    step that streams can be captured in a CUDA graph (the copies go
+    :meth:`window` makes the caller's stream wait for its window's copy.
+    Work queued inside :meth:`writing_back` (the KV write-back kernel of a
+    layer) runs on a write-back stream of its own, after the caller's
+    work so far, and the copy that refills that window's slot waits for
+    it too.  :meth:`finish` joins both streams back into the caller's, so
+    a step that streams can be captured in a CUDA graph (the copies go
     through ``cudaMemcpyAsync`` on pinned memory).  :meth:`write_back`
     copies a window's slot back into host memory (the updated optimizer
     state).  On the CPU the copies are plain synchronous copies between
@@ -719,6 +723,13 @@ class HostStream:
             self._copy = kv_stream.copy_async
             self._copy_stream = torch.cuda.Stream(self.device)
             self._ready = [torch.cuda.Event() for _ in range(self.depth)]
+            self._wb_stream = torch.cuda.Stream(self.device)
+            #: per slot, the end of the write-back of the window it holds
+            self._read = [torch.cuda.Event() for _ in range(self.depth)]
+        #: per slot, whether this step queued a write-back that reads it
+        self._reading = [False] * self.depth
+        #: whether the write-back stream has work finish() has not joined
+        self._wb_pending = False
 
     @classmethod
     def stacked(cls, tree, n_windows: int, device, depth: int = 2) -> "HostStream":
@@ -753,8 +764,12 @@ class HostStream:
             for dst, src in zip(staged, self._leaves[j]):
                 dst.copy_(src)
             return
-        # the slot's previous window was consumed before this call
+        # the slot's previous window was consumed before this call, by the
+        # caller's stream and by its write-back
         self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
+        if self._reading[slot]:
+            self._copy_stream.wait_event(self._read[slot])
+            self._reading[slot] = False
         for dst, src in zip(staged, self._leaves[j]):
             self._copy(dst, src, self._copy_stream)
         self._ready[slot].record(self._copy_stream)
@@ -763,6 +778,7 @@ class HostStream:
         """Forget what is staged: the next :meth:`window` copies afresh
         (a step starts; its windows are read from host memory again)."""
         self._held.clear()
+        self._reading = [False] * self.depth   # the last step's finish joined them
 
     def window(self, i: int):
         """Window ``i`` in device memory; the copies of the next ``depth -
@@ -780,6 +796,23 @@ class HostStream:
             torch.cuda.current_stream(self.device).wait_event(self._ready[slot])
         return self._view(slot, i)
 
+    @contextlib.contextmanager
+    def writing_back(self, i: int):
+        """A context whose work (it reads window ``i``'s slot) runs on the
+        write-back stream, after the caller's stream's work so far; the
+        copy that next refills the slot waits for it, and :meth:`finish`
+        joins it.  On the CPU the work runs in place."""
+        if not self._cuda:
+            yield
+            return
+        slot = self._held[i]
+        self._wb_stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._wb_stream):
+            yield
+        self._read[slot].record(self._wb_stream)
+        self._reading[slot] = True
+        self._wb_pending = True
+
     def write_back(self, i: int) -> None:
         """Copy window ``i``'s slot, as the caller's stream has left it,
         back into its host tensors."""
@@ -794,9 +827,14 @@ class HostStream:
             self._copy(dst, src, self._copy_stream)
 
     def finish(self) -> None:
-        """Join the copy stream back into the caller's stream."""
+        """Join the copy stream, and the write-back stream when this step
+        used it, back into the caller's stream."""
         if self._cuda:
-            torch.cuda.current_stream(self.device).wait_stream(self._copy_stream)
+            caller = torch.cuda.current_stream(self.device)
+            caller.wait_stream(self._copy_stream)
+            if self._wb_pending:
+                caller.wait_stream(self._wb_stream)
+                self._wb_pending = False
 
     def buffers(self) -> list[torch.Tensor]:
         """The device staging slots (fixed for the stream's life)."""

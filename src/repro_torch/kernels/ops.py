@@ -212,7 +212,7 @@ def ssd_scan(
 
 def ssd_decode_step(x, dt, A, Bvec, Cvec, state):
     """One SSM recurrence step, (y, new_state).  Plain PyTorch on every
-    device: the reference has no Pallas kernel for it (ROADMAP B4 lists a
+    device: the reference has no Pallas kernel for it (ROADMAP B4c lists a
     decode-step kernel as later work)."""
     return ref.ssd_decode_step(x, dt, A, Bvec, Cvec, state)
 

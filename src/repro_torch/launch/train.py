@@ -10,7 +10,7 @@ asking for CUDA without a card raises.
 train phase; otherwise any ``parse_policy`` spelling — ``opt_host``
 streams the optimizer state from pinned host memory), ``--calibration``
 prices the pick on a measured hardware model.  Left out until the mesh is
-ported (ROADMAP A9/A8/A10): the reference's ``--mesh``, ``--donor``,
+ported (ROADMAP A10/A8): the reference's ``--mesh``, ``--donor``,
 ``--remote-donor`` and ``--compress-pod-grads``.
 """
 

@@ -40,7 +40,8 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   staged into device slots window by window (``HostStream``, the copies
   on a copy stream inside the captured graphs), and each layer's new
   cache rows go back to host memory through the hand-written write-back
-  kernel (``kernels/kv_stream.py``).  Under ``hbm_resident`` the steps
+  kernel (``kernels/kv_stream.py``; in a prefill dispatch on a write-back
+  stream of its own).  Under ``hbm_resident`` the steps
   take views of the resident trees and launch and copy exactly what they
   did before placement was realized.  A RESIDENT host placement and any
   host placement of a model with ``M``/``S`` layers raise
@@ -52,6 +53,7 @@ Preemption, replan/evacuate and fault injection are not ported yet
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 
@@ -96,7 +98,17 @@ class PlacedFeed(tf_mod.ResidentFeed):
     A resident role is fed as views, as :class:`ResidentFeed` does.  After
     a layer, the rows the step wrote into a staged cache window go back to
     the host cache through :func:`~repro_torch.kernels.kv_stream.
-    kv_write_back`, one launch a layer.  Every buffer is allocated here,
+    kv_write_back`, one launch a layer.  Where the layers bound the step
+    (a prefill dispatch, up to 4 MB a layer at yi-6b's serving shape, with
+    resident weights) it runs on the cache stream's write-back stream
+    (:meth:`HostStream.writing_back`), beside the next layer's kernels and
+    off the copy stream; the step's tail joins it
+    (:meth:`HostStream.finish`), so ``pos`` and ``n`` are read before the
+    step advances them.  Where the window copies bound it (a decode step,
+    or any step that streams the weights) it runs in line on the compute
+    stream, which waits for the next window there anyway: forking the
+    compute stream once a layer made a captured step's window copies
+    slower on the card (``PERF.md`` §6).  Every buffer is allocated here,
     once, so the steps can be captured.
     """
 
@@ -114,6 +126,7 @@ class PlacedFeed(tf_mod.ResidentFeed):
                    if stream_kv else None)
         self._consts: dict[int, torch.Tensor] = {}
         self._pos = self._n = None
+        self._beside = False
 
     def _const(self, value: int) -> torch.Tensor:
         if value not in self._consts:
@@ -138,6 +151,9 @@ class PlacedFeed(tf_mod.ResidentFeed):
     def begin(self, pos, counts) -> None:
         self._pos = self._const(0) if pos is None else pos
         self._n = counts if torch.is_tensor(counts) else self._const(int(counts))
+        # the write-backs go beside the layers where those bound the step:
+        # more than one position a row (a prefill dispatch), resident weights
+        self._beside = self.weights is None and (torch.is_tensor(counts) or counts > 1)
         for st in self.streams().values():
             st.begin()
 
@@ -165,10 +181,12 @@ class PlacedFeed(tf_mod.ResidentFeed):
     def layer_done(self, stage: int, layer: int, cache) -> None:
         if self.kv is None:
             return
-        host = self.kv.windows[self._first[stage] + layer]
-        for key, staged in cache.items():
-            kv_write_back(staged["k"], staged["v"], host[key]["k"], host[key]["v"],
-                          self._pos, self._n)
+        g = self._first[stage] + layer
+        host = self.kv.windows[g]
+        with self.kv.writing_back(g) if self._beside else contextlib.nullcontext():
+            for key, staged in cache.items():
+                kv_write_back(staged["k"], staged["v"], host[key]["k"], host[key]["v"],
+                              self._pos, self._n)
 
 
 class Executor:

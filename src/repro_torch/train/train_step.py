@@ -14,7 +14,7 @@ to wrap it in.
 What the port leaves out, each raising ``NotImplementedError`` when asked
 for: sharding-rule overrides (``rules``), other FSDP axes or ZeRO stages
 than the defaults, and cross-pod gradient compression (they need a mesh,
-ROADMAP A9/A8); host placements of params, grads or activations in
+ROADMAP A10/A8); host placements of params, grads or activations in
 training (ROADMAP A9c).
 """
 
@@ -65,7 +65,7 @@ class TrainConfig:
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: sharding and gradient compression are "
-                "not ported yet (ROADMAP A9); the port trains on one device"
+                "not ported yet (ROADMAP A10/A8); the port trains on one device"
             )
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"remat {self.remat!r}")

@@ -1385,6 +1385,10 @@ def _write_back_case(B, H, S, D, pos, n, dtype, seed=0):
     (8, 4, 2048, 128, [0, 256, 1800, 1900, 5, 0, 2047, 30],
      [256, 0, 256, 200, 13, 0, 256, 1]),                                     # prefill, wrap
     (3, 1, 48, 16, [40, 3, 47], [20, 0, 100]),                               # n > S
+    (8, 8, 1024, 64, [0, 256, 900, 1000, 5, 0, 1023, 30],
+     [256, 256, 256, 200, 13, 0, 256, 1]),                                   # prefill, H 8, D 64
+    (4, 2, 64, 256, [60, 0, 33, 7], [9, 64, 0, 70]),                         # D 256
+    (8, 4, 2048, 128, [0, 7, 100, 2047, 1500, 64, 9, 2046], [0] * 8),        # nothing to write
 ])
 def test_kv_write_back_kernel_matches_plain_into_pinned_memory(B, H, S, D, pos, n, dtype):
     from repro_torch.kernels.kv_stream import kv_write_back
@@ -1396,6 +1400,11 @@ def test_kv_write_back_kernel_matches_plain_into_pinned_memory(B, H, S, D, pos, 
     torch.cuda.synchronize()
     assert kv_write_back.launches == before + 1
     assert torch.equal(dst["k"], want["k"]) and torch.equal(dst["v"], want["v"])
+    # a rerun (through the views resolved by the first) is bit-identical
+    first = {k: t.clone() for k, t in dst.items()}
+    kv_write_back(src_k, src_v, dst["k"], dst["v"], p, c)
+    torch.cuda.synchronize()
+    assert torch.equal(dst["k"], first["k"]) and torch.equal(dst["v"], first["v"])
     # into device memory the same
     dk, dv = want["k"].cuda(), want["v"].cuda()
     kv_write_back(src_k, src_v, dk, dv, p, c)
@@ -1405,7 +1414,7 @@ def test_kv_write_back_kernel_matches_plain_into_pinned_memory(B, H, S, D, pos, 
 
 @requires_cuda
 def test_kv_write_back_refuses_pageable_memory_and_bad_shapes():
-    from repro_torch.kernels.kv_stream import kv_write_back
+    from repro_torch.kernels.kv_stream import device_view, kv_write_back
 
     src = _randn(2, 1, 8, 16, dtype=torch.float32, seed=0)
     p = torch.zeros(2, dtype=torch.int32, device="cuda")
@@ -1416,6 +1425,8 @@ def test_kv_write_back_refuses_pageable_memory_and_bad_shapes():
         kv_write_back(src, src, src[:, :, :4].contiguous(), src, p, p)
     with pytest.raises(ValueError):
         kv_write_back(src, src, src.clone(), src.clone(), p.long(), p)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        device_view(pageable)
 
 
 @requires_cuda
@@ -1453,3 +1464,40 @@ def test_placed_graphs_replay_after_lengths_change_and_match_hbm(policy):
         tokens[pol] = [r.out_tokens for r in reqs]
         assert eng.counters["decode_replays"] == eng.counters["decode_steps"] > 0
     assert tokens[policy] == tokens["hbm_resident"]
+
+
+@requires_cuda
+def test_kv_host_graphs_write_back_the_same_cache_as_eager_and_hbm():
+    """kv_host through the graphs, its write-back on a stream of its own:
+    after prefills and decode steps over reused slots, the host cache holds
+    the same bytes as an eager kv_host server's and as hbm_resident's
+    device cache (a late or lost row shows there before it shows in the
+    tokens), and the tokens agree."""
+    from repro_torch.serve import ServeConfig, Server
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("yi-6b"), dtype="bfloat16"))
+    params = tb.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 500, n).astype(np.int32) for n in (40, 9, 50, 3, 25)]
+    runs = {}
+    for label, policy, eager in (("graphs", "kv_host", False), ("eager", "kv_host", True),
+                                 ("hbm", "hbm_resident", False)):
+        server = Server(tb, ServeConfig(batch_slots=3, max_len=64, prefill_chunk=8,
+                                        policy=policy), params, device="cuda", eager=eager)
+        reqs = [server.submit(p, max_new_tokens=8) for p in prompts]
+        server.run_until_done(max_steps=300)
+        torch.cuda.synchronize()
+        eng = server.engine
+        if label == "graphs":
+            assert eng.counters["decode_replays"] > 8 and eng.counters["prefill_replays"] > 5
+            assert eng.graph_launches["decode"]["kv_stream"] == tb.cfg.n_layers
+            assert eng.graph_launches["prefill"]["kv_stream"] == tb.cfg.n_layers
+        if policy == "kv_host":
+            assert all(t.is_pinned() for t in tree_leaves(eng.caches))
+        runs[label] = ([r.out_tokens for r in reqs],
+                       [t.cpu() for t in tree_leaves(eng.caches)])
+    for label in ("eager", "hbm"):
+        assert runs[label][0] == runs["graphs"][0], label
+        assert len(runs[label][1]) == len(runs["graphs"][1])
+        for i, (a, b) in enumerate(zip(runs[label][1], runs["graphs"][1])):
+            assert torch.equal(a, b), (label, i)

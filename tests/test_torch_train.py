@@ -319,7 +319,7 @@ def test_prefetcher_yields_the_stream_and_closes():
 def test_train_config_refuses_what_needs_a_mesh():
     for kw in (dict(rules={"batch": "data"}), dict(fsdp_axes=("pod", "data")),
                dict(zero_stage=1), dict(compress_pod_grads=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="A10"):
             make_train_step(None, TrainConfig(**kw))
 
 
