@@ -118,21 +118,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefill shape;
    (b) the paper's Fig. 17: full-width, full-depth yi-6b in bf16 serving
    phase 4's first 8 prompts (16 new tokens each) through the CUDA graphs
-   under ``hbm_resident``, ``kv_host``, ``weights_stream`` and
-   ``kv=host:stream,params=host:stream`` on the same weights (tokens
-   identical across them; ``kv_host`` also eagerly for 2 requests), with
-   per policy the tok/s, the runtime's step EWMA, the H2D and D2H bytes of
-   one decode and one prefill replay from the profiler's memcpy records
-   against the bytes the streamed windows hold, the write-back's bytes,
-   its kernels (one a layer), their device time and stream against the
-   compute stream's (also for one eager ``kv_host`` decode step), a
-   SHA-256 of the tokens, the kernels a replay launches, and the
-   planner's step on the spec
-   sheet and on 9d's calibration; (c) full-depth olmo-1b in bf16, 3 AdamW
-   steps under ``opt_host`` and ``hbm_resident`` from the same weights and
-   batches (losses and grad norms compared, pinned bytes, step times);
-   (d) ``Runtime.migrate`` of the yi-6b cache to pinned host memory and
-   back, value for value, timed beside ``price_copy``.
+   under ``hbm_resident``, ``kv_host``, ``weights_stream``,
+   ``kv=host:stream,params=host:stream`` and the RESIDENT ``kv=host``,
+   ``params=host`` and ``kv=host,params=host`` on the same weights (tokens
+   identical across them; a RESIDENT ``params`` row serves prompts 6-8
+   only, against the same requests' tokens; ``kv_host`` also eagerly for
+   2 requests), with per policy the tok/s, the runtime's step EWMA, the
+   H2D and D2H bytes of one decode and one prefill replay from the
+   profiler's memcpy records against the bytes the streamed windows hold
+   (none for a RESIDENT role, which the kernels read in place: those
+   bytes and their time at 9d's calibrated mapped-read rate are printed),
+   the write-back's bytes, its kernels (one a layer), their device time
+   and stream against the compute stream's (also for one eager
+   ``kv_host`` decode step), a SHA-256 of the tokens, the kernels a replay
+   launches, and the planner's step on the spec sheet and on 9d's
+   calibration; (c) full-depth olmo-1b in bf16, 3 AdamW steps under
+   ``hbm_resident``, ``opt_host`` and ``opt=host`` (RESIDENT: the update
+   reads and writes the master and moments in place) from the same
+   weights and batches (losses and grad norms compared, host bytes, step
+   times); (d) full-width, full-depth mamba2-780m in bf16, 8 slots x 2048,
+   8 requests through the graphs under ``hbm_resident``, ``kv_host``,
+   ``kv=host`` and ``weights_stream``, and zamba2-1.2b under
+   ``hbm_resident`` and ``kv_host``: tokens identical within each model,
+   launches counted, the H2D and D2H bytes of one decode and one prefill
+   replay against the state windows (an ``M`` layer's state goes back by
+   copy, an ``S`` layer's rows by the write-back kernel), step EWMA
+   beside the planner; (e) ``Runtime.migrate`` of the yi-6b cache to
+   pinned host memory and back, value for value, timed beside
+   ``price_copy``.
 
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
 name and power limit, and the device JSON.
@@ -1996,9 +2009,16 @@ def planner_against_measured(measured):
 # opt_host training, live migration
 # ---------------------------------------------------------------------------
 
-#: the placements phase 10b serves yi-6b under (the paper's Fig. 17 rows)
+#: the placements phase 10b serves yi-6b under (the paper's Fig. 17 rows,
+#: then the RESIDENT host placements, computed on in place over PCIe)
 PLACED_POLICIES = ("hbm_resident", "kv_host", "weights_stream",
-                   "kv=host:stream,params=host:stream")
+                   "kv=host:stream,params=host:stream", "kv=host", "params=host",
+                   "kv=host,params=host")
+#: the prompts (of phase 4's first 8) a policy whose steps read the
+#: weights in place serves: its prefill GEMMs read each weight tile once an
+#: M-tile over PCIe, seconds a dispatch, so the three short prompts (one
+#: dispatch), compared with the same requests under hbm_resident
+PARAMS_HOST_PROMPTS = slice(5, 8)
 #: decode and prefill row sets of the write-back checks at the yi-6b
 #: serving shape (8 rows, 2048 slots): ragged positions, ring wrap, rows
 #: that write nothing, a row longer than it can keep
@@ -2125,8 +2145,13 @@ def phase_kv_stream_kernel():
     return rec, err
 
 
-#: spin kernels a traced window runs before the call it measures
+#: spin kernels a traced window runs before the call it measures, at
+#: first: a retake after a window that lost them all runs 8 times as many
+#: (late in a long process the tracer dropped the first ~83 kernel records
+#: of every window on the H100)
 TRACE_LEAD_SPINS = 20
+#: profiler windows replay_traffic takes before it gives up
+TRACE_ATTEMPTS = 5
 
 
 def replay_traffic(label, fn):
@@ -2137,22 +2162,31 @@ def replay_traffic(label, fn):
 
     The tracer loses the first records of a window (on the card: the
     first two or three copies of a step, whatever precedes them in the
-    process).  So the window opens with ``TRACE_LEAD_SPINS`` spin kernels,
+    process; late in a long process, the first ~83 kernel records).  So
+    the window opens with ``TRACE_LEAD_SPINS`` spin kernels (8 times as
+    many on each retake after a window that kept fewer than two),
     then the call, then one more spin, and only the records between the
     last leading spin and the closing one are counted.  A window with
     fewer spins than that, or with no kernel between them (the tracer
     dropped the call's records: every call measured here launches
-    kernels), is taken again, up to three times."""
+    kernels), is taken again, up to TRACE_ATTEMPTS times, each retake
+    after an empty profiler window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     path = ROOT / "build" / "phase10-trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
-    for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_LEAD_SPINS):
+    lead = TRACE_LEAD_SPINS
+    for attempt in range(TRACE_ATTEMPTS):
+        if attempt:
+            with profile(activities=[ProfilerActivity.CUDA]):
                 torch.cuda._sleep(1000)
                 torch.cuda.synchronize()
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2173,9 +2207,13 @@ def replay_traffic(label, fn):
             log(f"  ({label}: the profiler kept its markers but no kernel of the call; "
                 "taken again)")
         else:
-            log(f"  ({label}: the profiler kept {len(spins)} of its spin markers; taken again)")
+            n_kernels = sum(e.get("cat") == "kernel" for e in events)
+            log(f"  ({label}: the profiler kept {len(spins)} of its {lead + 1} spin markers "
+                f"and {n_kernels} kernel records; taken again with {8 * lead} leading)")
+            lead *= 8
     else:
-        raise AssertionError(f"{label}: three profiler windows without the call's records")
+        raise AssertionError(f"{label}: {TRACE_ATTEMPTS} profiler windows without the "
+                             "call's records")
     copies = [e for e in inside if e.get("cat") == "gpu_memcpy"]
 
     def nbytes(direction):
@@ -2227,14 +2265,60 @@ def log_write_backs(label, tr):
 def planner_steps(sizing, policy, shape):
     """The planner's decode step for ``policy`` at ``shape``, on the spec
     sheet and on phase 9d's calibration: {label: prediction}."""
-    from repro_torch.core.calibration import Calibration
     from repro_torch.core.hardware import SPEC_SYSTEM
     from repro_torch.core.planner import predict
 
-    cal = Calibration.load(ROOT / "build" / "calibration.json").apply(SPEC_SYSTEM)
     prof = sizing.decode_workload(shape)
     return {name: predict(prof, policy, system)
-            for name, system in (("spec", SPEC_SYSTEM), ("calibrated", cal))}
+            for name, system in (("spec", SPEC_SYSTEM), ("calibrated", cal_system()))}
+
+
+def cal_system():
+    """The spec sheet with phase 9d's calibration applied."""
+    from repro_torch.core.calibration import Calibration
+    from repro_torch.core.hardware import SPEC_SYSTEM
+
+    return Calibration.load(ROOT / "build" / "calibration.json").apply(SPEC_SYSTEM)
+
+
+def mapped_read_rate():
+    """Bytes a second the planner's calibrated system reads pinned host
+    memory in place at (its RESIDENT host price; phase 9d's mapped reads)."""
+    from repro_torch.core.datapath import read_bound
+    from repro_torch.core.hardware import MemoryTier
+
+    return read_bound(MemoryTier.HOST, cal_system()).bandwidth
+
+
+def in_place_bytes(eng):
+    """Bytes one decode step's kernels read in place from a RESIDENT host
+    role, from the serve state at the step: the live KV (each row's keys
+    up to its length; an M layer's state, read and written whole) and the
+    weights but the embedding table (a step gathers B of its rows)."""
+    from repro_torch.core.placement import Role
+    from repro_torch.models.sharding import tree_leaves
+
+    out = {}
+    pol, rt = eng.policy, eng.runtime
+    if pol.placement(Role.KV_CACHE).on_host and not rt.streamed(Role.KV_CACHE):
+        S = eng.cfg.max_len
+        live = (eng.state["lengths"].clamp(max=S - 1) + 1).sum().item()
+        n = 0
+        for st in eng.caches["stages"]:
+            for key, entry in st.items():
+                if key.endswith("M"):
+                    n += 2 * sum(t.numel() * t.element_size() for t in tree_leaves(entry))
+                else:
+                    k = entry["k"]                     # (layers, B, H, S, D)
+                    per_pos = k.shape[0] * k.shape[2] * k.shape[4] * k.element_size()
+                    n += 2 * live * per_pos
+        out["kv"] = n
+    if pol.placement(Role.PARAMS).on_host and not rt.streamed(Role.PARAMS):
+        emb = eng.params["embed"]["embedding"]
+        tied = eng.bundle.cfg.tie_embeddings
+        out["params"] = sum(t.numel() * t.element_size() for t in tree_leaves(eng.params)) - (
+            0 if tied else emb.numel() * emb.element_size())
+    return out
 
 
 def phase_placed_serving():
@@ -2264,15 +2348,21 @@ def phase_placed_serving():
     prompts = dense_prompts(cfg.vocab)[0][:8]
     new = 16
     shape = ShapeSpec("serve", S, B, "decode")
+    rate = mapped_read_rate()
+    log(f"  calibrated mapped-read rate (phase 9d, the planner's RESIDENT host price): "
+        f"{rate / 1e9:.2f} GB/s")
     host_memory("before placement")
     table, tokens, kv_launches, failed = [], {}, 0, []
     for pol in PLACED_POLICIES:
         scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=y["chunk"], policy=pol)
         t0 = time.perf_counter()
-        server, reqs, wall, launches = serve_requests(bundle, params, scfg, prompts, new)
+        subset = (PARAMS_HOST_PROMPTS if "params=host" in pol.split(",")
+                  else slice(0, len(prompts)))
+        server, reqs, wall, launches = serve_requests(bundle, params, scfg, prompts[subset],
+                                                      new)
         eng, st = server.engine, server.stats()
         name = eng.policy.name
-        stream_kv = eng.policy.placement(Role.KV_CACHE).on_host
+        stream_kv = eng.runtime.streamed(Role.KV_CACHE)
         if eng.feed is not None:
             pinned = sum(t.numel() * t.element_size() for t in eng.feed.buffers()
                          if t.device.type == "cpu")
@@ -2281,6 +2371,12 @@ def phase_placed_serving():
                 f"{staged / 2**30:.2f} GiB of device staging slots; windows a step "
                 f"{ {k: v.n_windows for k, v in eng.feed.streams().items()} } "
                 f"(planner stream_chunks {L})")
+        mapped = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(eng.params) + tree_leaves(eng.caches)
+                     if t.is_cuda and getattr(t, "_host_arena", None) is not None)
+        if mapped:
+            log(f"  {name}: {mapped / 2**30:.2f} GiB in pinned host memory that the steps "
+                "read and write in place (mapped)")
         want = {"decode_attention": L * st["decode_steps"],
                 "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0,
                 "kv_stream": L * (st["decode_steps"] + st["prefill_dispatches"])
@@ -2288,10 +2384,15 @@ def phase_placed_serving():
         if launches != want:
             raise AssertionError(f"{name}: launches {launches} != {want}")
         kv_launches += launches["kv_stream"]
-        tokens[name] = [r.out_tokens for r in reqs]
+        tokens[name] = (subset, [r.out_tokens for r in reqs])
         tp, ewma = server.throughput(), eng.measured_step_s
-        # one decode step (replay + the (2, B) fetch) and one prefill replay
-        # of 8 x 256 new tokens at fills 0..1792, on the served caches
+        # one decode step (replay + the (2, B) fetch) at the lengths the
+        # served requests ended at (a RESIDENT cache is read up to them),
+        # and one prefill replay of 8 x 256 new tokens at fills 0..1792, on
+        # the served caches
+        ends = [len(p) - 1 + new for p in prompts[subset]]
+        eng.state["lengths"].zero_()[:len(ends)].copy_(torch.tensor(ends))
+        reads = in_place_bytes(eng)
         dec = replay_traffic(f"{name} decode", eng.decode)
         eng._prefill_up.put({"tokens": np.ones((B, y["chunk"]), np.int32),
                              "new_lens": np.full(B, y["chunk"], np.int32),
@@ -2323,6 +2424,7 @@ def phase_placed_serving():
             failed.append(f"{name} prefill: write-back kernels on the compute stream "
                           f"{pre['compute_stream']}, expected a stream of their own")
         preds = planner_steps(bundle, eng.policy, shape)
+        in_place = sum(reads.values())
         row = dict(policy=name, decode_tps=tp["decode_tps"], prefill_tps=tp["prefill_tps"],
                    step_ms=ewma * 1e3, replay_ms=dec["wall_ms"],
                    spec_ms=preds["spec"].step_s * 1e3, cal_ms=preds["calibrated"].step_s * 1e3,
@@ -2330,7 +2432,8 @@ def phase_placed_serving():
                    writeback=wb_dec, pre_h2d=pre["h2d"], pre_writeback=wb_pre,
                    kernels=dec["kernels"], pre_kernels=pre["kernels"],
                    wb_ms=dec["write_back_ms"], pre_wb_ms=pre["write_back_ms"],
-                   pre_replay_ms=pre["wall_ms"])
+                   pre_replay_ms=pre["wall_ms"], in_place=in_place,
+                   in_place_ms=in_place / rate * 1e3, requests=len(reqs))
         table.append(row)
         log(f"  {name}: decode {tp['decode_tps']:.1f} tok/s, prefill {tp['prefill_tps']:.1f} "
             f"tok/s, step EWMA {ewma * 1e3:.2f} ms (Runtime.measured_step_s); planner "
@@ -2341,13 +2444,19 @@ def phase_placed_serving():
             f"(expected {expect}), D2H memcpy {dec['d2h']} bytes (the (2, {B}) fetch), "
             f"write-back {wb_dec} bytes through mapped stores; {dec['kernels']} kernels, "
             f"{dec['copies']} copies a replay")
+        if reads:
+            log(f"  {name}: read in place over PCIe by the decode replay's kernels: "
+                + ", ".join(f"{k} {v} bytes" for k, v in reads.items())
+                + f" = {in_place / rate * 1e3:.2f} ms at the calibrated "
+                f"{rate / 1e9:.2f} GB/s (replay {dec['wall_ms']:.2f} ms: "
+                f"{in_place / dec['wall_ms'] / 1e6:.2f} GB/s achieved)")
         log(f"  {name}: prefill replay {pre['wall_ms']:.2f} ms wall; H2D {pre['h2d']} bytes, "
             f"D2H memcpy {pre['d2h']}, write-back {wb_pre} bytes; {pre['kernels']} kernels, "
             f"{pre['copies']} copies; launches per replay {eng.graph_launches}")
         if pol == "kv_host":
             eager, ereqs, _, _ = serve_requests(bundle, params, scfg, prompts[:2], new,
                                                 eager=True)
-            if [r.out_tokens for r in ereqs] != tokens[name][:2]:
+            if [r.out_tokens for r in ereqs] != tokens[name][1][:2]:
                 raise AssertionError("kv_host eager tokens differ from its graphs'")
             log("  kv_host eager (2 requests): greedy tokens identical to its graphs'")
             log_write_backs("kv_host eager decode step",
@@ -2357,23 +2466,26 @@ def phase_placed_serving():
         gc.collect()
         torch.cuda.empty_cache()
         host_memory(f"{name} freed ({time.perf_counter() - t0:.1f} s)")
-    first = tokens["hbm_resident"]
-    diff = {k: [i for i, (a, b) in enumerate(zip(v, first)) if a != b]
-            for k, v in tokens.items() if v != first}
+    first = tokens["hbm_resident"][1]
+    diff = {k: [i for i, (a, b) in enumerate(zip(v, first[sub])) if a != b]
+            for k, (sub, v) in tokens.items() if v != first[sub]}
     if diff:
         failed.append(f"greedy tokens differ from hbm_resident's: {diff}")
     if failed:
         raise AssertionError("phase 10b:\n" + "\n".join(failed))
     digest = hashlib.sha256(json.dumps(first).encode()).hexdigest()
     log(f"  greedy tokens identical across the {len(tokens)} placements for all "
-        f"{len(first)} requests (SHA-256 of every request's tokens {digest})")
+        f"{len(first)} requests (prompts 6-8 only where the weights are read in place; "
+        f"SHA-256 of every request's tokens {digest})")
     log("  Fig. 17 on the card (yi-6b, 8 slots x 2048, bf16): policy | decode step EWMA "
         "ms | planner spec / calibrated ms (limit) | decode H2D / D2H bytes a step | "
-        "write-back bytes | decode tok/s | prefill tok/s")
+        "write-back bytes | read in place bytes (ms at the calibrated rate) | decode tok/s "
+        "| prefill tok/s | requests")
     for r in table:
         log(f"    {r['policy']} | {r['step_ms']:.2f} | {r['spec_ms']:.3f} / {r['cal_ms']:.3f} "
             f"({r['limiting']}) | {r['h2d']} / {r['d2h']} | {r['writeback']} | "
-            f"{r['decode_tps']:.1f} | {r['prefill_tps']:.1f}")
+            f"{r['in_place']} ({r['in_place_ms']:.2f}) | {r['decode_tps']:.1f} | "
+            f"{r['prefill_tps']:.1f} | {r['requests']}")
     log("  write-back device ms in one decode / one prefill replay, prefill replay wall "
         "ms: " + "; ".join(f"{r['policy']} {r['wb_ms']:.4f} / {r['pre_wb_ms']:.4f}, "
                            f"{r['pre_replay_ms']:.2f}" for r in table))
@@ -2385,8 +2497,10 @@ def phase_placed_serving():
 
 
 def phase_opt_host_training():
-    """10c: full-depth olmo-1b in bf16, 3 AdamW steps under opt_host and
-    under hbm_resident from the same weights and batches."""
+    """10c: full-depth olmo-1b in bf16, 3 AdamW steps under hbm_resident,
+    opt_host (the optimizer state streamed) and opt=host (RESIDENT: the
+    update reads and writes it in place) from the same weights and
+    batches."""
     import gc
 
     import torch
@@ -2400,20 +2514,22 @@ def phase_opt_host_training():
 
     o = OLMO_TRAIN
     cfg = get_config("olmo-1b")
+    policies = ("hbm_resident", "opt_host", "opt=host")
     log(f"== phase 10c: training {cfg.name} bfloat16 at full depth, batch {o['B']} x "
-        f"{o['S']}, 3 AdamW steps under hbm_resident and opt_host")
+        f"{o['S']}, 3 AdamW steps under {', '.join(policies)}")
     bundle = ModelBundle(cfg)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=o["S"], global_batch=o["B"]))
     batches = [next(data) for _ in range(3)]
     res = {}
-    for pol in ("hbm_resident", "opt_host"):
+    for pol in policies:
         tcfg = TrainConfig(remat="full", policy=pol,
                            optimizer=AdamWConfig(lr=3e-4, warmup_steps=1))
         torch.cuda.reset_peak_memory_stats()
         params, opt, ef = init_train_state(
             bundle, torch.Generator(device="cuda").manual_seed(0), tcfg)
-        pinned = sum(host_bytes(opt[k]) for k in ("master", "mu", "nu")
-                     if tree_leaves(opt[k])[0].device.type == "cpu")
+        on_host = [k for k in ("master", "mu", "nu")
+                   if getattr(tree_leaves(opt[k])[0], "_host_arena", None) is not None]
+        mapped = all(tree_leaves(opt[k])[0].is_cuda for k in on_host)
         step = make_train_step(bundle, tcfg)
         losses, gnorms, times = [], [], []
         for b in batches:
@@ -2424,29 +2540,207 @@ def phase_opt_host_training():
             gnorms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)
         res[pol] = (losses, gnorms)
+        where = ("" if not on_host else " (mapped: the update works on it in place)"
+                 if mapped else " (streamed through the update)")
         log(f"  {pol}: losses {losses}, grad norms {gnorms}; step times "
-            f"{[round(t, 4) for t in times]} s; {pinned / 2**30:.2f} GiB of optimizer "
-            f"state in pinned host memory; peak device memory "
+            f"{[round(t, 4) for t in times]} s; "
+            f"{sum(host_bytes(opt[k]) for k in on_host) / 2**30:.2f} GiB of optimizer "
+            f"state in pinned host memory{where}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del params, opt, ef, step
         gc.collect()
         torch.cuda.empty_cache()
-    (lr_, gr), (lo, go) = res["hbm_resident"], res["opt_host"]
-    if lr_ == lo and gr == go:
-        log("  opt_host losses and grad norms equal hbm_resident's bit for bit")
-        return
-    # a difference can only come from run-to-run rounding on the card (the
-    # update itself is elementwise); hold it to phase 3b's card-vs-CPU limits
-    for i in range(3):
-        lim = 1e-5 if i == 0 else 1e-3
-        if abs(lr_[i] - lo[i]) > lim * abs(lr_[i]) or abs(gr[i] - go[i]) > 1e-2 * abs(gr[i]):
-            raise AssertionError(f"step {i + 1}: opt_host {lo[i]} / {go[i]} against "
-                                 f"hbm_resident {lr_[i]} / {gr[i]}")
-    log("  opt_host against hbm_resident: not bit for bit, within phase 3b's limits")
+    lr_, gr = res["hbm_resident"]
+    for pol in policies[1:]:
+        lo, go = res[pol]
+        if lr_ == lo and gr == go:
+            log(f"  {pol} losses and grad norms equal hbm_resident's bit for bit")
+            continue
+        # a difference can only come from run-to-run rounding on the card
+        # (the update itself is elementwise); hold it to phase 3b's
+        # card-vs-CPU limits
+        for i in range(3):
+            lim = 1e-5 if i == 0 else 1e-3
+            if abs(lr_[i] - lo[i]) > lim * abs(lr_[i]) or abs(gr[i] - go[i]) > 1e-2 * abs(gr[i]):
+                raise AssertionError(f"step {i + 1}: {pol} {lo[i]} / {go[i]} against "
+                                     f"hbm_resident {lr_[i]} / {gr[i]}")
+        log(f"  {pol} against hbm_resident: not bit for bit, within phase 3b's limits")
+
+
+#: the placements phase 10d serves each Mamba-2 / Zamba-2 model under
+SSM_PLACED = {"mamba2-780m": ("hbm_resident", "kv_host", "kv=host", "weights_stream"),
+              "zamba2-1.2b": ("hbm_resident", "kv_host")}
+
+
+def streamed_state_bytes(eng):
+    """Bytes of the ``M`` layers' state in a streamed cache's windows: what
+    a step copies back to host memory (whole, one copy a leaf)."""
+    from repro_torch.models.sharding import tree_leaves
+
+    if eng.feed is None or eng.feed.kv is None:
+        return 0
+    return sum(t.numel() * t.element_size() for w in eng.feed.kv.windows
+               for key, entry in w.items() if key.endswith("M") for t in tree_leaves(entry))
+
+
+def resident_state_bytes(eng):
+    """Bytes of the ``M`` layers' ``ssm`` and ``conv`` leaves of a cache
+    placed RESIDENT in host memory (0 for another placement)."""
+    from repro_torch.core.placement import Role
+    from repro_torch.models.sharding import tree_leaves
+
+    out = {"ssm": 0, "conv": 0}
+    if eng.policy.placement(Role.KV_CACHE).on_host and not eng.runtime.streamed(Role.KV_CACHE):
+        for st in eng.caches["stages"]:
+            for key, entry in st.items():
+                if key.endswith("M"):
+                    for leaf in out:
+                        out[leaf] += sum(t.numel() * t.element_size()
+                                         for t in tree_leaves(entry[leaf]))
+    return out
+
+
+def phase_ssm_placed_serving():
+    """10d: full-width, full-depth mamba2-780m and zamba2-1.2b in bf16 (8
+    slots x 2048, prefill chunk 256) serving 8 greedy requests (prompts of
+    128-1024 tokens, numpy seed 0, 16 new tokens each) through the CUDA
+    graphs under each of SSM_PLACED's policies on the same weights: tokens
+    identical within each model, launches counted, and for each host
+    placement the H2D and D2H bytes of one decode and one prefill replay
+    against the windows.  Returns the write-back kernel's launches
+    (zamba2's S layers under kv_host)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.placement import Role
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig
+
+    B, S, C, new = MAMBA["B"], 2048, MAMBA["T"], 16
+    t_phase = time.perf_counter()
+    rate = mapped_read_rate()
+    kv_launches, failed = 0, []
+    for arch, policies in SSM_PLACED.items():
+        cfg = get_config(arch)
+        codes = cfg.layer_codes()
+        n_m, n_s = codes.count("M"), codes.count("S")
+        log(f"== phase 10d: {cfg.name} bfloat16 at full width and depth ({n_m} M layers, "
+            f"{n_s} S), {B} slots x {S}, under {', '.join(policies)}, through the CUDA graphs")
+        bundle = ModelBundle(cfg)
+        params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for n in rng.integers(128, 1025, size=B)]
+        shape = ShapeSpec("serve", S, B, "decode")
+        tokens, table = {}, []
+        for pol in policies:
+            t0 = time.perf_counter()
+            scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=C, policy=pol)
+            server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, new)
+            eng, st = server.engine, server.stats()
+            name = eng.policy.name
+            stream_kv = eng.runtime.streamed(Role.KV_CACHE)
+            want = {"ssd_scan": n_m * st["prefill_dispatches"],
+                    "prefill_attention": n_s * st["prefill_dispatches"],
+                    "decode_attention": n_s * st["decode_steps"],
+                    "kv_stream": n_s * (st["decode_steps"] + st["prefill_dispatches"])
+                    if stream_kv else 0}
+            if launches != want:
+                raise AssertionError(f"{cfg.name} {name}: launches {launches} != {want}")
+            kv_launches += launches["kv_stream"]
+            tokens[name] = [r.out_tokens for r in reqs]
+            tp, ewma = server.throughput(), eng.measured_step_s
+            reads = in_place_bytes(eng)
+            dec = None        # hbm_resident has no host role and no window: not traced
+            if pol != "hbm_resident":
+                dec = replay_traffic(f"{cfg.name} {name} decode", eng.decode)
+                eng._prefill_up.put({"tokens": np.ones((B, C), np.int32),
+                                     "new_lens": np.full(B, C, np.int32),
+                                     "offsets": np.arange(0, B * C, C, dtype=np.int32)})
+                torch.cuda.synchronize()
+                pre = replay_traffic(f"{cfg.name} {name} prefill",
+                                     eng._graphs["prefill"].replay)
+                h2d = eng.feed.h2d_bytes() if eng.feed is not None else 0
+                back = streamed_state_bytes(eng)
+                # a RESIDENT state's new ssm state (decode) and conv window
+                # (prefill) land in host memory through PyTorch's copy_ of a
+                # contiguous tensor of the same type: a cudaMemcpyAsync into
+                # the mapped address, which the trace shows as D2H
+                resident = resident_state_bytes(eng)
+                for label, tr, d2h in (("decode", dec, back + resident["ssm"] + 2 * B * 4),
+                                       ("prefill", pre, back + resident["conv"])):
+                    if (abs(tr["h2d"] - h2d) > 0.02 * max(h2d, 1)
+                            or abs(tr["d2h"] - d2h) > 0.02 * max(d2h, 1)):
+                        failed.append(f"{cfg.name} {name} {label}: H2D / D2H {tr['h2d']} / "
+                                      f"{tr['d2h']} bytes, expected {h2d} / {d2h}; copies seen "
+                                      f"{sorted(tr['sizes'].items())}")
+                    if tr["write_backs"] != (n_s if stream_kv else 0):
+                        failed.append(f"{cfg.name} {name} {label}: {tr['write_backs']} "
+                                      f"write-back kernels, expected {n_s if stream_kv else 0}")
+                log(f"  {name}: decode replay {dec['wall_ms']:.2f} ms wall, "
+                    f"{dec['device_ms']:.2f} ms of kernels, {dec['copy_ms']:.2f} ms of copies; "
+                    f"H2D {dec['h2d']} bytes (expected {h2d}), D2H {dec['d2h']} bytes "
+                    f"(expected {back} of streamed and {resident['ssm']} of RESIDENT M state "
+                    f"+ the (2, {B}) fetch); {dec['write_backs']} write-back kernels; prefill "
+                    f"replay {pre['wall_ms']:.2f} ms, H2D {pre['h2d']}, D2H {pre['d2h']}")
+            preds = planner_steps(bundle, eng.policy, shape)
+            in_place = sum(reads.values())
+            table.append((name, ewma * 1e3, preds, dec, in_place, tp))
+            log(f"  {name}: decode {tp['decode_tps']:.1f} tok/s, prefill "
+                f"{tp['prefill_tps']:.1f} tok/s, step EWMA {ewma * 1e3:.2f} ms; planner "
+                f"{preds['spec'].step_s * 1e3:.3f} ms spec, "
+                f"{preds['calibrated'].step_s * 1e3:.3f} ms calibrated (limited by "
+                f"{preds['calibrated'].limiting})")
+            if reads:
+                log(f"  {name}: read and written in place over PCIe by the decode replay's "
+                    f"kernels: {in_place} bytes = {in_place / rate * 1e3:.2f} ms at the "
+                    f"calibrated {rate / 1e9:.2f} GB/s")
+            del server, reqs, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            host_memory(f"{cfg.name} {name} freed ({time.perf_counter() - t0:.1f} s)")
+        if cfg.name == "mamba2-780m":
+            s_ = cfg.ssm
+            di, n = s_.d_inner(cfg.d_model), s_.d_state
+            formula = n_m * B * (s_.n_heads(cfg.d_model) * s_.head_dim * n * 4
+                                 + (s_.d_conv - 1) * (di + 2 * n) * 2)
+            kv_host = next(r for r in table if r[0] == "kv_host")
+            if kv_host[3]["d2h"] != formula + 2 * B * 4:
+                failed.append(f"mamba2 kv_host D2H {kv_host[3]['d2h']} != {formula} + the fetch")
+            log(f"  mamba2-780m state a step: {formula} bytes each way = {n_m} layers x {B} "
+                f"rows x ({s_.n_heads(cfg.d_model)}*{s_.head_dim}*{n}*4 + "
+                f"{s_.d_conv - 1}*{di + 2 * n}*2)")
+        first = tokens["hbm_resident"]
+        diff = {k: [i for i, (a, b) in enumerate(zip(v, first)) if a != b]
+                for k, v in tokens.items() if v != first}
+        if diff:
+            failed.append(f"{cfg.name}: greedy tokens differ from hbm_resident's: {diff}")
+        else:
+            digest = hashlib.sha256(json.dumps(first).encode()).hexdigest()
+            log(f"  {cfg.name}: greedy tokens identical across {', '.join(tokens)} for all "
+                f"{len(first)} requests (SHA-256 {digest})")
+        log(f"  {cfg.name} (8 slots x 2048, bf16): policy | decode step EWMA ms | planner "
+            "spec / calibrated ms (limit) | decode H2D / D2H bytes a step | read in place "
+            "bytes (ms at the calibrated rate) | decode tok/s | prefill tok/s")
+        for name, ms, preds, dec, in_place, tp in table:
+            moved = "- / -" if dec is None else f"{dec['h2d']} / {dec['d2h']}"
+            log(f"    {name} | {ms:.2f} | {preds['spec'].step_s * 1e3:.3f} / "
+                f"{preds['calibrated'].step_s * 1e3:.3f} ({preds['calibrated'].limiting}) | "
+                f"{moved} | {in_place} ({in_place / rate * 1e3:.2f}) | "
+                f"{tp['decode_tps']:.1f} | {tp['prefill_tps']:.1f}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 10d:\n" + "\n".join(failed))
+    log(f"  phase 10d took {time.perf_counter() - t_phase:.1f} s")
+    return kv_launches
 
 
 def phase_migrate():
-    """10d: Runtime.migrate of the yi-6b serving cache (8 x 2048, bf16) from
+    """10e: Runtime.migrate of the yi-6b serving cache (8 x 2048, bf16) from
     device memory to pinned host memory and back, value for value, timed
     beside the planner's price_copy on phase 9d's calibration."""
     import gc
@@ -2459,7 +2753,7 @@ def phase_migrate():
     from repro_torch.models.model_zoo import ModelBundle
     from repro_torch.models.sharding import tree_leaves
 
-    log("== phase 10d: Runtime.migrate of the yi-6b cache, device -> pinned host -> device")
+    log("== phase 10e: Runtime.migrate of the yi-6b cache, device -> pinned host -> device")
     bundle = ModelBundle(get_config("yi-6b"))
     gen = torch.Generator(device="cuda").manual_seed(4)
     cache = bundle.init_cache(YI["B"], YI["Smax"], device="cuda")
@@ -2577,11 +2871,12 @@ def main() -> int:
     t10 = time.perf_counter()
     kv_rec, kv_err = phase_kv_stream_kernel()
     kv_launches, _ = phase_placed_serving()
+    phase_opt_host_training()
+    kv_launches += phase_ssm_placed_serving()
     rows.append(kernel_row(
         "kv_stream", "src/repro_torch/csrc/kv_stream.cu",
         "none: no Pallas original (the reference's host transfers are XLA's, "
         "src/repro/core/placement.py:875 to_host)", kv_rec, kv_launches, kv_err))
-    phase_opt_host_training()
     phase_migrate()
     log(f"== phase 10 took {time.perf_counter() - t10:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -354,34 +354,36 @@ class Runtime:
 
     # -- realization -------------------------------------------------------
     def realize(self, tree, role: Role | str, *, policy: PlacementPolicy | None = None):
-        """``tree`` under the policy's placement of ``role``: pinned host
-        memory for a host tier (resident or streamed), this device's
-        memory otherwise.  A tree already where the placement puts it (in
-        this device's memory under ``HBM``, in a host arena for this
-        device under ``HOST``) is returned as it is (no copy)."""
+        """``tree`` under the policy's placement of ``role``
+        (:func:`~repro_torch.core.placement.place_tree`): this device's
+        memory under ``HBM``; under ``HOST`` a pinned host arena, whose
+        leaves on a card are CUDA tensors over its mapped view for a
+        RESIDENT placement (the steps compute on them in place, over PCIe)
+        and the pinned host tensors themselves for a STREAM one (staged
+        window by window).  A tree already where the placement puts it is
+        returned as it is (no copy)."""
         pl = (policy or self.policy).placement(parse_role(role))
         leaves = tree_leaves(tree)
         if pl.tier is MemoryTier.HBM and all(t.device == self.device for t in leaves):
             return tree
-        if pl.tier is MemoryTier.HOST and all(
-                getattr(t, "_host_arena", None) is not None
-                and t._host_arena.device == self.device for t in leaves):
-            return tree
+        if pl.tier is MemoryTier.HOST:
+            # a mapped view lies on the card, a streamed leaf on the CPU
+            where = (self.device if pl.strategy is Strategy.RESIDENT
+                     else torch.device("cpu"))
+            if all(getattr(t, "_host_arena", None) is not None
+                   and t._host_arena.device == self.device
+                   and t.device.type == where.type for t in leaves):
+                return tree
         return place_tree(tree, pl, self.device)
 
     def streamed(self, role: Role | str) -> bool:
         """Does a step compute on ``role`` through staged windows (a
-        ``host:stream`` placement)?  A host placement a step would have to
-        read in place raises: kernels that read pinned memory over PCIe
-        wait for ROADMAP A9c."""
-        role = parse_role(role)
-        pl = self.policy.placement(role)
-        if pl.on_host and pl.strategy is not Strategy.STREAM:
-            raise NotImplementedError(
-                f"policy {self.policy.name!r} keeps {role.value} RESIDENT in "
-                f"{pl.tier.value}: computing on host memory in place is not "
-                "ported yet (ROADMAP A9c); use the ':stream' strategy")
-        return pl.on_host
+        ``host:stream`` placement: :class:`HostStream` copies each window
+        to the card and back)?  False for a RESIDENT host placement, which
+        the steps read and write in place (on a card through its mapped
+        view, over PCIe), and for ``HBM``."""
+        pl = self.policy.placement(parse_role(role))
+        return pl.on_host and pl.strategy is Strategy.STREAM
 
     def donate_ok(self, role: Role | str) -> bool:
         """May a step update ``role``'s buffers in place under the current
@@ -578,11 +580,15 @@ class Runtime:
 
     def _rebuild_stream(self, role: Role, tree) -> None:
         """Re-open ``role``'s stream over its migrated tree; a role that
-        left host memory has nothing to stream, and its stream closes."""
+        left host memory, or stays there RESIDENT, has nothing to stream,
+        and its stream closes."""
         entry = self._streams.get(role)
         if entry is None:
             return
         if not self.policy.placement(role).on_host:
+            del self._streams[role]
+            return
+        if not self.streamed(role):        # RESIDENT: nothing is staged
             del self._streams[role]
             return
         n_windows, depth = entry[1]

@@ -49,7 +49,6 @@ import contextlib
 import dataclasses
 import enum
 import json
-import weakref
 from typing import Mapping
 
 import torch
@@ -586,36 +585,47 @@ def _carve(base: torch.Tensor, offset: int, like: torch.Tensor) -> torch.Tensor:
 class HostArena:
     """One block of host memory that holds a tree's leaves.
 
-    For a CUDA device the block is pinned in place and mapped for the
-    card (``cudaHostRegister``; exact size, where PyTorch's pinned
-    allocator rounds a request up to a power of two) and unpinned when
-    the arena is collected; every leaf carved from it keeps the arena
-    alive.  For the CPU it is plain memory: host memory *is* the
-    device's, so the arena only gives a host tree storage of its own.
+    For a CUDA device the block is pinned and mapped for the card
+    (:func:`~repro_torch.kernels.kv_stream.pinned_empty`: ``cudaHostAlloc``
+    at its exact size) and freed with the last tensor over it; every leaf
+    carved from it carries the arena.  For the CPU it is plain memory:
+    host memory *is* the device's, so the arena only gives a host tree
+    storage of its own.
     """
 
     def __init__(self, nbytes: int, device: torch.device):
         self.device = torch.device(device)
-        self.base = torch.empty(max(int(nbytes), 1), dtype=torch.uint8)
         self.pinned = self.device.type == "cuda"
         if self.pinned:
             from repro_torch.kernels import kv_stream
 
-            kv_stream.register(self.base)
-            done = weakref.finalize(self, kv_stream.unregister, self.base.data_ptr())
-            done.atexit = False      # the process's end releases it anyway
+            self.base = kv_stream.pinned_empty(nbytes)
+        else:
+            self.base = torch.empty(max(int(nbytes), 1), dtype=torch.uint8)
 
     def carve(self, offset: int, like: torch.Tensor) -> torch.Tensor:
         out = _carve(self.base, offset, like)
-        out._host_arena = self       # the arena lives as long as its leaves
+        out._host_arena = self
         return out
 
+    def mapped(self) -> torch.Tensor:
+        """The whole block as a ``uint8`` CUDA tensor, through the card's
+        mapped view of it (:func:`~repro_torch.kernels.kv_stream.mapped`):
+        what the card computes on in place.  The tensor and every view of
+        it keep the block alive."""
+        from repro_torch.kernels import kv_stream
 
-def to_host(tree, device: str | torch.device):
+        return kv_stream.mapped(self.base)
+
+
+def to_host(tree, device: str | torch.device, *, mapped: bool = False):
     """A copy of ``tree`` in host memory for ``device``: one
     :class:`HostArena`, pinned and mapped when ``device`` is a card.
     Raises if a leaf does not land pinned there (never a pageable host
-    copy the card cannot stream from)."""
+    copy the card cannot stream from).  With ``mapped`` (a card only) the
+    leaves returned are CUDA tensors over the card's mapped view of the
+    arena, each carrying ``_host_arena``: kernels read and write them in
+    place, over PCIe."""
     device = torch.device(device)
     leaves = tree_leaves(tree)
     offsets, total = _layout(leaves)
@@ -625,7 +635,18 @@ def to_host(tree, device: str | torch.device):
     if arena.pinned and not all(t.is_pinned() for t in tree_leaves(out)):
         raise RuntimeError(f"host placement of {total} bytes did not land in "
                            "pinned host memory")
-    return out
+    if not mapped:
+        return out
+    if not arena.pinned:
+        raise ValueError(f"a mapped view of host memory is a card's; the device is {device}")
+    view, it = arena.mapped(), iter(offsets)
+
+    def carve(t):
+        leaf = _carve(view, next(it), t)
+        leaf._host_arena = arena
+        return leaf
+
+    return tree_map(carve, out)
 
 
 def to_device(tree, device: str | torch.device):
@@ -641,14 +662,19 @@ def host_bytes(tree) -> int:
 
 def place_tree(tree, placement: Placement, device: str | torch.device):
     """``tree`` under ``placement`` for ``device``: in host memory for a
-    host tier (RESIDENT or STREAM: a streamed role lives there and is
-    staged window by window by a :class:`HostStream`), in the device's
-    memory for ``HBM``.  Peer and remote tiers need a donor axis one
-    device does not have (:class:`DonorAxisError`)."""
+    host tier, in the device's memory for ``HBM``.  In host memory a
+    RESIDENT placement on a card comes back as CUDA tensors over the
+    card's mapped view of a pinned arena (the steps compute on it in
+    place, over PCIe); a STREAM placement as the pinned host tensors a
+    :class:`HostStream` stages window by window.  On the CPU both are
+    plain host arenas.  Peer and remote tiers need a donor axis one device
+    does not have (:class:`DonorAxisError`)."""
+    device = torch.device(device)
     if placement.on_host:
         if placement.tier is not MemoryTier.HOST:
             donor_axes_for(None, placement.tier)
-        return to_host(tree, device)
+        return to_host(tree, device, mapped=device.type == "cuda"
+                       and placement.strategy is Strategy.RESIDENT)
     if placement.tier is not MemoryTier.HBM:
         donor_axes_for(None, placement.tier)
     return to_device(tree, device)
@@ -813,17 +839,21 @@ class HostStream:
         self._reading[slot] = True
         self._wb_pending = True
 
-    def write_back(self, i: int) -> None:
+    def write_back(self, i: int, part=None) -> None:
         """Copy window ``i``'s slot, as the caller's stream has left it,
-        back into its host tensors."""
+        back into its host tensors: the whole window, or only its entry
+        ``part`` (a top-level key of the window's tree), one copy a leaf."""
         slot = self._held[i]
-        staged = tree_leaves(self._view(slot, i))
+        host, staged = self.windows[i], self._view(slot, i)
+        if part is not None:
+            host, staged = host[part], staged[part]
+        pairs = list(zip(tree_leaves(host), tree_leaves(staged)))
         if not self._cuda:
-            for dst, src in zip(self._leaves[i], staged):
+            for dst, src in pairs:
                 dst.copy_(src)
             return
         self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
-        for dst, src in zip(self._leaves[i], staged):
+        for dst, src in pairs:
             self._copy(dst, src, self._copy_stream)
 
     def finish(self) -> None:

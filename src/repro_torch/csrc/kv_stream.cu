@@ -50,10 +50,14 @@
 //    once a launch.
 //
 // kv_stream_copy is the host tier's bulk copy (cudaMemcpyAsync on a given
-// stream), and kv_stream_host_register / _unregister pin a host range
-// (cudaHostRegister, mapped): the window copies of a streamed role go
-// through it so that a CUDA graph can capture them with no host-allocator
-// bookkeeping on the capturing stream.  kv_stream_empty_launch launches a
+// stream), and kv_stream_host_alloc / _free allocate and free a block of
+// pinned host memory mapped for the card (cudaHostAlloc, exact size): the
+// window copies of a streamed role go through it so that a CUDA graph can
+// capture them with no host-allocator bookkeeping on the capturing stream,
+// and a RESIDENT role's kernels read and write it in place through its
+// mapped address.  cudaHostAlloc, not cudaHostRegister of pageable memory:
+// on an H100 the card reads a registered range up to ~40 % slower in place
+// (PERF.md §6, tools/mapped_reads.py).  kv_stream_empty_launch launches a
 // kernel that does nothing, for the launch floor beside the write-back.
 //
 // Plain C interface (loaded with ctypes): each function returns a
@@ -210,13 +214,13 @@ int kv_stream_copy(void* dst, const void* src, long long bytes, void* stream) {
                               static_cast<cudaStream_t>(stream));
 }
 
-// Pin [p, p + bytes) of host memory, mapped into the card's address space.
-int kv_stream_host_register(void* p, long long bytes) {
+// `bytes` of pinned host memory, mapped into the card's address space.
+int kv_stream_host_alloc(void** out, long long bytes) {
   if (bytes <= 0) return (int)cudaErrorInvalidValue;
-  return (int)cudaHostRegister(p, (size_t)bytes, cudaHostRegisterMapped);
+  return (int)cudaHostAlloc(out, (size_t)bytes, cudaHostAllocMapped);
 }
 
-int kv_stream_host_unregister(void* p) { return (int)cudaHostUnregister(p); }
+int kv_stream_host_free(void* p) { return (int)cudaFreeHost(p); }
 
 const char* kv_stream_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -14,16 +14,18 @@ plain version on the CPU).
 
 The same library carries the host tier's plumbing, which is no kernel:
 :func:`copy_async` (``cudaMemcpyAsync``, the window copies of a streamed
-role, capturable in a CUDA graph), :func:`register` / :func:`unregister`
-(``cudaHostRegister``, the pinned arenas of
-:mod:`repro_torch.core.placement`), :func:`device_view` (the address
-through which the card writes a tensor) and :func:`empty_launch` (a kernel
+role, capturable in a CUDA graph), :func:`pinned_empty` (``cudaHostAlloc``,
+the pinned arenas of :mod:`repro_torch.core.placement`), :func:`device_view` (the address
+through which the card writes a tensor), :func:`mapped` (a CUDA tensor
+over that address: a RESIDENT host placement's leaves, which the steps
+compute on in place) and :func:`empty_launch` (a kernel
 that does nothing: the launch floor).
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
@@ -56,11 +58,11 @@ def _lib():
         lib.kv_stream_device_view.argtypes = [P, ctypes.POINTER(P)]
         lib.kv_stream_empty_launch.argtypes = [I, P]
         lib.kv_stream_copy.argtypes = [P, P, L, P]
-        lib.kv_stream_host_register.argtypes = [P, L]
-        lib.kv_stream_host_unregister.argtypes = [P]
+        lib.kv_stream_host_alloc.argtypes = [ctypes.POINTER(P), L]
+        lib.kv_stream_host_free.argtypes = [P]
         for fn in (lib.kv_stream_write_back_launch, lib.kv_stream_device_view,
                    lib.kv_stream_empty_launch, lib.kv_stream_copy,
-                   lib.kv_stream_host_register, lib.kv_stream_host_unregister):
+                   lib.kv_stream_host_alloc, lib.kv_stream_host_free):
             fn.restype = I
         _fns = lib
     return _fns
@@ -101,7 +103,7 @@ def write_back_stores(pos, n, H: int, S: int, chunks: int, blocks: int) -> dict:
 
 
 #: tensor -> (data_ptr, the card's view of it), kept while the tensor
-#: lives; :func:`unregister` empties it
+#: lives; freeing a pinned block empties it
 _views = WeakIdKeyDictionary()
 
 
@@ -120,6 +122,35 @@ def device_view(t: torch.Tensor) -> int:
                  "kv_stream")
     _views[t] = (t.data_ptr(), out.value or 0)
     return out.value or 0
+
+
+class _CudaArray:
+    """The CUDA array interface of ``nbytes`` bytes at the card's address
+    ``ptr``; it holds ``owner`` (the host tensor whose memory that is), and
+    the tensor made from it holds this object."""
+
+    def __init__(self, owner: torch.Tensor, ptr: int, nbytes: int):
+        self._owner = owner
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 2}
+
+
+def mapped(t: torch.Tensor) -> torch.Tensor:
+    """A ``uint8`` CUDA tensor over the bytes of ``t``, a contiguous tensor
+    in pinned host memory, through the card's mapped view of them
+    (:func:`device_view`): kernels and PyTorch's operators read and write
+    it in place, over PCIe.  It (and every view of it) keeps ``t`` alive.
+    Raises (a ``cudaError``) for pageable host memory, and for a tensor
+    that is not on the CPU."""
+    if t.device.type != "cpu" or not t.is_contiguous():
+        raise ValueError(f"mapped() takes a contiguous host tensor, got one on {t.device}")
+    nbytes = t.numel() * t.element_size()
+    out = torch.as_tensor(_CudaArray(t, device_view(t), nbytes))
+    if out.device.type != "cuda" or out.numel() != nbytes:
+        raise RuntimeError(f"the mapped view of {nbytes} host bytes came back as "
+                           f"{out.numel()} bytes on {out.device}")
+    return out
 
 
 def kv_write_back(
@@ -198,14 +229,27 @@ def copy_async(dst: torch.Tensor, src: torch.Tensor, stream: torch.cuda.Stream) 
                                        stream.cuda_stream), "kv_stream")
 
 
-def register(t: torch.Tensor) -> None:
-    """Pin a contiguous CPU tensor's bytes in place, mapped for the card."""
-    _build.check(_lib().kv_stream_host_register(
-        t.data_ptr(), t.numel() * t.element_size()), "kv_stream")
+class _PinnedBlock:
+    """``nbytes`` of pinned host memory mapped for the card, seen by numpy
+    (``__array_interface__``); freed when the last tensor over it dies."""
+
+    def __init__(self, nbytes: int):
+        ptr = ctypes.c_void_p()
+        _build.check(_lib().kv_stream_host_alloc(ctypes.byref(ptr), nbytes), "kv_stream")
+        self.ptr = ptr.value
+        self.__array_interface__ = {"data": (self.ptr, False), "shape": (nbytes,),
+                                    "typestr": "|u1", "version": 3}
+
+    def __del__(self):
+        if sys.is_finalizing():       # the process's end releases it anyway
+            return
+        _views.clear()                # no resolved view outlives its block
+        _build.check(_lib().kv_stream_host_free(self.ptr), "kv_stream")
 
 
-def unregister(ptr: int) -> None:
-    """Undo :func:`register` for the range that starts at ``ptr`` (and
-    forget every resolved view: the range's is no longer valid)."""
-    _views.clear()
-    _build.check(_lib().kv_stream_host_unregister(ptr), "kv_stream")
+def pinned_empty(nbytes: int) -> torch.Tensor:
+    """A ``uint8`` CPU tensor of exactly ``nbytes`` (at least 1) in pinned
+    host memory mapped for the card (``cudaHostAlloc``, where PyTorch's
+    pinned allocator rounds a request up to a power of two); the memory is
+    freed when the tensor and every view of it are gone."""
+    return torch.from_numpy(np.asarray(_PinnedBlock(max(int(nbytes), 1))))

@@ -251,9 +251,11 @@ def _run_stages_train(cfg, params, x, remat: str):
 
 class ResidentFeed:
     """Where a serving step's params and caches come from, layer by layer,
-    when both lie on the compute device (the ``hbm_resident`` placement):
-    each layer gets views of its slice of the stacked trees, and nothing
-    is copied or launched.
+    when neither is streamed: both in the compute device's memory
+    (``hbm_resident``), or either RESIDENT in host memory, where the trees
+    are CUDA tensors over the card's mapped view of it.  Each layer gets
+    views of its slice of the stacked trees, and nothing is copied or
+    launched.
 
     A feed is the model's one interface to placement: a streamed role's
     feed (``repro_torch.serve.engine.PlacedFeed``) answers the same calls
@@ -275,12 +277,13 @@ class ResidentFeed:
         tied)."""
         return self.params
 
-    def shared(self):
-        return self.params.get("shared_attn")
-
     def layer(self, stage: int, layer: int):
-        """(params, cache) of one layer of a stage: views of its slice."""
+        """(params, cache) of one layer of a stage: views of its slice; the
+        params carry the model's shared block (``shared_attn``) when it
+        has one."""
         lp = tree_map(lambda t: t[layer], self.params["stages"][stage])
+        if "shared_attn" in self.params:
+            lp["shared_attn"] = self.params["shared_attn"]
         cache = tree_map(lambda t: t[layer], self.caches["stages"][stage])
         return lp, cache
 
@@ -290,9 +293,9 @@ class ResidentFeed:
 
 def _run_stages_step(cfg, feed, x, lengths, mode, new_lens=None):
     """Every layer in order, fed by ``feed``.  ``emb0`` (the embedding
-    output, only when the pattern has ``S`` layers) and the shared block's
-    params go into every stage, as the reference's scans close over them."""
-    shared = feed.shared()
+    output, only when the pattern has ``S`` layers) goes into every stage,
+    as the reference's scans close over it; an ``S`` layer reads the
+    shared block from the params ``feed`` hands out for its layer."""
     emb0 = x if "S" in cfg.layer_pattern else None
     for s, (codes, count, start) in enumerate(cfg.stages()):
         for layer in range(count):
@@ -300,8 +303,8 @@ def _run_stages_step(cfg, feed, x, lengths, mode, new_lens=None):
             for j, code in enumerate(codes):
                 key = f"{j}{code}"
                 x = _apply_layer_step(
-                    cfg, code, lp[key], cache[key], x, emb0, lengths, shared,
-                    mode, new_lens,
+                    cfg, code, lp[key], cache[key], x, emb0, lengths,
+                    lp.get("shared_attn"), mode, new_lens,
                 )
             feed.layer_done(s, layer, cache)
     return x
@@ -323,12 +326,21 @@ def param_windows(cfg, params) -> list[dict]:
     """The windows in which a serving step reads ``params``, in step
     order: the embedding, each layer, then the tail (final norm and head,
     with the embedding again when the head is tied to it).
-    ``cfg.n_layers + 2`` windows for a dense model."""
+    ``cfg.n_layers + 2`` windows for a dense model.  A layer window of a
+    stage with an ``S`` layer carries the shared block (``shared_attn``)
+    too: each application reads it from host memory again (the planner
+    counts its bytes once)."""
     tail = {k: params[k] for k in ("final_norm", "head")}
     if cfg.tie_embeddings:
         tail["embed"] = params["embed"]
-    return ([{"embed": params["embed"]}]
-            + leaf_windows({"stages": params["stages"]}) + [tail])
+    windows = [{"embed": params["embed"]}]
+    for (codes, count, _), stage in zip(cfg.stages(), params["stages"]):
+        for i in range(count):
+            w = tree_map(lambda t: t[i], stage)
+            if "S" in codes:
+                w["shared_attn"] = params["shared_attn"]
+            windows.append(w)
+    return windows + [tail]
 
 
 # ---------------------------------------------------------------------------

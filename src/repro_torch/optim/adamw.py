@@ -10,7 +10,10 @@ update window by window (``streams``): each window is staged on the device
 (the reference's ``to_compute``), updated there, and copied back (its
 ``to_storage``), while params and grads stay on the device.  The update
 is elementwise, so a window's values are bit for bit those of the whole
-tensor's update.
+tensor's update.  Under ``opt=host`` / ``master=host`` (RESIDENT) the
+state lives in pinned host memory too, and the unstreamed path updates
+it in place there (on a card the leaves are CUDA tensors over the card's
+mapped view of it: every pass of the update crosses PCIe).
 
 The master and the moments are updated **in place** (the port's
 counterpart of the reference's donated state buffers: no second 12-byte

@@ -34,18 +34,21 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   ``cfg.policy`` forces a policy (any ``parse_policy`` spelling), else the
   planner picks one for the serve phase (``Runtime.auto``; on the card
   the host policies are eligible, on the CPU only ``hbm_resident``).  The
-  params and the KV cache are realized under it.  A ``host:stream``
-  placement keeps the role in pinned host memory and the steps read it
-  through a :class:`PlacedFeed`: each layer's weights and cache are
-  staged into device slots window by window (``HostStream``, the copies
-  on a copy stream inside the captured graphs), and each layer's new
-  cache rows go back to host memory through the hand-written write-back
-  kernel (``kernels/kv_stream.py``; in a prefill dispatch on a write-back
-  stream of its own).  Under ``hbm_resident`` the steps
-  take views of the resident trees and launch and copy exactly what they
-  did before placement was realized.  A RESIDENT host placement and any
-  host placement of a model with ``M``/``S`` layers raise
-  ``NotImplementedError`` (ROADMAP A9c).
+  params and the KV cache (or the ``M`` layers' recurrent state) are
+  realized under it.  A RESIDENT host placement (``kv=host``,
+  ``params=host``) keeps the role in pinned host memory and hands the
+  steps CUDA tensors over the card's mapped view of it: the same
+  launches as ``hbm_resident``, captured in the same graphs, read and
+  write host memory in place over PCIe.  A ``host:stream`` placement
+  keeps the role in pinned host memory and the steps read it through a
+  :class:`PlacedFeed`: each layer's weights and cache are staged into
+  device slots window by window (``HostStream``, the copies on a copy
+  stream inside the captured graphs), and each layer's new cache rows go
+  back to host memory through the hand-written write-back kernel
+  (``kernels/kv_stream.py``; in a prefill dispatch on a write-back stream
+  of its own), an ``M`` layer's state whole, one copy a leaf.  Under
+  ``hbm_resident`` the steps take views of the resident trees and launch
+  and copy exactly what they did before placement was realized.
 
 Preemption, replan/evacuate and fault injection are not ported yet
 (ROADMAP A11).
@@ -92,13 +95,18 @@ class PlacedFeed(tf_mod.ResidentFeed):
 
     A streamed role's host tree is cut into the windows a step reads in
     order (:func:`~repro_torch.models.transformer.param_windows`: the
-    embedding, each layer, the tail; :func:`~repro_torch.models.
+    embedding, each layer, with Zamba-2's shared block again in each one
+    that applies it, the tail; :func:`~repro_torch.models.
     transformer.leaf_windows` of the cache: each layer) and staged through
     a :class:`~repro_torch.core.placement.HostStream` of two device slots.
-    A resident role is fed as views, as :class:`ResidentFeed` does.  After
-    a layer, the rows the step wrote into a staged cache window go back to
-    the host cache through :func:`~repro_torch.kernels.kv_stream.
-    kv_write_back`, one launch a layer.  Where the layers bound the step
+    A resident role (in device memory, or RESIDENT in host memory through
+    the card's mapped view) is fed as views, as :class:`ResidentFeed`
+    does.  After a layer, the rows the step wrote into a staged cache
+    window go back to the host cache through :func:`~repro_torch.kernels.
+    kv_stream.kv_write_back`, one launch a layer; an ``M`` layer's
+    (conv, ssm) state, which every step rewrites whole, goes back whole
+    (:meth:`HostStream.write_back` of its entry, one copy a leaf on the
+    copy stream, which the refill of its slot follows).  Where the layers bound the step
     (a prefill dispatch, up to 4 MB a layer at yi-6b's serving shape, with
     resident weights) it runs on the cache stream's write-back stream
     (:meth:`HostStream.writing_back`), beside the next layer's kernels and
@@ -183,8 +191,17 @@ class PlacedFeed(tf_mod.ResidentFeed):
             return
         g = self._first[stage] + layer
         host = self.kv.windows[g]
+        # an M entry's state is rewritten whole every step: it goes back
+        # whole, one copy a leaf; an attention entry's rows go back through
+        # the write-back kernel
+        attn = {key: staged for key, staged in cache.items() if "k" in staged}
+        for key in cache:
+            if key not in attn:
+                self.kv.write_back(g, key)
+        if not attn:
+            return
         with self.kv.writing_back(g) if self._beside else contextlib.nullcontext():
-            for key, staged in cache.items():
+            for key, staged in attn.items():
                 kv_write_back(staged["k"], staged["v"], host[key]["k"], host[key]["v"],
                               self._pos, self._n)
 
@@ -213,20 +230,13 @@ class Executor:
             )
             log.info("planner picked %s for %s (%d slots x %d ctx, prefill chunk %d)",
                      self.runtime.policy.name, bundle.cfg.name, B, cfg.max_len, C)
-        policy = self.runtime.policy
-        if (policy.placement(Role.PARAMS).on_host
-                or policy.placement(Role.KV_CACHE).on_host) and (
-                set(bundle.cfg.layer_codes()) & {"M", "S"}):
-            raise NotImplementedError(
-                f"{bundle.cfg.name} under {policy.name!r}: host placements of "
-                "models with M/S layers (their recurrent state, the shared "
-                "block) are not ported yet (ROADMAP A9c)")
         stream_params = self.runtime.streamed(Role.PARAMS)
         stream_kv = self.runtime.streamed(Role.KV_CACHE)
         self.params = self.runtime.realize(params, Role.PARAMS)
-        # a streamed cache is made in host memory, never on the card
-        caches = bundle.init_cache(B, cfg.max_len,
-                                   device="cpu" if stream_kv else self.device)
+        # a host-placed cache is made in host memory, never on the card
+        caches = bundle.init_cache(
+            B, cfg.max_len, device="cpu" if self.policy.placement(Role.KV_CACHE).on_host
+            else self.device)
         self.caches = self.runtime.realize(caches, Role.KV_CACHE)
         #: the layer feed of the steps (None: views of resident trees)
         self.feed = (PlacedFeed(bundle.cfg, self.params, self.caches,

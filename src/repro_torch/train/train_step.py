@@ -7,15 +7,17 @@ grads and the optimizer state all live in the device's memory; under
 master and both moments live in pinned host memory and each step streams
 them through the update window by window
 (:func:`repro_torch.optim.adamw.apply_updates`), the reference's
-``to_compute`` / ``to_storage``; params and grads stay on the device.  The
-step is a plain function — PyTorch runs eagerly, so there is no ``jit``
-to wrap it in.
+``to_compute`` / ``to_storage``; under ``opt=host`` / ``master=host``
+(RESIDENT) they live there too and the update reads and writes them in
+place, on a card through its mapped view, over PCIe.  Params and grads
+stay on the device.  The step is a plain function — PyTorch runs eagerly,
+so there is no ``jit`` to wrap it in.
 
 What the port leaves out, each raising ``NotImplementedError`` when asked
 for: sharding-rule overrides (``rules``), other FSDP axes or ZeRO stages
 than the defaults, and cross-pod gradient compression (they need a mesh,
 ROADMAP A10/A8); host placements of params, grads or activations in
-training (ROADMAP A9c).
+training (the rest of ROADMAP A9c).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from repro_torch.optim.adamw import (
     opt_windows,
 )
 
-#: roles a training step can place in host memory (streamed)
+#: roles a training step can place in host memory (streamed or RESIDENT)
 _HOST_ROLES = (Role.MASTER, Role.OPT_STATE)
 
 
@@ -77,13 +79,13 @@ class TrainConfig:
         on ``device``; raises for a placement the step cannot realize."""
         rt = Runtime(bundle, device, self.policy)
         for role in Role:
-            if role in _HOST_ROLES:
-                rt.streamed(role)          # a RESIDENT host placement raises
-            elif role is not Role.KV_CACHE and rt.policy.placement(role).on_host:
+            if (role not in _HOST_ROLES and role is not Role.KV_CACHE
+                    and rt.policy.placement(role).on_host):
                 raise NotImplementedError(
                     f"policy {rt.policy.name!r} places {role.value} in host "
                     "memory: in training only the optimizer state (master, "
-                    "opt_state) streams from the host so far (ROADMAP A9c)")
+                    "opt_state) lives in host memory so far; params, grads "
+                    "and activations there are the rest of ROADMAP A9c")
         return rt
 
 
@@ -129,8 +131,9 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig):
     other metrics are the last microbatch's, as in the reference.  ``ef``
     (the compression error feedback) passes through unchanged.
     ``opt_state``'s master and moments are updated in place; under a
-    policy that streams them from host memory they are realized there on
-    the first step (and after a restore), and streamed through the update.
+    policy that places them in host memory they are realized there on the
+    first step (and after a restore), and streamed through the update
+    (``:stream``) or updated in place there (RESIDENT).
     """
     tcfg.check_ported()
     placed = {}      # the runtime and the streams over the current state
@@ -139,9 +142,11 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig):
         if "rt" not in placed:
             placed["rt"] = tcfg.runtime(bundle, tree_leaves(params)[0].device)
         rt = placed["rt"]
-        if not any(rt.streamed(r) for r in _HOST_ROLES):
+        if not any(rt.policy.placement(r).on_host for r in _HOST_ROLES):
             return None
         place_opt_state(rt, opt_state)      # again after a restore
+        if not any(rt.streamed(r) for r in _HOST_ROLES):
+            return None
         key = tuple(id(tree_leaves(opt_state[k])[0]) for k in ("master", "mu", "nu"))
         if placed.get("key") != key:
             placed["key"], placed["streams"] = key, _host_streams(rt, opt_state)

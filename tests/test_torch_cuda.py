@@ -1501,3 +1501,137 @@ def test_kv_host_graphs_write_back_the_same_cache_as_eager_and_hbm():
         assert len(runs[label][1]) == len(runs["graphs"][1])
         for i, (a, b) in enumerate(zip(runs[label][1], runs["graphs"][1])):
             assert torch.equal(a, b), (label, i)
+
+
+# ---------------------------------------------------------------------------
+# RESIDENT host placements: the kernels on the card's mapped view of pinned
+# host memory
+# ---------------------------------------------------------------------------
+
+def _mapped(tree):
+    """``tree`` copied into a pinned arena, as CUDA tensors over the card's
+    mapped view of it (a RESIDENT host placement's leaves)."""
+    from repro_torch.core.placement import to_host
+
+    out = to_host(tree, "cuda", mapped=True)
+    for t in tree_leaves(out):
+        assert t.is_cuda and t._host_arena.pinned
+        assert t._host_arena.base.is_pinned()
+    return out
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_and_prefill_kernels_read_a_mapped_cache_bit_for_bit(dtype):
+    """flash_decode and flash_prefill on a KV cache in pinned host memory,
+    read in place through the mapped view: the same bits as the same call
+    on the same cache in device memory (ragged lengths, a full row, holes)."""
+    B, Hq, Hkv, D, S, Sn = 4, 16, 4, 128, 512, 64
+    q = _randn(B, Hq, D, dtype=dtype, seed=70)
+    k = _randn(B, Hkv, S, D, dtype=dtype, seed=71)
+    v = _randn(B, Hkv, S, D, dtype=dtype, seed=72)
+    m = _mapped({"k": k, "v": v})
+    lens = torch.tensor([1, 200, S, 377], dtype=torch.int32, device="cuda")
+    before = flash_decode.launches
+    want, got = flash_decode(q, k, v, lens), flash_decode(q, m["k"], m["v"], lens)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 2 and torch.equal(got, want)
+    qq = _randn(B, Hq, Sn, D, dtype=dtype, seed=73)
+    kn, vn = (_randn(B, Hkv, Sn, D, dtype=dtype, seed=s) for s in (74, 75))
+    off = torch.tensor([0, 100, 448, 300], dtype=torch.int32, device="cuda")[:, None]
+    nl = torch.tensor([64, 9, 64, 0], dtype=torch.int32, device="cuda")[:, None]
+    j = torch.arange(Sn, dtype=torch.int32, device="cuda")[None, :]
+    r = torch.arange(S, dtype=torch.int32, device="cuda")[None, :]
+    q_pos = (off + j).contiguous()
+    k_pos = torch.cat([torch.where(r < off, r, -1), torch.where(j < nl, off + j, -1)],
+                      1).contiguous()
+    want = flash_prefill(qq, k, v, q_pos, k_pos, k_new=kn, v_new=vn)
+    got = flash_prefill(qq, m["k"], m["v"], q_pos, k_pos, k_new=kn, v_new=vn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_state_in_mapped_host_memory_bit_for_bit(dtype):
+    """ssd_scan with its initial and final state in pinned host memory
+    (mapped), separate and in place (the serving prefill's ``init_state =
+    state_out``): the same bits as with the state in device memory."""
+    B, T, H, P, N = 3, 100, 8, 64, 128
+    x = _randn(B, T, H, P, dtype=dtype, seed=80)
+    dt = torch.nn.functional.softplus(_randn(B, T, H, dtype=torch.float32, seed=81))
+    A = -torch.exp(_randn(H, dtype=torch.float32, seed=82))
+    Bm, Cm = (_randn(B, T, N, dtype=dtype, seed=s) for s in (83, 84))
+    h0 = _randn(B, H, P, N, dtype=torch.float32, seed=85)
+    y, hT = ssd_scan(x, dt, A, Bm, Cm, init_state=h0, return_state=True)
+    m = _mapped({"h0": h0, "out": torch.zeros_like(h0), "inplace": h0})
+    y1, _ = ssd_scan(x, dt, A, Bm, Cm, init_state=m["h0"], return_state=True,
+                     state_out=m["out"])
+    y2, _ = ssd_scan(x, dt, A, Bm, Cm, init_state=m["inplace"], return_state=True,
+                     state_out=m["inplace"])
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y) and torch.equal(y2, y)
+    assert torch.equal(m["out"], hT) and torch.equal(m["inplace"], hT)
+    assert torch.equal(m["h0"], h0)                    # read, not written
+
+
+@requires_cuda
+def test_mapped_view_of_pageable_memory_raises():
+    from repro_torch.kernels.kv_stream import mapped
+
+    pinned = torch.arange(64, dtype=torch.uint8).pin_memory()
+    view = mapped(pinned)
+    assert view.is_cuda and torch.equal(view.cpu(), pinned)
+    view.add_(1)                                       # the card writes host memory
+    torch.cuda.synchronize()
+    assert torch.equal(pinned, torch.arange(1, 65, dtype=torch.uint8))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        mapped(torch.zeros(64, dtype=torch.uint8))       # pageable
+    with pytest.raises(ValueError):
+        mapped(pinned.cuda())
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch,policy", [
+    ("yi-6b", "kv=host"), ("yi-6b", "kv=host,params=host"), ("mamba2-780m", "kv_host"),
+    ("mamba2-780m", "kv=host"), ("zamba2-1.2b", "kv_host"),
+])
+def test_host_placed_graphs_eager_and_hbm_agree(arch, policy):
+    """A RESIDENT host placement, and Mamba-2/Zamba-2 state under
+    ``kv_host``, through the graphs, eagerly and as ``hbm_resident``: the
+    same tokens over reused slots, and the host cache (or recurrent state)
+    holds the same bytes as the eager server's and as hbm_resident's
+    device cache; a RESIDENT role is a mapped view with no window, and the
+    graphs launch what hbm_resident's launch."""
+    from repro_torch.core.placement import Role
+    from repro_torch.serve import ServeConfig, Server
+
+    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="bfloat16"))
+    params = tb.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 500, n).astype(np.int32) for n in (40, 9, 50, 3, 25)]
+    runs = {}
+    for label, pol, eager in (("graphs", policy, False), ("eager", policy, True),
+                              ("hbm", "hbm_resident", False)):
+        server = Server(tb, ServeConfig(batch_slots=3, max_len=64, prefill_chunk=8,
+                                        policy=pol), params, device="cuda", eager=eager)
+        reqs = [server.submit(p, max_new_tokens=8) for p in prompts]
+        server.run_until_done(max_steps=300)
+        torch.cuda.synchronize()
+        eng = server.engine
+        if pol != "hbm_resident":
+            leaves = tree_leaves(eng.caches)
+            assert all(t._host_arena is not None for t in leaves)
+            streamed = server.runtime.streamed(Role.KV_CACHE)
+            assert all(t.is_pinned() if streamed else t.is_cuda for t in leaves)
+            if not streamed:
+                assert eng.feed is None or "kv_cache" not in eng.feed.streams()
+        runs[label] = ([r.out_tokens for r in reqs],
+                       [t.cpu() for t in tree_leaves(eng.caches)],
+                       None if eager else eng.graph_launches)
+    if not runs["graphs"][2]["decode"].get("kv_stream"):
+        assert runs["graphs"][2] == runs["hbm"][2]
+    for label in ("eager", "hbm"):
+        assert runs[label][0] == runs["graphs"][0], label
+        for i, (a, b) in enumerate(zip(runs[label][1], runs["graphs"][1])):
+            assert torch.equal(a, b), (label, i)

@@ -18,9 +18,12 @@ kernel.  Held here:
 * every buffer a step reads or writes keeps its address over a run, under
   every placement (the serve graphs' fixed-pointer rule);
 * the windows a step streams and the bytes it copies;
-* a RESIDENT host placement and a model with ``M``/``S`` layers under a
-  host placement raise; the launcher and ``bench_llm_inference``'s
-  measured leg run the placements.
+* the launcher and ``bench_llm_inference``'s measured leg run the
+  placements.
+
+RESIDENT host placements are held in ``tests/test_torch_resident_host.py``,
+host placements of ``M``/``S`` models in
+``tests/test_torch_ssm_placed_serve.py``.
 """
 
 import dataclasses
@@ -210,23 +213,6 @@ def test_write_back_plain_version_scatters_across_devices_by_rows():
                                           src[0, 0, 4, 0].item()]
     assert dst_v[0, 0, 4, 1].item() == src[0, 0, 4, 1].item() + 100
     assert not dst_k[1].any()
-
-
-def test_resident_host_and_ssm_host_placements_raise():
-    tb = ModelBundle(dataclasses.replace(smoke_config("yi-6b"), dtype="float32"))
-    params = tb.init_params(torch.Generator().manual_seed(0))
-    for policy in ("kv=host", "params=host", "kv=host,params=host:stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-            Server(tb, ServeConfig(batch_slots=2, max_len=16, policy=policy),
-                   params, device="cpu")
-    for arch in ("mamba2-780m", "zamba2-1.2b"):
-        mb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="float32"))
-        mp = mb.init_params(torch.Generator().manual_seed(0))
-        for policy in ("kv_host", "weights_stream"):
-            with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-                Server(mb, ServeConfig(batch_slots=2, max_len=16, policy=policy),
-                       mp, device="cpu")
-        Server(mb, ServeConfig(batch_slots=2, max_len=16), mp, device="cpu")
 
 
 def test_auto_on_the_cpu_serves_hbm_resident():

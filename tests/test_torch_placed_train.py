@@ -12,7 +12,8 @@ the reference's ``hbm_resident`` run within ``tests/test_torch_train.py``'s
 tolerances (the reference's own ``opt_host`` run aborts on this JAX,
 ROADMAP C3).  A checkpoint restored under ``opt_host`` continues exactly;
 the launcher takes ``--policy``; placements the step cannot realize
-raise.
+raise (RESIDENT ``opt=host`` and ``master=host``:
+``tests/test_torch_resident_host.py``).
 """
 
 import os
@@ -126,9 +127,12 @@ def test_opt_host_restart_from_a_checkpoint_is_exact(tmp_path):
 def test_train_placements_the_step_cannot_realize_raise():
     _, tb = _bundles("olmo-1b")
     gen = torch.Generator().manual_seed(0)
-    for policy in ("opt=host", "master=host", "params=host:stream", "grads=host:stream",
-                   "act=host:stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
+    # the optimizer state takes RESIDENT host placements too
+    # (tests/test_torch_resident_host.py); params, grads and activations in
+    # host memory are the rest of A9c
+    for policy in ("params=host:stream", "grads=host:stream", "act=host:stream",
+                   "params=host"):
+        with pytest.raises(NotImplementedError, match="rest of ROADMAP A9c"):
             init_train_state(tb, gen, TrainConfig(policy=policy))
     with pytest.raises(DonorAxisError):
         init_train_state(tb, gen, TrainConfig(policy="opt_peer_host"))

@@ -245,8 +245,12 @@ def test_realize_and_streamed():
     assert host is not tree and rt.realize(host, "kv") is host
     assert rt.streamed("kv") and not rt.streamed("params")
     assert not rt.donate_ok("kv") and rt.donate_ok("params")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-        Runtime(ModelSizing(get_config("yi-6b")), "cpu", "kv=host").streamed("kv")
+    # a RESIDENT host placement is computed on in place: not streamed
+    resident = Runtime(ModelSizing(get_config("yi-6b")), "cpu", "kv=host")
+    assert resident.streamed("kv") is False and resident.donate_ok("kv")
+    host = resident.realize(tree, "kv")
+    assert all(t._host_arena is not None for t in tree_leaves(host))
+    assert resident.realize(host, "kv") is host
 
 
 def _windows(n, seed=0):

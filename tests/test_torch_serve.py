@@ -131,15 +131,12 @@ def test_add_request_validation_matches_reference():
 
 
 def test_unported_policy_and_hang_raise():
-    # streamed host placements serve (tests/test_torch_placed_serve.py); a
-    # RESIDENT host placement waits for A9c, a peer tier needs a donor axis
+    # host placements serve (tests/test_torch_placed_serve.py,
+    # tests/test_torch_resident_host.py); a peer tier needs a donor axis
     ServeConfig(policy="kv_host")
     ServeConfig(policy="hbm_resident")
     tb = ModelBundle(smoke_config("olmo-1b"))
     params = tb.init_params(torch.Generator().manual_seed(0), "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-        Server(tb, ServeConfig(batch_slots=1, max_len=16, policy="kv=host"),
-               params, device="cpu")
     with pytest.raises(DonorAxisError):
         Server(tb, ServeConfig(batch_slots=1, max_len=16, policy="kv_peer_hbm"),
                params, device="cpu")

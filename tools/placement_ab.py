@@ -19,8 +19,8 @@ the same card.  A run builds that checkout's kernels, then
   checkout's traces are read the same way, write-back device time and
   stream included), a ``serve_requests`` that hashes every request's
   tokens (SHA-256 per policy, graphs and eager), and the planner's step
-  on the spec sheet only (``build/calibration.json`` comes from phase 9,
-  which is not run here).
+  and mapped-read rate on the spec sheet only (``build/calibration.json``
+  comes from phase 9, which is not run here).
 
 Prints one JSON line per run and writes them all to
 ``DIR/placement_ab.json`` (default ``build``), each run's log to
@@ -100,6 +100,10 @@ def planner_steps(sizing, policy, shape):
     pred = predict(sizing.decode_workload(shape), policy, SPEC_SYSTEM)
     return {"spec": pred, "calibrated": pred}
 c.replay_traffic, c.serve_requests, c.planner_steps = replay_traffic, serve_requests, planner_steps
+if hasattr(c, "mapped_read_rate"):     # the spec sheet's, as for the planner's step
+    from repro_torch.core.datapath import read_bound
+    from repro_torch.core.hardware import MemoryTier
+    c.mapped_read_rate = lambda: read_bound(MemoryTier.HOST, SPEC_SYSTEM).bandwidth
 t0 = time.perf_counter()
 _, table = c.phase_placed_serving()
 out["phase_10b_s"] = time.perf_counter() - t0
