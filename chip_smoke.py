@@ -145,7 +145,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    copy, an ``S`` layer's rows by the write-back kernel), step EWMA
    beside the planner; (e) ``Runtime.migrate`` of the yi-6b cache to
    pinned host memory and back, value for value, timed beside
-   ``price_copy``.
+   ``price_copy``;
+11. preemption, faults and recovery through the graphs, full width and
+   depth, bf16, 8 slots x 2048, prefill chunk 256.  (a) yi-6b serving
+   phase 4's 16 requests arriving one every 2 ticks, 64 new tokens each,
+   ``preempt=True``, ``preempt_wait=4``, ``verify_spills=True``: at least
+   one preemption, every one promoted back, greedy tokens per rid those of
+   phase 4, no capture after construction, spilled rows in pinned host
+   memory (checked every tick), each spill's and restore's bytes and time
+   beside the planner's round trip, latency and TTFT p50/p99; (b) the same
+   on mamba2-780m with phase 8c's requests and tokens; (c) yi-6b and
+   mamba2-780m replanned ``hbm_resident`` -> ``kv_host`` ->
+   ``hbm_resident`` with 8 live requests: tokens those of phases 4 / 8c,
+   both graphs captured once a replan, each replan's migrate and rebuild
+   times; (d) chaos on yi-6b under ``kv_host`` (12 of phase 4's requests,
+   32 new tokens): a seeded plan with a ``host`` tier loss at a decode
+   pass (evacuation to the card, graphs captured again), a transient
+   migration failure, a 1 s stall past the watchdog's deadline and a
+   corrupted spill (replayed): every request ends, tokens those of phase
+   4, the firing record printed; (e) (a)'s workload through the asyncio
+   ``Scheduler``, tokens identical; (f) ``bench_llm_inference``'s queued
+   leg at smoke scale, its p50/p99.  Every serving phase's step watchdog
+   runs at its default and must take no action but ``ok``.
 
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
 name and power limit, and the device JSON.
@@ -155,6 +176,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import os
@@ -607,6 +629,9 @@ def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False):
         for phase in ("decode", "prefill"):
             for name, n in eng.graph_launches[phase].items():
                 launches[name] += n * c[f"{phase}_replays"]
+    actions = server.watchdog.actions
+    if any(n for a, n in actions.items() if a != "ok"):
+        raise AssertionError(f"the step watchdog acted: {actions}")
     tp = server.throughput()
     log(f"  {'eager' if eager else 'graphs'}: served {len(reqs)} requests in {wall:.2f} s "
         f"(server built in {built:.2f} s): {c['decode_steps']} decode steps, "
@@ -617,7 +642,8 @@ def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False):
         f"{tp['prefill_tps']:.1f} tok/s, decode {tp['decode_tokens']} tokens at "
         f"{tp['decode_tps']:.1f} tok/s; decode step EWMA "
         f"{eng.measured_step_s * 1e3:.2f} ms; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; watchdog {actions} "
+        f"(deadline {server.watchdog.deadline_s() * 1e3:.1f} ms)")
     return server, reqs, wall, launches
 
 
@@ -688,7 +714,7 @@ def phase_full():
     if elaunches["decode_attention"] != L * est["decode_steps"]:
         raise AssertionError(f"eager decode launches {elaunches}")
     same_tokens(cfg.name, reqs, ereqs)
-    return launches, st, [int(n) for n in plens], server, eager
+    return launches, st, [int(n) for n in plens], server, eager, [r.out_tokens for r in reqs]
 
 
 def phase_granite_full():
@@ -1541,7 +1567,6 @@ def serve_full(arch, n_requests, max_prompt, new_tokens):
     tokens, numpy seed 0) through full-width, full-depth ``arch`` in bf16 on
     ServeConfig(8, 2048, 256), through the CUDA graphs and then eagerly on
     the same weights: greedy tokens identical for every request."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import ModelBundle
@@ -1556,16 +1581,25 @@ def serve_full(arch, n_requests, max_prompt, new_tokens):
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     m = MAMBA
     scfg = ServeConfig(batch_slots=m["B"], max_len=2048, prefill_chunk=m["T"])
-    rng = np.random.default_rng(0)
-    plens = rng.integers(128, max_prompt + 1, size=n_requests)
-    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in plens]
-    log(f"  prompts {int(plens.min())}-{int(plens.max())} tokens, {new_tokens} new each")
+    prompts = ssm_prompts(cfg.vocab, n_requests, max_prompt)
+    plens = [len(p) for p in prompts]
+    log(f"  prompts {min(plens)}-{max(plens)} tokens, {new_tokens} new each")
     server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, new_tokens)
     check_logits(bundle, params, server, m["B"])
     eager, ereqs, _, elaunches = serve_requests(bundle, params, scfg, prompts, new_tokens,
                                                 eager=True)
     same_tokens(cfg.name, reqs, ereqs)
-    return server, eager, params, launches, elaunches
+    return server, eager, params, launches, elaunches, [r.out_tokens for r in reqs]
+
+
+def ssm_prompts(vocab, n_requests, max_prompt):
+    """Phases 8c/8d's requests: prompts of 128..max_prompt tokens, numpy
+    seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(128, max_prompt + 1, size=n_requests)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
 
 
 def phase_mamba_full():
@@ -1576,14 +1610,15 @@ def phase_mamba_full():
     log(f"== phase 8c: {cfg.name} bfloat16, {cfg.n_layers} M layers, d_model "
         f"{cfg.d_model}, {s.n_heads(cfg.d_model)} SSD heads x P {s.head_dim}, "
         f"N {s.d_state}, vocab {cfg.vocab}, through the CUDA graphs, then eager")
-    server, eager, params, launches, elaunches = serve_full("mamba2-780m", 16, 1536, 64)
+    server, eager, params, launches, elaunches, tokens = serve_full("mamba2-780m", 16,
+                                                                   1536, 64)
     L = cfg.n_layers
     for label, srv, ln in (("graphs", server, launches), ("eager", eager, elaunches)):
         want = {"ssd_scan": L * srv.stats()["prefill_dispatches"],
                 "decode_attention": 0, "prefill_attention": 0, "kv_stream": 0}
         if ln != want:
             raise AssertionError(f"{label}: launches {ln} != {want}")
-    return server, eager, params, launches
+    return server, eager, params, launches, tokens
 
 
 def phase_zamba_full():
@@ -1596,7 +1631,7 @@ def phase_zamba_full():
         f"{codes.count('S')} applications of one shared attention block "
         f"({cfg.attention.n_heads} x {cfg.attention.d_head} heads over width "
         f"{2 * cfg.d_model}), d_model {cfg.d_model}, through the CUDA graphs, then eager")
-    server, eager, params, launches, elaunches = serve_full("zamba2-1.2b", 8, 1024, 32)
+    server, eager, params, launches, elaunches, _ = serve_full("zamba2-1.2b", 8, 1024, 32)
     n_m, n_s = codes.count("M"), codes.count("S")
     for label, srv, ln in (("graphs", server, launches), ("eager", eager, elaunches)):
         st = srv.stats()
@@ -2784,6 +2819,407 @@ def phase_migrate():
     gc.collect()
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# preemption, replan, faults and recovery, the asyncio Scheduler
+# ---------------------------------------------------------------------------
+
+#: phase 11's serving shape: phase 4's, with preemption on
+PREEMPT = dict(every=2, wait=4)
+
+
+def percentiles(reqs):
+    """p50/p99 of completion latency and time to first token, ms."""
+    import numpy as np
+
+    lat = np.asarray([r.finished_s - r.submitted_s for r in reqs]) * 1e3
+    ttft = np.asarray([r.first_token_s - r.submitted_s for r in reqs]) * 1e3
+    return {"latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_p99_ms": float(np.percentile(lat, 99)),
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99))}
+
+
+def serve_arrivals(server, prompts, new_tokens, every=PREEMPT["every"], hook=None):
+    """Requests arriving one every ``every`` ticks (``prompts[i]`` at tick
+    ``every * i``), ``new_tokens`` greedy tokens each, stepped until
+    drained; ``hook(server)`` after each tick.  Returns the requests."""
+    from repro_torch.serve import Request
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    pending, tick = list(reqs), 0
+    while pending or server.has_work():
+        while pending and tick >= every * (len(reqs) - len(pending)):
+            server.add_request(pending.pop(0))
+        server.step()
+        tick += 1
+        if hook is not None:
+            hook(server)
+        if tick > 20_000:
+            raise AssertionError("the serve loop did not drain")
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != new_tokens:
+            raise AssertionError(f"request {r.rid}: done={r.done}, {len(r.out_tokens)} tokens")
+    return reqs
+
+
+def pinned_spills(server):
+    """Every spilled sequence parked on the host tier lies in pinned host
+    memory (checked after each tick)."""
+    from repro_torch.core.hardware import MemoryTier
+    from repro_torch.models.sharding import tree_leaves
+
+    for sp in server._spilled.values():
+        if sp.tier is MemoryTier.HOST and not all(
+                t.device.type == "cpu" and t.is_pinned() for t in tree_leaves(sp.rows)):
+            raise AssertionError(f"rid {sp.rid}: spilled rows not in pinned host memory")
+
+
+def log_moves(label, server, price_policy=None):
+    """Wall ms of each spill and restore, by where the parked rows lay,
+    against the planner's round-trip price of one slot's bytes under the
+    cache placement the moves ran under (``price_policy``, default the
+    server's policy now)."""
+    from repro_torch.api import Runtime
+
+    eng = server.engine
+    nbytes = eng.slot_bytes()
+    rt = server.runtime if price_policy is None else Runtime(
+        server.bundle, server.device, price_policy)
+    spill_to, price = rt.preemption_price(nbytes)
+    parts = []
+    for kind, where in sorted({(k, w) for k, w, _, _ in eng.moves}, reverse=True):
+        v = [dt * 1e3 for k, w, _, dt in eng.moves if (k, w) == (kind, where)]
+        parts.append(f"{kind} ({where}) {len(v)} x, {min(v):.2f} / "
+                     f"{statistics.median(v):.2f} / {max(v):.2f} ms min / median / max")
+    log(f"  {label}: a slot is {nbytes} bytes; " + "; ".join(parts or ["no moves"])
+        + f"; the planner's round trip to {spill_to.to_str()} and back "
+        f"{price * 1e3:.3f} ms ({rt.policy.name})")
+
+
+def fresh_counts(bundle, params, scfg, policy):
+    """The kernels one replay of each graph launches on a server built
+    fresh under ``policy``: what a rebuild under it must capture again."""
+    import copy
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.serve import Server
+
+    server = Server(bundle, dataclasses.replace(scfg, policy=policy), params, device="cuda")
+    counts = copy.deepcopy(server.engine.graph_launches)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_counts(label, server, want):
+    """The graphs in force launch, per replay, what a fresh server's do
+    under the same policy (``want``: graph -> kernel -> launches)."""
+    got = server.engine.graph_launches
+    if got != want:
+        raise AssertionError(f"{label}: launches per replay {got} under "
+                             f"{server.policy.name}, a fresh server's {want}")
+
+
+def check_launches(label, server, builds):
+    """Every decode step and prefill dispatch was a graph replay, and the
+    replays launched, of each kernel whose per-replay count is the same in
+    every build the run went through (``builds``: their ``graph_launches``),
+    that count times the replays; one build: every kernel exactly.  Logs
+    the launches."""
+    eng = server.engine
+    c = eng.counters
+    if (c["decode_replays"], c["prefill_replays"]) != (
+            c["decode_steps"], c["prefill_dispatches"]):
+        raise AssertionError(f"{label}: replays differ from steps and dispatches: {c}")
+    got = eng.replay_launches
+    for k in {k for b in builds for g in b.values() for k in g}:
+        per = {tuple(b.get(g, {}).get(k, 0) for g in ("decode", "prefill")) for b in builds}
+        if len(per) == 1:
+            nd, npf = per.pop()
+            want = nd * c["decode_replays"] + npf * c["prefill_replays"]
+            if got[k] != want:
+                raise AssertionError(f"{label}: {got[k]} {k} launches, {nd} x "
+                                     f"{c['decode_replays']} + {npf} x "
+                                     f"{c['prefill_replays']} expected")
+    log(f"  {label}: {c['decode_replays']} decode + {c['prefill_replays']} prefill "
+        f"replays launched {dict(sorted(got.items()))} "
+        f"({eng.graph_launches} per replay now)")
+
+
+def check_preempted(label, server, reqs, want_tokens, counts):
+    """At least one preemption, every one promoted back, no capture after
+    construction, the launches per replay of a fresh server (``counts``)
+    times the replays, greedy tokens per rid as in ``want_tokens``."""
+    st = server.stats()
+    if st["preemptions"] < 1 or st["promotions"] != st["preemptions"]:
+        raise AssertionError(f"{label}: preemptions {st['preemptions']}, "
+                             f"promotions {st['promotions']}")
+    if st["captures"] != 2:
+        raise AssertionError(f"{label}: {st['captures']} captures, expected the 2 of "
+                             "construction (a slot move must not capture)")
+    check_counts(label, server, counts)
+    check_launches(label, server, [counts])
+    diff = [r.rid for r in reqs if r.out_tokens != want_tokens[r.rid][:len(r.out_tokens)]]
+    if diff:
+        raise AssertionError(f"{label}: greedy tokens differ for requests {diff}")
+    p = percentiles(reqs)
+    log(f"  {label}: {len(reqs)} requests, {st['preemptions']} preemptions = "
+        f"{st['promotions']} promotions, captures {st['captures']}, tokens identical; "
+        f"latency p50 {p['latency_p50_ms']:.1f} / p99 {p['latency_p99_ms']:.1f} ms, TTFT "
+        f"p50 {p['ttft_p50_ms']:.1f} / p99 {p['ttft_p99_ms']:.1f} ms; spill "
+        f"{st['spill_s'] * 1e3:.1f} ms, restore {st['restore_s'] * 1e3:.1f} ms in all; "
+        f"watchdog {server.watchdog.actions}")
+    log_moves(label, server)
+
+
+def replan_run(label, bundle, params, scfg, prompts, want_tokens, counts, new=16):
+    """Serve ``prompts`` (all at once, ``new`` tokens each) and replan
+    hbm_resident -> kv_host after the 3rd tick, back after the 9th: each
+    replan captures both graphs exactly once, and they launch per replay
+    what a fresh server's do under the new policy (``counts``: policy ->
+    graph_launches); the tokens are the unreplanned run's."""
+    import dataclasses
+
+    from repro_torch.serve import Request, Server
+
+    server = Server(bundle, dataclasses.replace(scfg, policy="hbm_resident"), params,
+                    device="cuda")
+    check_counts(label, server, counts["hbm_resident"])
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new) for i, p in enumerate(prompts)]
+    server.add_requests(reqs)
+    n, caps = 0, []
+    while server.has_work():
+        server.step()
+        n += 1
+        if n in (3, 9):
+            target = "kv_host" if n == 3 else "hbm_resident"
+            before = server.stats()["captures"]
+            if not server.replan(target):
+                raise AssertionError(f"{label}: replan at tick {n} did not migrate")
+            caps.append(server.stats()["captures"] - before)
+            check_counts(f"{label} after the replan to {target}", server, counts[target])
+    if caps != [2, 2]:
+        raise AssertionError(f"{label}: captures per replan {caps}, expected [2, 2]")
+    check_launches(label, server, [counts["hbm_resident"], counts["kv_host"]])
+    diff = [r.rid for r in reqs if r.out_tokens != want_tokens[r.rid][:new]]
+    if diff or not all(r.done for r in reqs):
+        raise AssertionError(f"{label}: tokens across the replans differ for {diff}")
+    for what, pol, mig, build in server.engine.migration_log:
+        log(f"  {label}: {what} -> {pol}: migrate {mig * 1e3:.1f} ms, rebuild (feed, "
+            f"snapshot, warm-ups, restore, 2 captures) {build * 1e3:.1f} ms")
+    log(f"  {label}: hbm_resident -> kv_host -> hbm_resident with {len(prompts)} live "
+        f"requests: tokens identical to the unreplanned run, 2 captures a replan, "
+        f"watchdog {server.watchdog.actions}")
+
+
+def chaos_plan(seed=0):
+    """Phase 11d's seeded schedule: a stall past the deadline early, the
+    first spill corrupted, the host tier lost at a later decode pass (the
+    corrupted spill has been promoted by then), the evacuation's first
+    migration failing once."""
+    import numpy as np
+    from repro_torch.core.faults import FaultEvent, FaultKind, FaultPlan
+
+    rng = np.random.default_rng(seed)
+    return FaultPlan([
+        FaultEvent("decode", at=int(rng.integers(8, 16)), kind=FaultKind.STALL,
+                   seconds=1.0),
+        FaultEvent("spill", at=0, kind=FaultKind.SPILL_CORRUPT),
+        FaultEvent("decode", at=int(rng.integers(36, 48)), kind=FaultKind.TIER_LOSS,
+                   tier="host"),
+        FaultEvent("migrate", at=0, kind=FaultKind.MIGRATE_FAIL, error="transient"),
+    ], seed=seed)
+
+
+def async_run(server, prompts, new_tokens, every_s=0.02):
+    """Phase 11e: the asyncio Scheduler over ``server``; client ``i``
+    submits its prompt ``every_s * i`` seconds in and streams its tokens.
+    Returns the requests."""
+    import asyncio
+
+    from repro_torch.serve import Scheduler
+
+    sched = Scheduler(server)
+
+    async def client(i):
+        await asyncio.sleep(every_s * i)
+        req = await sched.submit(prompts[i], max_new_tokens=new_tokens, rid=i)
+        streamed = [tok async for tok in sched.stream(req)]
+        if streamed != req.out_tokens:
+            raise AssertionError(f"request {i}: streamed tokens differ from out_tokens")
+        return req
+
+    async def main():
+        async def clients():
+            reqs = await asyncio.gather(*(client(i) for i in range(len(prompts))))
+            sched.close()
+            return reqs
+        _, reqs = await asyncio.gather(sched.run(), clients())
+        return reqs
+
+    return asyncio.run(main())
+
+
+def phase_preemption(yi_tokens, mamba_tokens, counts):
+    """11: preemption and promotion (a) on yi-6b and (b) mamba2-780m at full
+    width and depth, phase 4's / 8c's requests arriving one every 2 ticks,
+    tokens identical to those phases', no capture; (c) replans with live
+    rows; (d) chaos under kv_host; (e) the asyncio Scheduler; (f) the
+    port's bench_llm_inference queued leg on (a)'s model and requests.
+    ``counts``: per arch, phase 4's / 8c's launches per replay (a fresh
+    ``hbm_resident`` server's), which every server here and every rebuild
+    under that policy must reproduce."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.benchmarks import bench_llm_inference
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import MemoryTier
+    from repro_torch.core.placement import Role
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig, Server
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = get_config("yi-6b")
+    log(f"== phase 11: preemption, replan, faults and recovery, the asyncio Scheduler "
+        f"({cfg.name} and mamba2-780m bfloat16, full width and depth, through the graphs)")
+    bundle = ModelBundle(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    prompts, _ = dense_prompts(cfg.vocab)
+    y = YI
+    base = ServeConfig(batch_slots=y["B"], max_len=y["Smax"], prefill_chunk=y["chunk"])
+    pre = dataclasses.replace(base, preempt=True, preempt_wait=PREEMPT["wait"],
+                              verify_spills=True)
+    yi_counts = {"hbm_resident": counts[cfg.name],
+                 "kv_host": fresh_counts(bundle, params, base, "kv_host")}
+    log(f"  launches per replay, fresh {cfg.name} servers: {yi_counts}")
+
+    t0 = time.perf_counter()
+    server = Server(bundle, pre, params, device="cuda")
+    reqs = serve_arrivals(server, prompts, 64, hook=pinned_spills)
+    check_preempted(f"11a {cfg.name}", server, reqs, yi_tokens, yi_counts["hbm_resident"])
+    log(f"  11a took {time.perf_counter() - t0:.1f} s")
+    del server, reqs
+    free()
+
+    t0 = time.perf_counter()
+    replan_run(f"11c {cfg.name}", bundle, params, base, prompts[:8], yi_tokens, yi_counts)
+    log(f"  11c ({cfg.name}) took {time.perf_counter() - t0:.1f} s")
+    free()
+
+    t0 = time.perf_counter()
+    plan = chaos_plan()
+    server = Server(bundle, dataclasses.replace(pre, policy="kv_host", faults=plan),
+                    params, device="cuda")
+    check_counts("11d at construction", server, yi_counts["kv_host"])
+    reqs = serve_arrivals(server, prompts[:12], 32, hook=pinned_spills)
+    st = server.stats()
+    want = {"tier_losses": 1, "evacuations": 1, "spill_corruptions": 1}
+    got = {k: st[k] for k in want}
+    if (got != want or st["migration_retries"] < 1 or st["watchdog_stalls"] < 1
+            or st["requeued_fresh"] < 1 or MemoryTier.HOST not in server.runtime.lost_tiers
+            or server.policy.placement(Role.KV_CACHE).tier is not MemoryTier.HBM
+            or st["captures"] != 4):
+        raise AssertionError(f"11d: recovery counters {st}, policy {server.policy.name}")
+    check_counts("11d after the evacuation", server, yi_counts["hbm_resident"])
+    check_launches("11d", server, [yi_counts["kv_host"], yi_counts["hbm_resident"]])
+    diff = [r.rid for r in reqs if r.out_tokens != yi_tokens[r.rid][:32]]
+    if diff:
+        raise AssertionError(f"11d: greedy tokens differ from the no-fault run for {diff}")
+    log(f"  11d chaos under kv_host: {len(reqs)} requests all ended, greedy tokens identical "
+        f"to phase 4's (no faults); tier_losses {st['tier_losses']}, evacuations "
+        f"{st['evacuations']} (policy now {server.policy.name}), migration_retries "
+        f"{st['migration_retries']}, watchdog_stalls {st['watchdog_stalls']} (actions "
+        f"{server.watchdog.actions}), spill_corruptions {st['spill_corruptions']}, "
+        f"requeued_fresh {st['requeued_fresh']}, preemptions {st['preemptions']}, "
+        f"promotions {st['promotions']}, captures {st['captures']}")
+    for what, pol, mig, build in server.engine.migration_log:
+        log(f"  11d: {what} -> {pol}: migrate {mig * 1e3:.1f} ms, rebuild {build * 1e3:.1f} ms")
+    log("  11d firing record: " + json.dumps(plan.to_json()["fired"]))
+    log_moves("11d", server, price_policy="kv_host")
+    log(f"  11d took {time.perf_counter() - t0:.1f} s")
+    del server, reqs
+    free()
+
+    t0 = time.perf_counter()
+    server = Server(bundle, pre, params, device="cuda")
+    reqs = async_run(server, prompts, 64)
+    st = server.stats()
+    diff = [r.rid for r in reqs if r.out_tokens != yi_tokens[r.rid]]
+    if diff or st["captures"] != 2 or st["promotions"] != st["preemptions"]:
+        raise AssertionError(f"11e: tokens differ for {diff}; {st}")
+    check_counts("11e", server, yi_counts["hbm_resident"])
+    check_launches("11e", server, [yi_counts["hbm_resident"]])
+    p = percentiles(reqs)
+    log(f"  11e asyncio Scheduler: {len(reqs)} clients streamed their tokens, identical to "
+        f"phase 4's; {st['preemptions']} preemptions; latency p50 "
+        f"{p['latency_p50_ms']:.1f} / p99 {p['latency_p99_ms']:.1f} ms; took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del server, reqs
+    free()
+
+    # 11f: the benchmark's leg at (a)'s shape; its odd rids sample
+    t0 = time.perf_counter()
+    row = bench_llm_inference.queued("cuda", bundle=bundle, params=params, config=base,
+                                     prompts=prompts, max_new=64)
+    if row["preemptions"] < 1 or row["promotions"] != row["preemptions"]:
+        raise AssertionError(f"11f: queued leg {row['preemptions']} preemptions, "
+                             f"{row['promotions']} promotions")
+    if row["graph_launches"] != yi_counts["hbm_resident"]:
+        raise AssertionError(f"11f: launches per replay {row['graph_launches']}")
+    n_decode = yi_counts["hbm_resident"]["decode"]["decode_attention"]
+    if row["replay_launches"].get("decode_attention") != n_decode * row["decode_replays"]:
+        raise AssertionError(f"11f: launches {row['replay_launches']}, "
+                             f"{row['decode_replays']} decode replays")
+    diff = [i for i, t in enumerate(row["tokens"]) if i % 2 == 0 and t != yi_tokens[i]]
+    sampled = row["tokens"][1::2]
+    if diff or not all(len(t) == 64 and all(0 <= x < cfg.vocab for x in t) for t in sampled):
+        raise AssertionError(f"11f: greedy tokens differ from phase 4's for {diff}, or a "
+                             "sampled request came back short or out of range")
+    log(f"  11f bench_llm_inference queued leg ({row['arch']}, {row['requests']} requests of "
+        f"{min(row['prompt_lens'])}-{max(row['prompt_lens'])} tokens, 64 new, into "
+        f"{row['batch_slots']} x {row['max_len']} slots, chunk {row['prefill_chunk']}, "
+        f"even rids greedy and identical to phase 4's, odd ones sampled; spill tier "
+        f"{row['spill_tier']}): latency p50 {row['latency_p50_s'] * 1e3:.2f} / p99 "
+        f"{row['latency_p99_s'] * 1e3:.2f} ms, TTFT p50 {row['ttft_p50_s'] * 1e3:.2f} / "
+        f"p99 {row['ttft_p99_s'] * 1e3:.2f} ms, {row['preemptions']} preemptions, "
+        f"{row['decode_replays']} decode + {row['prefill_replays']} prefill replays "
+        f"launched {row['replay_launches']}; took {time.perf_counter() - t0:.1f} s")
+    del params, bundle
+    free()
+
+    mcfg = get_config("mamba2-780m")
+    mbundle = ModelBundle(mcfg)
+    mparams = mbundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    mprompts = ssm_prompts(mcfg.vocab, 16, 1536)
+    mbase = ServeConfig(batch_slots=MAMBA["B"], max_len=2048, prefill_chunk=MAMBA["T"])
+    m_counts = {"hbm_resident": counts[mcfg.name],
+                "kv_host": fresh_counts(mbundle, mparams, mbase, "kv_host")}
+    log(f"  launches per replay, fresh {mcfg.name} servers: {m_counts}")
+    t0 = time.perf_counter()
+    server = Server(mbundle, dataclasses.replace(
+        mbase, preempt=True, preempt_wait=PREEMPT["wait"], verify_spills=True),
+        mparams, device="cuda")
+    reqs = serve_arrivals(server, mprompts, 64, hook=pinned_spills)
+    check_preempted(f"11b {mcfg.name}", server, reqs, mamba_tokens, m_counts["hbm_resident"])
+    log(f"  11b took {time.perf_counter() - t0:.1f} s")
+    del server, reqs
+    free()
+    t0 = time.perf_counter()
+    replan_run(f"11c {mcfg.name}", mbundle, mparams, mbase, mprompts[:8], mamba_tokens,
+               m_counts)
+    log(f"  11c ({mcfg.name}) took {time.perf_counter() - t0:.1f} s")
+    del mparams, mbundle
+    free()
+
 
 def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     """One entry of the ``kernels`` JSON line; logs it."""
@@ -2836,7 +3272,8 @@ def main() -> int:
     phase_train_parity()
     phase_ssm_train_parity()
     phase_ssm_parity()
-    launches, stats, plens, server, eager = phase_full()
+    launches, stats, plens, server, eager, yi_tokens = phase_full()
+    per_replay = {"yi-6b": copy.deepcopy(server.engine.graph_launches)}
     measured = {"graphs": server.engine.measured_step_s,
                 "eager": eager.engine.measured_step_s}
     rows = phase_times(launches, stats, plens, errs)
@@ -2846,7 +3283,8 @@ def main() -> int:
     del server, eager, servers
     torch.cuda.empty_cache()
     phase_granite_full()
-    server, eager, params, ssm_launches = phase_mamba_full()
+    server, eager, params, ssm_launches, mamba_tokens = phase_mamba_full()
+    per_replay["mamba2-780m"] = copy.deepcopy(server.engine.graph_launches)
     rows.append(phase_ssd_times({"graphs": server, "eager": eager}, ssm_launches, errs))
     del server, eager, params
     torch.cuda.empty_cache()
@@ -2879,6 +3317,9 @@ def main() -> int:
         "src/repro/core/placement.py:875 to_host)", kv_rec, kv_launches, kv_err))
     phase_migrate()
     log(f"== phase 10 took {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    phase_preemption(yi_tokens, mamba_tokens, per_replay)
+    log(f"== phase 11 took {time.perf_counter() - t11:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -20,9 +20,16 @@ the device's memory: the planner offers no host policy there
 forced one runs, its host copy in plain memory, so the streaming logic is
 exercised by the CPU tests.
 
+Tier loss and faults (ported with ROADMAP A11): :attr:`Runtime.faults` is the
+injected-fault schedule (:data:`~repro_torch.core.faults.NO_FAULTS` by
+default) whose ``realize`` and ``migrate`` sites these entry points
+check, and :meth:`Runtime.evacuate` abandons a lost tier.  On one card it
+really moves a role off a lost ``host`` tier into the card's memory,
+where the reference's ``mesh=None`` returns ``[]``.
+
 Not ported, each named in ROADMAP: ``audit`` (it reads XLA HLO; its
-counterpart is a profiler transfer audit, A12), ``evacuate`` and the
-fault plan (A11), ``specs`` (shardings need a mesh).
+counterpart is a profiler transfer audit, A12), ``rules`` (A10),
+``specs`` (shardings need a mesh, A10).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ShapeSpec
 from repro_torch.core.datapath import copy_bound
+from repro_torch.core.faults import NO_FAULTS
 from repro_torch.core.hardware import (
     MemoryTier,
     SystemSpec,
@@ -169,6 +177,10 @@ class Runtime:
         self.replay = ReplayLog()
         #: tiers declared unusable by mark_tier_lost()
         self.lost_tiers: set[MemoryTier] = set()
+        #: injected-fault schedule (core.faults.FaultPlan) every site of
+        #: this runtime and its Executor consults; NO_FAULTS costs one
+        #: truthiness test per site
+        self.faults = NO_FAULTS
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -362,6 +374,8 @@ class Runtime:
         and the pinned host tensors themselves for a STREAM one (staged
         window by window).  A tree already where the placement puts it is
         returned as it is (no copy)."""
+        if self.faults:
+            self.faults.check("realize")
         pl = (policy or self.policy).placement(parse_role(role))
         leaves = tree_leaves(tree)
         if pl.tier is MemoryTier.HBM and all(t.device == self.device for t in leaves):
@@ -509,7 +523,11 @@ class Runtime:
         memory or into this device's memory, value for value.  A peer or
         remote target raises :class:`DonorAxisError` first.  Adopts the
         new policy, rebuilds ``role``'s open stream around the moved tree,
-        and returns it; the caller drops the old tree to free it."""
+        and returns it; the caller drops the old tree to free it.  An
+        injected ``migrate`` fault fires before anything moves or is
+        adopted, so a retry sees the exact state before the call."""
+        if self.faults:
+            self.faults.check("migrate")
         role = parse_role(role)
         if isinstance(to_policy, Placement):
             new_policy = self.policy.with_placement(role, to_policy).renamed(
@@ -561,6 +579,52 @@ class Runtime:
             raise
         self.policy = target
         return moved
+
+    def evacuate(self, tier: "MemoryTier | str", trees: dict, *,
+                 phase: str | None = None, **phase_kw) -> tuple[PlacementPolicy, list[Role]]:
+        """Abandon ``tier`` and re-place every affected role off it.
+
+        :meth:`mark_tier_lost` excludes the tier from every later planner
+        pass and spill pick; then the roles in ``trees`` whose placement
+        sits on a lost tier migrate to a realizable target — the
+        planner's re-pick for ``phase`` when given (``phase_kw`` are
+        :meth:`plan_phase`'s knobs), else the current policy with each
+        lost placement swapped to the device's memory.  Reuses
+        :meth:`migrate_roles`' semantics (``trees`` updated in place as
+        roles land; the adopted policy describes the live buffers on a
+        partial failure).  The lost tier's buffers are assumed still
+        readable (a degradation notice, not data loss), so the evacuation
+        copy reads them one last time.  Returns ``(adopted policy, roles
+        moved)``."""
+        tier = self.mark_tier_lost(tier)
+        old = self.policy
+        affected = [r for r in trees
+                    if old.placement(parse_role(r)).tier in self.lost_tiers]
+        if not affected:
+            return old, []
+        target = None
+        if phase is not None:
+            try:
+                self.plan_phase(phase, log_table=False, **phase_kw)
+                target = self.policy
+            finally:
+                self.policy = old
+            # the planner minimizes step time, not realizability of the
+            # degraded set: guard against a pick still on a lost tier
+            if any(target.placement(parse_role(r)).tier in self.lost_tiers
+                   for r in trees):
+                target = None
+        if target is None:
+            target = old
+            for r, p in old.placements.items():
+                if p.tier in self.lost_tiers:
+                    target = target.with_placement(r, Placement(MemoryTier.HBM))
+            target = target.renamed(f"{old.name}-evac-{tier.value}")
+        moved = self.migrate_roles(trees, target)
+        log.warning("evacuated %s off %s: policy %s -> %s",
+                    ",".join(r.value for r in moved) or "nothing",
+                    tier.value, old.name, self.policy.name)
+        return self.policy, moved
 
     # -- streaming ---------------------------------------------------------
     def open_stream(self, tree, role: Role | str, n_windows: int, *,

@@ -1,7 +1,7 @@
 """Paper Fig. 17: LLM decode throughput against physical memory placement.
 
 Counterpart of the reference's ``benchmarks/bench_llm_inference.py``,
-three of its four legs:
+its four legs:
 
 * **measured** — smoke yi-6b decoding 32 tokens for 4 rows after a
   64-token prompt under ``hbm_resident``, ``kv_host`` and
@@ -21,12 +21,16 @@ three of its four legs:
   full yi-6b / gemma3-27b / deepseek-v2-236b configs at ``decode_32k`` on
   256 chips: the paper's figure as a table, priced on the active
   ``SystemSpec``.
-
-Not ported: the **queued** leg needs preemption (ROADMAP A11).
+* **queued** — requests arriving over time (one every ``arrival_every``
+  decode ticks) into a slot pool they oversubscribe, with planner-priced
+  preemption on (on a card the spill tier is pinned host memory): p50/p99
+  of per-request completion latency and time to first token, merged into
+  ``build/BENCH_serve.json``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 
@@ -197,7 +201,107 @@ def serve(device, out_path=None, *, requests: int = 8, prompt_len: int = 24,
     return results
 
 
+def queued(device, out_path=None, *, requests: int = 16, prompt_len: int = 16,
+           max_new: int = 8, arrival_every: int = 2, bundle=None, params=None,
+           config=None, prompts=None) -> dict:
+    """Queued-arrival workload: per-request latency under oversubscription.
+    Requests arrive one every ``arrival_every`` decode ticks into the slots
+    with planner-priced preemption on (``preempt_wait=4``); even rids decode
+    greedily, odd ones sample.  Each request's submit / first-token /
+    finish stamps give queue-inclusive completion latency and time to
+    first token, whose p50/p99 land in the artifact beside the spill tier
+    and the spill and restore seconds.
+
+    By default the reference's leg and shape: the smoke yi-6b, weights
+    from seed 0, ``requests`` random prompts of ``prompt_len`` tokens into
+    2 slots of 96 positions, prefill chunk 8, the planner's policy.  A caller
+    serving a full model passes its ``bundle`` and ``params``, the
+    ``config`` (a ``ServeConfig``: slots, ``max_len``, chunk, policy) and
+    the ``prompts``."""
+    from repro_torch.serve import Request, SamplingParams, ServeConfig, Server
+
+    if bundle is None:
+        bundle = get_smoke_bundle("yi-6b")
+        params = bundle.init_params(torch.Generator(device=device).manual_seed(0))
+    if config is None:
+        config = ServeConfig(batch_slots=2, max_len=96, prefill_chunk=8)
+    if prompts is None:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, bundle.cfg.vocab, prompt_len).astype(np.int32)
+                   for _ in range(requests)]
+    arch = bundle.cfg.name
+    server = Server(
+        bundle,
+        dataclasses.replace(config, max_queue=len(prompts), preempt=True, preempt_wait=4),
+        params, device=device,
+    )
+    reqs = [
+        Request(
+            rid=i, prompt=p, max_new_tokens=max_new,
+            sampling=(SamplingParams() if i % 2 == 0 else
+                      SamplingParams(temperature=0.8, top_k=20, seed=i)),
+        )
+        for i, p in enumerate(prompts)
+    ]
+    pending = list(reqs)
+    tick = 0
+    while pending or server.has_work():
+        while pending and tick >= arrival_every * (len(reqs) - len(pending)):
+            server.add_request(pending.pop(0))
+        server.step()
+        tick += 1
+        if tick >= 50_000:
+            raise RuntimeError("queued-arrival loop did not drain")
+    if not all(r.done for r in reqs):
+        raise RuntimeError(f"undrained requests {[r.rid for r in reqs if not r.done]}")
+    lat = np.asarray([r.finished_s - r.submitted_s for r in reqs])
+    ttft = np.asarray([r.first_token_s - r.submitted_s for r in reqs])
+    stats = server.stats()
+    row = {
+        "arch": arch,
+        "batch_slots": config.batch_slots,
+        "max_len": config.max_len,
+        "prefill_chunk": config.prefill_chunk,
+        "requests": len(prompts),
+        "prompt_lens": [len(p) for p in prompts],
+        "max_new": max_new,
+        "arrival_every_ticks": arrival_every,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "preemptions": stats["preemptions"],
+        "promotions": stats["promotions"],
+        "peak_queue": stats["peak_queue"],
+        "spill_s": stats["spill_s"],
+        "restore_s": stats["restore_s"],
+        "spill_tier": server.runtime.spill_placement().to_str(),
+        "tokens": [r.out_tokens for r in reqs],
+        # under graphs: the kernels one replay launches, and all replays'
+        "graph_launches": server.engine.graph_launches,
+        "replay_launches": dict(server.engine.replay_launches),
+        "decode_replays": server.engine.counters["decode_replays"],
+        "prefill_replays": server.engine.counters["prefill_replays"],
+        **server.runtime.describe(),
+        **server.throughput(),
+    }
+    emit(f"serve_queued_p50[{arch}]", row["latency_p50_s"] * 1e6,
+         f"{row['latency_p50_s'] * 1e3:.1f}ms")
+    emit(f"serve_queued_p99[{arch}]", row["latency_p99_s"] * 1e6,
+         f"{row['latency_p99_s'] * 1e3:.1f}ms ({stats['preemptions']} preemptions)")
+    out_path = pathlib.Path(out_path or OUT)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        results = json.loads(out_path.read_text())
+    except (OSError, ValueError):
+        results = {}
+    results[f"{arch},queued"] = row
+    out_path.write_text(json.dumps(results, indent=2, sort_keys=True))
+    return row
+
+
 def main(device) -> None:
     analytic()
     serve(device)
+    queued(device)
     measured(device)

@@ -11,7 +11,7 @@ modules one card measures:
   bench_gemm              Figs. 15, 16 + Table III
   bench_managed_vs_system Fig. 4
   bench_datapath_bounds   Fig. 3, Table II, Figs. 15-17 (the policy table)
-  bench_llm_inference     Fig. 17 (serve and analytic legs)
+  bench_llm_inference     Fig. 17 (serve, queued and analytic legs)
 
 The device defaults to ``cuda``; without a card that raises.
 """

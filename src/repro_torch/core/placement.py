@@ -618,35 +618,58 @@ class HostArena:
         return kv_stream.mapped(self.base)
 
 
-def to_host(tree, device: str | torch.device, *, mapped: bool = False):
-    """A copy of ``tree`` in host memory for ``device``: one
-    :class:`HostArena`, pinned and mapped when ``device`` is a card.
-    Raises if a leaf does not land pinned there (never a pageable host
-    copy the card cannot stream from).  With ``mapped`` (a card only) the
-    leaves returned are CUDA tensors over the card's mapped view of the
-    arena, each carrying ``_host_arena``: kernels read and write them in
-    place, over PCIe."""
+def host_empty(tree, device: str | torch.device):
+    """Uninitialized host tensors shaped and typed like ``tree``'s leaves,
+    in one :class:`HostArena` for ``device`` (pinned and mapped for a card;
+    raises if a leaf does not land pinned there — never a pageable host
+    buffer the card cannot stream from)."""
     device = torch.device(device)
-    leaves = tree_leaves(tree)
-    offsets, total = _layout(leaves)
+    offsets, total = _layout(tree_leaves(tree))
     arena = HostArena(total, device)
     it = iter(offsets)
-    out = tree_map(lambda t: arena.carve(next(it), t).copy_(t), tree)
+    out = tree_map(lambda t: arena.carve(next(it), t), tree)
     if arena.pinned and not all(t.is_pinned() for t in tree_leaves(out)):
         raise RuntimeError(f"host placement of {total} bytes did not land in "
                            "pinned host memory")
-    if not mapped:
+    return out
+
+
+def to_host(tree, device: str | torch.device, *, mapped: bool = False):
+    """A copy of ``tree`` in host memory for ``device``: one
+    :class:`HostArena` (:func:`host_empty`), pinned and mapped when
+    ``device`` is a card.  With ``mapped`` (a card only) the leaves
+    returned are CUDA tensors over the card's mapped view of the arena,
+    each carrying ``_host_arena``: kernels read and write them in place,
+    over PCIe."""
+    device = torch.device(device)
+    out = host_empty(tree, device)
+    leaves = tree_leaves(out)
+    for dst, src in zip(leaves, tree_leaves(tree)):
+        dst.copy_(src)
+    if not mapped or not leaves:
         return out
+    return mapped_tree(out)
+
+
+def mapped_tree(tree):
+    """The card's mapped view of a host tree that fills one pinned
+    :class:`HostArena` (what :func:`host_empty` returns): CUDA tensors over
+    the same bytes, each carrying ``_host_arena``, which kernels and
+    PyTorch's operators read and write in place, over PCIe.  Raises for a
+    CPU device's (unpinned) arena."""
+    leaves = tree_leaves(tree)
+    arena = leaves[0]._host_arena
     if not arena.pinned:
-        raise ValueError(f"a mapped view of host memory is a card's; the device is {device}")
-    view, it = arena.mapped(), iter(offsets)
+        raise ValueError(f"a mapped view of host memory is a card's; the device is "
+                         f"{arena.device}")
+    view, it = arena.mapped(), iter(_layout(leaves)[0])
 
     def carve(t):
         leaf = _carve(view, next(it), t)
         leaf._host_arena = arena
         return leaf
 
-    return tree_map(carve, out)
+    return tree_map(carve, tree)
 
 
 def to_device(tree, device: str | torch.device):

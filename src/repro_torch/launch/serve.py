@@ -7,8 +7,10 @@ Feeds a synthetic request stream and reports tokens/s per phase.  Runs on
 and the KV cache (``auto``: the planner picks for the serve phase;
 otherwise a registered name, the ``role=tier[:strategy]`` grammar or JSON),
 ``--calibration`` prices the planner's pick on a measured hardware model.
-The reference's ``pools=`` directive (disaggregated serving) is ROADMAP
-A13.
+``--max-queue`` bounds the waiting requests (backpressure) and
+``--preempt`` turns on planner-priced preemption (on a card the spill
+tier is pinned host memory).  The reference's ``pools=`` directive
+(disaggregated serving) is ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -24,7 +26,13 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.placement import registered_policies
 from repro_torch.models.model_zoo import ModelBundle
-from repro_torch.serve import Request, SamplingParams, ServeConfig, Server
+from repro_torch.serve import (
+    QueueFullError,
+    Request,
+    SamplingParams,
+    ServeConfig,
+    Server,
+)
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -54,6 +62,12 @@ def main(argv=None) -> dict:
              f"name ({', '.join(registered_policies())}), the compact "
              "role=tier[:strategy][,...] grammar (e.g. "
              "'kv=host:stream,params=host:stream'), or policy JSON")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound on waiting requests (backpressure); default unbounded")
+    ap.add_argument("--preempt", action="store_true",
+                    help="enable planner-priced preemption: starved waiters may "
+                         "evict a victim slot's rows to the cheapest realizable "
+                         "far tier (pinned host memory on a card)")
     ap.add_argument("--calibration", default=None, metavar="PATH",
                     help="price placements on a measured hardware model: load "
                          "this calibration.json, or calibrate on the device and "
@@ -78,14 +92,16 @@ def main(argv=None) -> dict:
             max_len=args.max_len,
             prefill_chunk=args.prefill_chunk,
             policy=None if args.policy == "auto" else args.policy,
+            max_queue=args.max_queue,
+            preempt=args.preempt,
         ),
         params,
         device=device,
     )
     log.info("serving under placement policy %s", server.policy.name)
     rng = np.random.default_rng(args.seed)
-    for rid in range(args.requests):
-        server.add_request(Request(
+    pending = [
+        Request(
             rid=rid,
             prompt=rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32),
             max_new_tokens=args.max_new,
@@ -93,17 +109,30 @@ def main(argv=None) -> dict:
                 temperature=args.temperature, top_k=args.top_k,
                 top_p=args.top_p, seed=args.seed + rid,
             ),
-        ))
+        )
+        for rid in range(args.requests)
+    ]
     t0 = time.perf_counter()
-    server.run_until_done()
+    # a bounded queue takes the stream as it drains
+    while pending or server.has_work():
+        while pending:
+            try:
+                server.add_request(pending[0])
+            except QueueFullError:
+                break
+            pending.pop(0)
+        server.step()
     dt = time.perf_counter() - t0
     tp = server.throughput()
     total = tp["decode_tokens"]
+    st = server.stats()
     log.info(
         "served %d requests, %d tokens in %.2fs -> %.1f tok/s on %s | "
-        "prefill %.1f tok/s | decode %.1f tok/s",
+        "prefill %.1f tok/s | decode %.1f tok/s | %d preemptions, %d promotions, "
+        "peak queue %d",
         args.requests, total, dt, total / dt, device,
-        tp["prefill_tps"], tp["decode_tps"],
+        tp["prefill_tps"], tp["decode_tps"], st["preemptions"], st["promotions"],
+        st["peak_queue"],
     )
     return tp
 

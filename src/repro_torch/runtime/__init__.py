@@ -6,4 +6,9 @@ from repro_torch.runtime.retry import (  # noqa: F401
     retry_call,
 )
 from repro_torch.runtime.straggler import StepTimeMonitor, StragglerConfig  # noqa: F401
-from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig  # noqa: F401
+from repro_torch.runtime.supervisor import (  # noqa: F401
+    Supervisor,
+    SupervisorConfig,
+    Watchdog,
+    WatchdogConfig,
+)

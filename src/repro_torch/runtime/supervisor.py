@@ -1,16 +1,26 @@
-"""Runtime supervision: checkpoint/restart and straggler monitoring.
+"""Runtime supervision: checkpoint/restart, straggler monitoring, step watchdog.
 
-Counterpart of ``Supervisor`` in ``repro/runtime/supervisor.py``: any
-failure of a synchronous step restores the latest *atomic* checkpoint and
-resumes.  ``Supervisor.run`` wraps the step loop with:
+Counterpart of ``repro/runtime/supervisor.py``: any failure of a
+synchronous step restores the latest *atomic* checkpoint and resumes.
+``Supervisor.run`` wraps the step loop with:
 
 * periodic async checkpoints (model + optimizer + data-iterator state);
 * exception-triggered restore-and-resume with bounded restarts
   (``restarts`` counts them, so a run can show that none was hidden);
 * straggler monitoring wired to a checkpoint-now callback.
 
-Left out until their prerequisites are ported: the serve-step
-``Watchdog`` (ROADMAP A11) and ``rescale`` onto a new mesh (ROADMAP A10).
+:class:`Watchdog` is the serve-side counterpart: access-path faults
+usually surface as order-of-magnitude *slowdowns* rather than errors, so
+the serve loop deadlines every decode step against a budget derived from
+:meth:`repro_torch.api.Runtime.decode_step_seconds` and escalates
+consecutive breaches up a ladder — ``stall`` (log) → ``retry`` (recapture
+the steps) → ``evacuate`` (migrate off the presumed-degraded far tier) →
+``hang`` (raise, with full queue/slot diagnostics).  The ladder is pure
+policy: it returns actions; the :class:`repro_torch.serve.scheduler.Server`
+owns the side effects.
+
+Left out until its prerequisite is ported: ``rescale`` onto a new mesh
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -25,6 +35,96 @@ if TYPE_CHECKING:  # checkpointer imports runtime.retry: keep the cycle lazy
     from repro_torch.checkpoint.checkpointer import Checkpointer
 
 log = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# Serve-step watchdog: deadline + escalation ladder
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WatchdogConfig:
+    """Deadline and escalation thresholds for the serve-step watchdog.
+
+    The deadline is ``max(min_deadline_s, budget_factor * expected step
+    seconds)`` — the expected time is the runtime's measured-else-analytic
+    decode-step price, so the budget tightens as real measurements land.
+    ``*_after`` are *consecutive* deadline breaches before each rung; a
+    healthy step resets the count.
+    """
+
+    budget_factor: float = 8.0
+    min_deadline_s: float = 0.25
+    stall_after: int = 1
+    retry_after: int = 2
+    evacuate_after: int = 3
+    hang_after: int = 4
+
+    def validate(self) -> None:
+        rungs = (self.stall_after, self.retry_after, self.evacuate_after,
+                 self.hang_after)
+        if any(r < 1 for r in rungs) or list(rungs) != sorted(rungs):
+            raise ValueError(
+                "watchdog escalation thresholds must be >= 1 and "
+                f"non-decreasing (stall <= retry <= evacuate <= hang), "
+                f"got {rungs}"
+            )
+
+
+class Watchdog:
+    """Deadline serve steps; escalate stall → retry → evacuate → hang.
+
+    ``expected_s`` is a zero-arg callable returning the current expected
+    step seconds (the Server passes a closure over
+    ``Runtime.decode_step_seconds`` so the budget follows calibration and
+    replan migrations).  :meth:`observe` feeds one measured step and
+    returns the action this breach count has escalated to; ``"ok"``
+    resets the ladder.
+    """
+
+    ACTIONS = ("ok", "stall", "retry", "evacuate", "hang")
+
+    def __init__(
+        self,
+        expected_s: Callable[[], float],
+        cfg: WatchdogConfig = WatchdogConfig(),
+    ):
+        cfg.validate()
+        self.expected_s = expected_s
+        self.cfg = cfg
+        self.breaches = 0
+        self.last_step_s = 0.0
+        self.actions = {a: 0 for a in self.ACTIONS}
+
+    def deadline_s(self) -> float:
+        """The current per-step budget."""
+        return max(
+            self.cfg.min_deadline_s,
+            self.cfg.budget_factor * float(self.expected_s()),
+        )
+
+    def observe(self, seconds: float) -> str:
+        """Feed one measured step; return the escalation action."""
+        self.last_step_s = float(seconds)
+        if self.last_step_s <= self.deadline_s():
+            self.breaches = 0
+            self.actions["ok"] += 1
+            return "ok"
+        self.breaches += 1
+        cfg = self.cfg
+        if self.breaches >= cfg.hang_after:
+            action = "hang"
+        elif self.breaches >= cfg.evacuate_after:
+            action = "evacuate"
+        elif self.breaches >= cfg.retry_after:
+            action = "retry"
+        else:
+            action = "stall"
+        self.actions[action] += 1
+        log.warning(
+            "watchdog: step took %.3gs > deadline %.3gs (breach %d) -> %s",
+            self.last_step_s, self.deadline_s(), self.breaches, action,
+        )
+        return action
 
 
 @dataclasses.dataclass

@@ -50,13 +50,40 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   ``hbm_resident`` the steps take views of the resident trees and launch
   and copy exactly what they did before placement was realized.
 
-Preemption, replan/evacuate and fault injection are not ported yet
-(ROADMAP A11).
+* **Slot extract/insert** — preemption's device half: a victim's rows
+  (``leaf[:, i]`` of every cache leaf: an ``F``/``S`` layer's KV, an ``M``
+  layer's ``conv``/``ssm`` state) are copied out onto the planner-priced
+  spill tier (pinned host memory on a card) and back into the same slot
+  of the same buffers on promotion, so no graph is captured again.  Both
+  wait for the device first (the compute stream, the ``HostStream`` copy
+  and write-back streams), since under ``kv_host`` and ``kv=host`` the
+  rows live in the host tree the steps stage from or read in place.
+  Pinned spill rows are kept for the next spill (the first
+  ``cudaHostAlloc`` of a slot costs far more than the copy); rows parked
+  in device memory are freed on promotion.
+* **Replan and evacuate** — :meth:`Executor.replan` re-places the live
+  cache and params through :meth:`~repro_torch.api.Runtime.migrate_roles`
+  (transient faults retried under ``MIGRATION_RETRY``) and
+  :meth:`Executor.evacuate` moves the roles off a lost tier; either
+  rebuilds the steps over the moved trees (:meth:`Executor._build_steps`:
+  a new layer feed and, on a card, both graphs captured again).  The
+  warm-ups before a capture run on the live state, so everything a step
+  writes is copied before them and put back after, bit for bit.
+* **Fault sites** — ``decode``, ``prefill`` and ``extract`` consult the
+  runtime's :attr:`~repro_torch.api.Runtime.faults` before a replay or a
+  copy (host-side checks; an injected stall sleeps inside the timed
+  decode, where the watchdog sees it).
+
+Left out, each named in ROADMAP: the decode-step replay admission of a
+bundle without chunked prefill (``decode_replay_prefills``, A7) and the
+donation audit (``verify_donation``, A12).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import logging
 import time
 
@@ -65,13 +92,24 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.api import Runtime
-from repro_torch.core.placement import HostStream, Role
+from repro_torch.core.faults import TransientFault
+from repro_torch.core.hardware import MemoryTier
+from repro_torch.core.placement import (
+    HostStream,
+    Placement,
+    Role,
+    donor_axes_for,
+    host_empty,
+    mapped_tree,
+    parse_policy,
+)
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import flash_prefill
 from repro_torch.kernels.kv_stream import kv_write_back
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.sharding import tree_leaves
+from repro_torch.models.sharding import tree_leaves, tree_map
+from repro_torch.runtime.retry import MIGRATION_RETRY, retry_call
 from repro_torch.serve import sampling as sampling_mod
 from repro_torch.serve.state import DeviceState, Uploader
 
@@ -230,19 +268,24 @@ class Executor:
             )
             log.info("planner picked %s for %s (%d slots x %d ctx, prefill chunk %d)",
                      self.runtime.policy.name, bundle.cfg.name, B, cfg.max_len, C)
-        stream_params = self.runtime.streamed(Role.PARAMS)
-        stream_kv = self.runtime.streamed(Role.KV_CACHE)
+        # the injected-fault schedule lives on the runtime, so its realize
+        # and migrate sites and this executor's sites consult one plan
+        faults = getattr(cfg, "faults", None)
+        if faults:
+            self.runtime.faults = faults
         self.params = self.runtime.realize(params, Role.PARAMS)
         # a host-placed cache is made in host memory, never on the card
         caches = bundle.init_cache(
             B, cfg.max_len, device="cpu" if self.policy.placement(Role.KV_CACHE).on_host
             else self.device)
         self.caches = self.runtime.realize(caches, Role.KV_CACHE)
-        #: the layer feed of the steps (None: views of resident trees)
-        self.feed = (PlacedFeed(bundle.cfg, self.params, self.caches,
-                                stream_params=stream_params, stream_kv=stream_kv,
-                                batch_slots=B, device=self.device)
-                     if stream_params or stream_kv else None)
+        # slot extract/insert slice the batch axis; every cache family
+        # stacks layers first, batch second: verify rather than assume
+        for leaf in tree_leaves(self.caches):
+            if leaf.ndim < 2 or leaf.shape[1] != B:
+                raise ValueError(
+                    "cache leaf does not carry the batch on axis 1: shape "
+                    f"{tuple(leaf.shape)} with batch_slots={B}")
         #: the serve state's fixed buffers (the decode graph's inputs)
         self.state = DeviceState(B, self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -255,20 +298,34 @@ class Executor:
         self.out = torch.zeros((2, B), **i32)
         self._out_host = (self.out.cpu().pin_memory()
                           if self.device.type == "cuda" else None)
-        #: phase counters (tokens, wall seconds, dispatches, graph replays)
+        #: phase counters (tokens, wall seconds, dispatches, graph replays
+        #: and captures) and lifecycle events
         self.counters = {
             "prefill_tokens": 0, "prefill_s": 0.0, "prefill_dispatches": 0,
             "decode_tokens": 0, "decode_s": 0.0, "decode_steps": 0,
-            "decode_replays": 0, "prefill_replays": 0,
+            "decode_replays": 0, "prefill_replays": 0, "captures": 0,
+            "replans": 0, "migrations": 0, "spill_s": 0.0, "restore_s": 0.0,
+            "migration_retries": 0, "evacuations": 0,
         }
         self.graphed = self.device.type == "cuda" and not eager
         #: per graph, the kernel launches one replay makes (counted while
         #: capturing: the wrappers' counters tick at capture, not replay)
         self.graph_launches: dict[str, dict[str, int]] = {}
+        #: the kernel launches the graph replays made, by kernel, across
+        #: every build (each replay adds its graph's ``graph_launches``)
+        self.replay_launches: collections.Counter = collections.Counter()
         self._graphs: dict[str, torch.cuda.CUDAGraph] = {}
-        if self.graphed:
-            self._graphs["decode"] = self._capture("decode", self._decode_step)
-            self._graphs["prefill"] = self._capture("prefill", self._prefill_step)
+        #: free spill-row trees in host memory: a preemption reuses one
+        #: instead of allocating (pinning) anew; emptied when the host tier
+        #: is lost
+        self._spill_pool: list = []
+        #: the last slot moves, newest last: ("spill" | "restore", "host" |
+        #: "device" (where the parked rows lie), bytes, wall seconds)
+        self.moves: collections.deque = collections.deque(maxlen=4096)
+        #: the last migrations, newest last: (what, policy after, migrate
+        #: wall seconds, rebuild wall seconds)
+        self.migration_log: collections.deque = collections.deque(maxlen=256)
+        self._build_steps(live=False)
 
     @property
     def policy(self):
@@ -306,12 +363,61 @@ class Executor:
             self.caches, p["offsets"], feed=self.feed,
         )
 
-    def _capture(self, name: str, step) -> torch.cuda.CUDAGraph:
+    def _build_steps(self, *, live: bool = True) -> None:
+        """(Re)build the steps for the trees and policy in force: the
+        layer feed over the current params and caches and, on a card, both
+        graphs captured over them (the counterpart of the reference's
+        ``_build_steps``).  ``live``: rows may hold requests, so whatever
+        the warm-ups write (the caches, the serve state's buffers, the
+        prefill inputs, the packed result) is copied first and put back
+        after them, bit for bit.  A failed capture raises; there is no
+        fallback to the eager path."""
+        stream_params = self.runtime.streamed(Role.PARAMS)
+        stream_kv = self.runtime.streamed(Role.KV_CACHE)
+        #: the layer feed of the steps (None: views of resident trees)
+        self.feed = (PlacedFeed(self.bundle.cfg, self.params, self.caches,
+                                stream_params=stream_params, stream_kv=stream_kv,
+                                batch_slots=self.cfg.batch_slots, device=self.device)
+                     if stream_params or stream_kv else None)
+        # the first decode step after a build pays set-up: the watchdog and
+        # the runtime's step EWMA skip it
+        self._steps_since_build = 0
+        if not self.graphed:
+            return
+        for graph in self._graphs.values():
+            graph.reset()
+        self._graphs, self.graph_launches = {}, {}
+        restore = self._snapshot() if live else None
+        self._graphs["decode"] = self._capture("decode", self._decode_step, restore)
+        self._graphs["prefill"] = self._capture("prefill", self._prefill_step, restore)
+
+    def _written(self) -> list[torch.Tensor]:
+        """Every tensor a step writes that outlives it."""
+        return (tree_leaves(self.caches) + list(self.state.buffers.values())
+                + list(self.prefill_in.values()) + [self.out])
+
+    def _snapshot(self):
+        """Copy what the steps write; returns the function that puts it
+        back (after the device is idle)."""
+        self._sync()
+        live = self._written()
+        saved = [t.clone() for t in live]
+
+        def restore() -> None:
+            self._sync()
+            for t, s in zip(live, saved):
+                t.copy_(s)
+            self._sync()
+        return restore
+
+    def _capture(self, name: str, step, restore=None) -> torch.cuda.CUDAGraph:
         """Warm ``step`` up on a side stream, then capture it.
 
-        The warm-up runs on the all-idle state of a new Executor (rows
-        that are inactive or take no new tokens), so it changes nothing a
-        request will read.  A failed capture raises from here."""
+        A new Executor warms up on its all-idle state (rows that are
+        inactive or take no new tokens), which changes nothing a request
+        reads; a rebuild mid-serve passes ``restore``, which puts back what
+        the warm-ups wrote before the capture.  A failed capture raises
+        from here."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -320,19 +426,39 @@ class Executor:
                 step()
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
+        if restore is not None:
+            restore()
+        # a graph the cyclic collector frees mid-capture (an unreachable
+        # server's) would invalidate this capture: collect first, and keep
+        # the collector off while capturing
+        gc.collect()
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            step()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                step()
+        finally:
+            if enabled:
+                gc.enable()
         after = _launch_counts()
         self.graph_launches[name] = {k: after[k] - before[k] for k in after
                                      if after[k] > before[k]}
+        self.counters["captures"] += 1
         return graph
+
+    def _sync(self) -> None:
+        """Wait for every stream of the device: the compute stream and the
+        host streams' copy and write-back streams (a step's forks)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _run(self, name: str, step) -> None:
         if self.graphed:
             self._graphs[name].replay()
             self.counters[f"{name}_replays"] += 1
+            self.replay_launches.update(self.graph_launches[name])
         else:
             step()
 
@@ -341,8 +467,12 @@ class Executor:
         """One decode step over every slot, advancing the device state.
 
         Returns ``(next_tokens (B,), stopped (B,) bool)``; the packed
-        result is the step's only device→host transfer.
+        result is the step's only device→host transfer.  An injected
+        ``decode`` fault fires before the replay, so a recovery path sees
+        the state before the step.
         """
+        if self.runtime.faults:
+            self.runtime.faults.check("decode")
         t0 = time.perf_counter()
         self._run("decode", self._decode_step)
         # the one fetch per step: the packed (2, B) vector
@@ -355,14 +485,16 @@ class Executor:
         dt = time.perf_counter() - t0
         self.counters["decode_s"] += dt
         self.counters["decode_steps"] += 1
-        if self.counters["decode_steps"] > 1:       # the first pays set-up
+        self._steps_since_build += 1
+        if self._steps_since_build > 1:      # the first after a build pays set-up
             self.runtime.observe_decode_step(self.cfg.batch_slots, self.cfg.max_len, dt)
         return out[0], out[1].astype(bool)
 
     @property
     def measured_step_s(self) -> float | None:
         """The runtime's EWMA of the decode step's wall time under the
-        policy in force, from the second step on (None before)."""
+        policy in force, from the second step after a build on (None
+        before)."""
         return self.runtime.measured_step_s(self.cfg.batch_slots, self.cfg.max_len)
 
     # -- prefill (admission) ----------------------------------------------
@@ -414,3 +546,183 @@ class Executor:
             self.dispatch_prefill(toks, new_lens, table.lengths)
             for i, _ in new:
                 table.lengths[i] += int(new_lens[i])
+
+    # -- preemption: slot spill / restore ---------------------------------
+    def slot_bytes(self) -> int:
+        """Bytes of one cache slot's rows — what a preemption spill moves
+        (each way)."""
+        B = self.cfg.batch_slots
+        return sum(t.numel() * t.element_size() // B for t in tree_leaves(self.caches))
+
+    def summable(self, rows):
+        """Parked rows as the device reads them, for a checksum: pinned
+        host rows on a card through the card's mapped view of them (summed
+        on the card over PCIe, no copy); otherwise the rows themselves.
+        The rows stay where they were parked until promoted, so the sums
+        at spill and at promotion run on the same device over the same
+        bytes."""
+        leaves = tree_leaves(rows)
+        arena = getattr(leaves[0], "_host_arena", None)
+        return mapped_tree(rows) if arena is not None and arena.pinned else rows
+
+    def _spill_rows(self, spill_to: Placement):
+        """A free tree shaped like one slot's rows (every leaf ``(L, 1,
+        ...)``) on ``spill_to``: pinned host memory for the host tier (an
+        arena, checked pinned on a card; reused from the pool when one is
+        free), the device's memory for ``HBM``."""
+        if spill_to.tier not in (MemoryTier.HOST, MemoryTier.HBM):
+            donor_axes_for(None, spill_to.tier)      # raises: no donor axis
+        if spill_to.on_host and self._spill_pool:
+            return self._spill_pool.pop()
+        proto = tree_map(lambda t: t[:, :1], self.caches)
+        if spill_to.on_host:
+            return host_empty(proto, self.device)
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=self.device),
+                        proto)
+
+    def extract_slot(self, i: int, spill_to: Placement):
+        """Copy slot ``i``'s cache rows out onto ``spill_to`` (the
+        planner-priced spill tier) after the device's last work, and wait
+        for the copies: the rows are consistent when this returns.  The
+        cache itself is not touched.  Counted in ``spill_s``."""
+        if self.runtime.faults:
+            self.runtime.faults.check("extract")
+        t0 = time.perf_counter()
+        rows = self._spill_rows(spill_to)
+        self._sync()
+        for dst, src in zip(tree_leaves(rows), tree_leaves(self.caches)):
+            dst.copy_(src[:, i:i + 1], non_blocking=True)
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.counters["spill_s"] += dt
+        self.moves.append(("spill", "host" if spill_to.on_host else "device",
+                           self.slot_bytes(), dt))
+        return rows
+
+    def insert_slot(self, i: int, rows) -> None:
+        """Copy parked rows back into slot ``i`` of the same cache buffers
+        (promotion), in place, so the captured graphs stay valid; the
+        move is value for value.  Rows parked in host memory for a card
+        must be pinned (a pageable spill raises).  Host rows return to the
+        spill pool.  Counted in ``restore_s``."""
+        t0 = time.perf_counter()
+        leaves = tree_leaves(rows)
+        host = getattr(leaves[0], "_host_arena", None) is not None
+        if self.device.type == "cuda" and not all(
+                t.device.type == "cuda" or t.is_pinned() for t in leaves):
+            raise RuntimeError("spilled rows in pageable host memory: a spill to host "
+                               "memory must land pinned")
+        self._sync()
+        for dst, src in zip(tree_leaves(self.caches), leaves):
+            dst[:, i:i + 1].copy_(src, non_blocking=True)
+        self._sync()
+        if host:
+            self._spill_pool.append(rows)
+        dt = time.perf_counter() - t0
+        self.counters["restore_s"] += dt
+        self.moves.append(("restore", "host" if host else "device", self.slot_bytes(), dt))
+
+    # -- live re-placement -------------------------------------------------
+    def _adopt(self, trees: dict) -> None:
+        self.caches = trees[Role.KV_CACHE]
+        self.params = trees[Role.PARAMS]
+
+    def _on_retry(self, attempt, err, delay) -> None:
+        self.counters["migration_retries"] += 1
+
+    def _rebuild_after(self, what: str, t0: float) -> None:
+        """Rebuild the steps over migrated trees; log the migration's and
+        the rebuild's wall seconds."""
+        t1 = time.perf_counter()
+        self._build_steps()
+        self.migration_log.append((what, self.policy.name, t1 - t0,
+                                   time.perf_counter() - t1))
+
+    def replan(self, policy=None, *, force: bool = False, occupancy: float = 1.0) -> bool:
+        """Re-place the live KV cache (and params) mid-serve.
+
+        With ``policy=None``, re-runs the planner's serve pricing against
+        the live cache ``occupancy``; with an explicit ``policy`` (any
+        ``parse_policy`` spelling), adopts it.  When the target differs
+        from the policy in force (by placements, not names), the device's
+        work is drained, the roles whose placement changed move through
+        :meth:`~repro_torch.api.Runtime.migrate_roles` (value for value;
+        transient faults retried under ``MIGRATION_RETRY``) and the steps
+        are rebuilt over the moved trees, both graphs captured again with
+        the live rows kept as they were.  Returns True iff a migration
+        happened.  On one card this really moves trees, where the
+        reference's ``mesh=None`` returns False.
+        """
+        rt = self.runtime
+        old = rt.policy
+        self.counters["replans"] += 1
+        if policy is None:
+            rt.plan_phase("serve", batch_slots=self.cfg.batch_slots,
+                          max_len=self.cfg.max_len, prefill_chunk=self.cfg.prefill_chunk,
+                          kv_utilization=occupancy, log_table=False)
+            target = rt.policy
+        else:
+            target = parse_policy(policy)
+        rt.policy = old
+        if all(target.placement(r) == old.placement(r) for r in Role) and not force:
+            return False
+        self._sync()
+        t0 = time.perf_counter()
+        trees = {Role.KV_CACHE: self.caches, Role.PARAMS: self.params}
+        try:
+            moved = retry_call(
+                lambda: rt.migrate_roles(trees, target, force=force),
+                retry_on=(TransientFault,), policy=MIGRATION_RETRY,
+                label=f"replan {old.name}->{target.name}",
+                seed=self.counters["replans"], on_retry=self._on_retry,
+            )
+        except BaseException:
+            # a role that landed lives only in its new tree: adopt what
+            # moved, and rebuild only if something did
+            self._adopt(trees)
+            if rt.policy is not old:
+                self._build_steps()
+            raise
+        self._adopt(trees)
+        self._rebuild_after("replan", t0)
+        self.counters["migrations"] += 1
+        log.info("replan: migrated %s -> %s (%s) at occupancy %.0f%%", old.name,
+                 target.name, ",".join(r.value for r in moved) or "forced no-op",
+                 100 * occupancy)
+        return True
+
+    def evacuate(self, tier, *, occupancy: float = 1.0) -> list[Role]:
+        """Serve-side tier loss: drain the device, delegate to
+        :meth:`~repro_torch.api.Runtime.evacuate` (the planner's re-pick
+        with the lost tier excluded; transient faults retried under the
+        migration budget), adopt the moved trees and rebuild the steps.
+        Returns the roles that moved.  On one card a role on a lost
+        ``host`` tier really moves to the card's memory."""
+        rt = self.runtime
+        old = rt.policy
+        self._sync()
+        t0 = time.perf_counter()
+        trees = {Role.KV_CACHE: self.caches, Role.PARAMS: self.params}
+        try:
+            _, moved = retry_call(
+                lambda: rt.evacuate(
+                    tier, trees, phase="serve", batch_slots=self.cfg.batch_slots,
+                    max_len=self.cfg.max_len, prefill_chunk=self.cfg.prefill_chunk,
+                    kv_utilization=occupancy),
+                retry_on=(TransientFault,), policy=MIGRATION_RETRY,
+                label=f"evacuate {tier}", seed=self.counters["evacuations"],
+                on_retry=self._on_retry,
+            )
+        except BaseException:
+            self._adopt(trees)
+            if rt.policy is not old:
+                self._build_steps()
+            raise
+        self._adopt(trees)
+        self.counters["evacuations"] += 1
+        if MemoryTier.HOST in rt.lost_tiers:
+            self._spill_pool.clear()        # no spill lands there again
+        if moved:
+            self._rebuild_after("evacuate", t0)
+            self.counters["migrations"] += 1
+        return moved

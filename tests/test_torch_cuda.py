@@ -1635,3 +1635,212 @@ def test_host_placed_graphs_eager_and_hbm_agree(arch, policy):
         assert runs[label][0] == runs["graphs"][0], label
         for i, (a, b) in enumerate(zip(runs[label][1], runs["graphs"][1])):
             assert torch.equal(a, b), (label, i)
+
+
+# ---------------------------------------------------------------------------
+# preemption, replan and recovery through the graphs
+# ---------------------------------------------------------------------------
+
+def _smoke_server(arch, policy="hbm_resident", slots=3, **kw):
+    from repro_torch.serve import ServeConfig, Server
+
+    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="bfloat16"))
+    params = tb.init_params(torch.Generator(device="cuda").manual_seed(0))
+    return Server(tb, ServeConfig(batch_slots=slots, max_len=64, prefill_chunk=8,
+                                  policy=policy, **kw), params, device="cuda")
+
+
+def _serve_prompts(seed=5, lens=(40, 9, 50, 3, 25, 17)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 500, n).astype(np.int32) for n in lens]
+
+
+def _serve_tokens(server, prompts, new=8, hook=None):
+    reqs = [server.submit(p, max_new_tokens=new + i % 3) for i, p in enumerate(prompts)]
+    n = 0
+    while server.has_work():
+        server.step()
+        n += 1
+        if hook is not None:
+            hook(server, n)
+        assert n < 500
+    return [r.out_tokens for r in reqs]
+
+
+@requires_cuda
+@pytest.mark.parametrize("policy", ["hbm_resident", "kv_host", "kv=host"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-780m"])
+def test_slot_extract_insert_round_trip_bit_for_bit(arch, policy):
+    """A live slot's rows copied out to pinned host memory and back into
+    another free slot of the same captured buffers, bit for bit, with no
+    capture; the slot's rows are untouched by the extract."""
+    from repro_torch.core.hardware import MemoryTier
+    from repro_torch.core.placement import Placement
+
+    server = _smoke_server(arch, policy)
+    eng = server.engine
+    captures = eng.counters["captures"]
+    for p in _serve_prompts(lens=(20, 33)):
+        server.submit(p, max_new_tokens=30)
+    for _ in range(4):
+        server.step()
+    i = server.table.active_slots()[1]
+    before = [t[:, i:i + 1].clone() for t in tree_leaves(eng.caches)]
+    rows = eng.extract_slot(i, Placement(MemoryTier.HOST))
+    leaves = tree_leaves(rows)
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in leaves)
+    for a, b in zip(before, leaves):
+        assert torch.equal(a.cpu(), b)
+    free = server.table.free_slots()[0]
+    eng.insert_slot(free, rows)
+    for a, t in zip(before, tree_leaves(eng.caches)):
+        assert torch.equal(a, t[:, free:free + 1])
+        assert torch.equal(a, t[:, i:i + 1])
+    assert eng.counters["captures"] == captures
+    assert eng.counters["spill_s"] > 0 and eng.counters["restore_s"] > 0
+    assert eng._spill_pool == [rows]        # reused by the next spill
+    assert eng.extract_slot(i, Placement(MemoryTier.HOST)) is rows
+
+
+@requires_cuda
+@pytest.mark.parametrize("policy", ["hbm_resident", "kv_host"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-780m"])
+def test_preemption_through_the_graphs_keeps_tokens_and_captures(arch, policy):
+    """Oversubscribed with preemption: the same greedy tokens as the
+    unpreempted graphed run, every spill promoted back, spilled rows in
+    pinned host memory, and not one capture after construction."""
+    prompts = _serve_prompts()
+    base = _serve_tokens(_smoke_server(arch, policy), prompts)
+    server = _smoke_server(arch, policy, preempt=True, preempt_wait=2, verify_spills=True)
+    seen = []
+
+    def spilled(srv, n):
+        seen.extend(sp.rows for sp in srv._spilled.values())
+
+    got = _serve_tokens(server, prompts, hook=spilled)
+    st = server.stats()
+    assert got == base
+    assert st["preemptions"] >= 1 and st["promotions"] == st["preemptions"]
+    assert st["captures"] == 2
+    assert seen and all(t.is_pinned() for rows in seen for t in tree_leaves(rows))
+
+
+@requires_cuda
+def test_mid_serve_recapture_keeps_live_mamba_rows():
+    """A rebuild of the steps with live Mamba-2 rows (the warm-ups run the
+    step on the live state) leaves every cache leaf and the serve state
+    bit for bit, captures both graphs once more, and the run's tokens are
+    the uninterrupted run's; so do replans hbm_resident -> kv_host ->
+    hbm_resident, each capturing both graphs once."""
+    prompts = _serve_prompts()
+    base = _serve_tokens(_smoke_server("mamba2-780m"), prompts)
+
+    def rebuild(srv, n):
+        if n != 3:
+            return
+        eng = srv.engine
+        torch.cuda.synchronize()
+        live = [t.clone() for t in eng._written()]
+        captures = eng.counters["captures"]
+        eng._build_steps()
+        assert eng.counters["captures"] == captures + 2
+        for a, b in zip(live, eng._written()):
+            assert torch.equal(a, b)
+
+    assert _serve_tokens(_smoke_server("mamba2-780m"), prompts, hook=rebuild) == base
+    caps = []
+
+    def replan(srv, n):
+        if n in (2, 5):
+            assert srv.replan("kv_host" if n == 2 else "hbm_resident")
+            caps.append(srv.stats()["captures"])
+
+    server = _smoke_server("mamba2-780m")
+    assert _serve_tokens(server, prompts, hook=replan) == base
+    assert caps == [4, 6] and server.stats()["migrations"] == 2
+    assert server.policy.name == "hbm_resident"
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-780m"])
+def test_replan_while_a_sequence_is_parked_on_the_card(arch):
+    """Preempted rows parked in pinned host memory while the cache moves
+    hbm_resident -> kv_host -> hbm_resident: every promotion verifies
+    against its park-time checksum (summed where the rows lie, whatever
+    device the cache is on by then), none is taken for corrupt, and the
+    greedy tokens are the unpreempted run's."""
+    prompts = _serve_prompts()
+    base = _serve_tokens(_smoke_server(arch), prompts)
+    moves = []
+
+    def replan(srv, n):
+        if srv._spilled and len(moves) < 2 and (not moves or n > moves[-1] + 1):
+            assert srv.replan("kv_host" if not moves else "hbm_resident")
+            moves.append(n)
+
+    server = _smoke_server(arch, preempt=True, preempt_wait=2, verify_spills=True)
+    assert _serve_tokens(server, prompts, hook=replan) == base
+    st = server.stats()
+    assert len(moves) == 2 and st["migrations"] == 2
+    assert st["spill_corruptions"] == 0 and st["requeued_fresh"] == 0
+    assert st["preemptions"] >= 2 and st["promotions"] == st["preemptions"]
+
+
+@requires_cuda
+def test_tier_loss_under_kv_host_recovers_on_the_card():
+    """A host tier loss at a decode pass under kv_host: the cache moves to
+    the card, both graphs are captured again, a transient migration
+    failure is retried, a corrupted spill replays, and the greedy tokens
+    are the no-fault run's."""
+    from repro_torch.core.faults import FaultEvent, FaultKind, FaultPlan
+    from repro_torch.core.hardware import MemoryTier
+    from repro_torch.core.placement import Role
+
+    prompts = _serve_prompts()
+    base = _serve_tokens(_smoke_server("yi-6b", "kv_host"), prompts)
+    plan = FaultPlan([
+        FaultEvent("decode", at=8, kind=FaultKind.TIER_LOSS, tier="host"),
+        FaultEvent("migrate", at=0, kind=FaultKind.MIGRATE_FAIL),
+        FaultEvent("spill", at=0, kind=FaultKind.SPILL_CORRUPT),
+    ])
+    server = _smoke_server("yi-6b", "kv_host", preempt=True, preempt_wait=2, faults=plan)
+    assert _serve_tokens(server, prompts) == base
+    st = server.stats()
+    assert st["tier_losses"] == 1 and st["evacuations"] == 1
+    assert st["migration_retries"] >= 1 and st["spill_corruptions"] == 1
+    assert st["captures"] == 4
+    assert server.engine._spill_pool == []      # no spill lands on host again
+    assert MemoryTier.HOST in server.runtime.lost_tiers
+    assert server.policy.placement(Role.KV_CACHE).tier is MemoryTier.HBM
+    assert all(t.is_cuda for t in tree_leaves(server.engine.caches))
+
+
+@requires_cuda
+@pytest.mark.parametrize("policy", ["hbm_resident", "kv=host"])
+def test_asyncio_scheduler_replays_the_graphs_from_its_worker_thread(policy):
+    """The asyncio Scheduler steps the server in a worker thread: the
+    graphs replay there, with preemption on, and every client streams the
+    tokens of the synchronous graphed run."""
+    import asyncio
+
+    from repro_torch.serve import Scheduler
+
+    prompts = _serve_prompts()
+    base = _serve_tokens(_smoke_server("yi-6b", policy), prompts)
+    server = _smoke_server("yi-6b", policy, preempt=True, preempt_wait=2, max_queue=3)
+    sched = Scheduler(server)
+
+    async def client(i):
+        req = await sched.submit(prompts[i], max_new_tokens=8 + i % 3)
+        return [tok async for tok in sched.stream(req)]
+
+    async def main():
+        async def clients():
+            outs = await asyncio.gather(*(client(i) for i in range(len(prompts))))
+            sched.close()
+            return outs
+        return (await asyncio.gather(sched.run(), clients()))[1]
+
+    assert asyncio.run(main()) == base
+    st = server.stats()
+    assert st["captures"] == 2 and st["decode_replays"] == st["decode_steps"] > 0
