@@ -40,6 +40,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    identical for every request, both runs' tok/s printed;
    (4b) granite-8b at full width and depth (36 layers, 8.05 B params) the
    same way, its first 4 requests also through an eager server;
+   (4c) the ring-cache layers: a C layer's decode through the prefill
+   kernel with one query at llama4's widths (40/8 heads, D 128, chunk
+   8192, ring 16384) against its plain version, and the two serving
+   kernels over gemma3-27b's wrapped L ring (1024 slots, sliding window
+   1024) against theirs and timed beside SDPA and their bounds; then
+   gemma3-27b at full width and depth (62 layers: 52 L, 10 G; 27.01 B
+   params) in bfloat16, 8 slots x 2048: (a) phase 4's 16 requests through
+   the graphs (62 launches a replay of each serving kernel, finite
+   logits), (b) the first 4 eagerly, (c) 8 under ``kv_host`` (the bytes a
+   decode replay copies against the cache windows', 62 write-backs a
+   replay), (d) the 16 arriving one every 2 ticks with preemption, ring
+   slots spilled and promoted; greedy tokens identical across (a)-(d);
 5. times at the phase 4 shapes: each kernel, its plain version, the
    PyTorch library call for the same function (a yardstick the port never
    calls), and the least time the card could take, with the prefill
@@ -754,6 +766,260 @@ def phase_granite_full():
     torch.cuda.empty_cache()
 
 
+#: gemma3-27b serving (phase 4c): 8 slots x 2048, prefill chunk 256; its
+#: attention widths (32/16 heads, head dim 128) and its L layers' ring of
+#: 1024 slots, which is their window
+GEMMA = dict(B=8, Hq=32, Hkv=16, D=128, ring=1024, Smax=2048, chunk=256, window=1024)
+
+#: llama4's chunk-local attention widths for 4c's C decode check: 40/8
+#: heads, head dim 128, chunk 8192, ring 2 x 8192; lengths in the first
+#: chunk, at and past its end, in the second, at and past the ring's end
+LLAMA4_C = dict(B=8, Hq=40, Hkv=8, D=128, chunk=8192, ring=16384,
+                lengths=[100, 8191, 8192, 8300, 12000, 16383, 16384, 20000])
+
+
+def ring_prefill_positions(offsets, new_lens, size, Sn):
+    """q_pos (B, Sn) and k_pos (B, size + Sn) as the model builds them for a
+    ring cache of ``size`` slots (``_ring_positions``: slot r holds the
+    largest position = r mod size below the row's offset; -1 a hole), the
+    chunk's entries past new_lens holes."""
+    import torch
+    from repro_torch.models.attention import _ring_positions
+
+    dev = "cuda"
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    nl = torch.tensor(new_lens, dtype=torch.int32, device=dev)[:, None]
+    j = torch.arange(Sn, dtype=torch.int32, device=dev)[None, :]
+    q_pos = off[:, None] + j
+    kpos_new = torch.where(j < nl, q_pos, -1)
+    return (q_pos.contiguous(),
+            torch.cat([_ring_positions(off, size), kpos_new], 1).contiguous())
+
+
+def phase_ring_kernels():
+    """4c (e) and the ring shapes' times: the C decode route (the prefill
+    kernel with one query, masked by the positions a ring of 2 chunks
+    holds) at llama4's widths against the plain version; the prefill
+    kernel over a wrapped gemma3 ring (sliding window 1024) and the decode
+    kernel over gemma3's L ring against theirs; the two serving kernels'
+    times at gemma3's shapes beside their plain versions, SDPA and their
+    bounds.  Returns ({kernel: record}, {kernel: max abs error})."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_prefill
+    from repro_torch.models.attention import _ring_positions
+
+    c = LLAMA4_C
+    log(f"== phase 4c (e): C decode through the prefill kernel (one query), llama4's "
+        f"widths {c['Hq']}/{c['Hkv']} heads, D {c['D']}, chunk {c['chunk']}, ring "
+        f"{c['ring']}, bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    dt = torch.bfloat16
+    B, Hq, Hkv, D, size = c["B"], c["Hq"], c["Hkv"], c["D"], c["ring"]
+    lens = torch.tensor(c["lengths"], dtype=torch.int32, device="cuda")
+    q = torch.randn(B, Hq, 1, D, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(B, Hkv, size, D, generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    q_pos = lens[:, None].contiguous()
+    k_pos = _ring_positions(lens + 1, size)         # the new key is written first
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, q_pos, k_pos, kind="chunked", chunk=c["chunk"])
+    torch.cuda.synchronize()
+    want = ref.prefill_attention(q, k, v, q_pos, k_pos, kind="chunked", chunk=c["chunk"])
+    errs = {"c_decode": check_close(f"C decode B{B} Hq{Hq} Hkv{Hkv} D{D} ring {size} "
+                                    f"lengths {c['lengths']}", got, want, "bfloat16")}
+    live = live_mask(q_pos, k_pos, "chunked", chunk=c["chunk"]).sum(-1)[:, 0]
+    # the reference's rule (C1): the first lengths % chunk + 1 slots
+    prefix = ref.decode_attention(q[:, :, 0], k, v, lens % c["chunk"] + 1)
+    off = (prefix.float() - want[:, :, 0].float()).abs().amax((1, 2))
+    log(f"  live keys a row (its own chunk): {live.tolist()}; the reference's prefix rule "
+        f"would differ from the position mask by max |diff| a row {[round(float(x), 4) for x in off]}")
+    if flash_prefill.launches - before != 1:
+        raise AssertionError("C decode: one prefill launch expected")
+
+    g = GEMMA
+    log(f"== phase 4c: the serving kernels over gemma3-27b's L ring ({g['ring']} slots = "
+        f"window) against their plain versions, and their times (bfloat16)")
+    B, Hq, Hkv, D, size, Sn = g["B"], g["Hq"], g["Hkv"], g["D"], g["ring"], g["chunk"]
+    copies = 4     # 4 x 67 MB of K/V > 50 MB L2
+    # decode: phase 4c's first 8 prompts + 32 tokens, clamped to the ring
+    lens = [min(int(n) + 32, size) for n in dense_prompts(8)[1][:B]]
+    q, kv, L = decode_inputs(B, Hq, Hkv, D, size, lens, dt, gen, copies)
+    got = flash_decode(q, *kv[0], L)
+    torch.cuda.synchronize()
+    errs["decode"] = check_close(f"decode gemma3 ring B{B} Hq{Hq} Hkv{Hkv} D{D} Smax{size} "
+                                 f"lengths {lens}", got, ref.decode_attention(q, *kv[0], L),
+                                 "bfloat16")
+    recs = {"decode_attention": decode_record(q, kv, L)}
+    del q, kv
+    # prefill: one 256-token chunk a row at fills 0..1792 over the ring: rows
+    # past 1024 hand the kernel a wrapped ring (out-of-order key positions)
+    offs = [0, 256, 512, 768, 1024, 1280, 1536, 1792]
+    q, srcs = prefill_inputs(B, Hq, Hkv, D, size, Sn, dt, gen, copies)
+    q_pos, k_pos = ring_prefill_positions(offs, [Sn] * B, size, Sn)
+    kw = dict(kind="sliding", window=g["window"])
+    kc, vc, kn, vn = srcs[0]
+    got = flash_prefill(q, kc, vc, q_pos, k_pos, k_new=kn, v_new=vn, **kw)
+    torch.cuda.synchronize()
+    want = ref.prefill_attention(q, torch.cat([kc, kn], 2), torch.cat([vc, vn], 2),
+                                 q_pos, k_pos, **kw)
+    errs["prefill"] = check_close(
+        f"prefill gemma3 wrapped ring B{B} Hq{Hq} Hkv{Hkv} D{D} ring {size} Sn{Sn} fills "
+        f"{offs} sliding {g['window']}", got, want, "bfloat16")
+    recs["prefill_attention"] = prefill_record(q, srcs, q_pos, k_pos, **kw)
+    for name, r in recs.items():
+        log(f"  {name} at gemma3's shape: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, SDPA {r['library_ms']:.4f} ms ({r['bytes']} bytes, {r['flops']} flops)")
+    del q, srcs, kc, vc, kn, vn, got, want
+    torch.cuda.empty_cache()
+    return recs, errs
+
+
+def phase_gemma_full():
+    """4c (a)-(d): gemma3-27b at full width and depth in bf16 (62 layers: 52
+    sliding-window L layers on rings of 1024, 10 global G layers), weights
+    from a seeded generator on the card, 8 slots x 2048, chunk 256.  (a)
+    phase 4's 16 requests, 64 new tokens each, through the CUDA graphs: 62
+    decode_attention launches a decode replay and 62 prefill_attention a
+    prefill replay, finite logits; (b) the first 4 eagerly, tokens those of
+    (a); (c) 8 of them under kv_host, 16 new tokens, tokens those of (a),
+    the bytes a replay copies against the windows', the write-back's
+    launches; (d) (a)'s requests arriving one every 2 ticks with
+    preemption: ring slots spill and return, tokens those of (a), no
+    capture.  Returns ((a)'s launches, (c)'s kv_stream launches)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.core.placement import parse_policy
+    from repro_torch.core.planner import predict
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig, Server
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    g = GEMMA
+    cfg = get_config("gemma3-27b")
+    codes = cfg.layer_codes()
+    log(f"== phase 4c: {cfg.name} bfloat16, {cfg.n_layers} layers ({codes.count('L')} L on "
+        f"rings of {g['ring']}, {codes.count('G')} G; stages {cfg.stages()}), d_model "
+        f"{cfg.d_model}, {cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, "
+        f"{cfg.num_params() / 1e9:.2f} B params, through the CUDA graphs")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, S, L = g["B"], g["Smax"], cfg.n_layers
+    scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=g["chunk"])
+    slot = int(bundle.cache_bytes_for(1, S))
+    full = int(ModelBundle(dataclasses.replace(cfg, layer_pattern="G")).cache_bytes_for(1, S))
+    shape = ShapeSpec("serve", S, B, "decode")
+    spec = {pol: predict(bundle.decode_workload(shape), parse_policy(pol), SPEC_SYSTEM).step_s
+            for pol in ("hbm_resident", "kv_host")}
+    log(f"  cache: {slot} bytes a slot ({B * slot} for {B}), against {full} if every layer "
+        f"kept {S} positions; the planner's decode step (spec sheet) "
+        f"{spec['hbm_resident'] * 1e3:.3f} ms hbm_resident, {spec['kv_host'] * 1e3:.3f} ms "
+        "kv_host")
+    prompts, plens = dense_prompts(cfg.vocab)
+    ring = g["ring"]
+    log(f"  prompts of {min(plens)}-{max(plens)} tokens: {sum(int(n) - 1 > ring for n in plens)} "
+        f"of {len(plens)} wrap the L rings in prefill, "
+        f"{sum(int(n) - 1 + 64 > ring for n in plens)} by the end of decode")
+
+    # (a) through the graphs
+    t0 = time.perf_counter()
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64)
+    st, eng = server.stats(), server.engine
+    per = copy.deepcopy(eng.graph_launches)
+    if per != {"decode": {"decode_attention": L}, "prefill": {"prefill_attention": L}}:
+        raise AssertionError(f"4c: launches per replay {per}")
+    want = {"decode_attention": L * st["decode_steps"],
+            "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0, "kv_stream": 0}
+    if launches != want:
+        raise AssertionError(f"4c: launches {launches} != {want}")
+    if eng.slot_bytes() != slot:
+        raise AssertionError(f"4c: a slot is {eng.slot_bytes()} bytes, the sizing says {slot}")
+    check_logits(bundle, params, server, B)
+    tokens = [r.out_tokens for r in reqs]
+    ewma = eng.measured_step_s
+    log(f"  (a) graphs: decode step EWMA {ewma * 1e3:.2f} ms against the planner's "
+        f"{spec['hbm_resident'] * 1e3:.3f} ms; finite logits; took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del server, reqs, eng
+    free()
+
+    # (b) eagerly, the first 4 requests
+    t0 = time.perf_counter()
+    eager, ereqs, _, elaunches = serve_requests(bundle, params, scfg, prompts[:4], 64,
+                                                eager=True)
+    est = eager.stats()
+    if elaunches["decode_attention"] != L * est["decode_steps"]:
+        raise AssertionError(f"4c eager: launches {elaunches}")
+    if [r.out_tokens for r in ereqs] != tokens[:4]:
+        raise AssertionError("4c (b): eager tokens differ from the graphs'")
+    log(f"  (b) eager: greedy tokens identical to (a)'s for {len(ereqs)} requests; took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del eager, ereqs
+    free()
+
+    # (c) kv_host, 8 requests, 16 new tokens
+    t0 = time.perf_counter()
+    hcfg = dataclasses.replace(scfg, policy="kv_host")
+    server, reqs, _, hl = serve_requests(bundle, params, hcfg, prompts[:8], 16)
+    st, eng = server.stats(), server.engine
+    hper = eng.graph_launches
+    if hper != {"decode": {"decode_attention": L, "kv_stream": L},
+                "prefill": {"prefill_attention": L, "kv_stream": L}}:
+        raise AssertionError(f"4c kv_host: launches per replay {hper}")
+    want = {"decode_attention": L * st["decode_steps"],
+            "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0,
+            "kv_stream": L * (st["decode_steps"] + st["prefill_dispatches"])}
+    if hl != want:
+        raise AssertionError(f"4c kv_host: launches {hl} != {want}")
+    diff = [r.rid for r in reqs if r.out_tokens != tokens[r.rid][:16]]
+    if diff:
+        raise AssertionError(f"4c (c): kv_host tokens differ from (a)'s for {diff}")
+    windows = eng.feed.kv.window_bytes
+    dec = replay_traffic("4c kv_host decode", eng.decode)
+    expect = sum(windows)
+    if abs(dec["h2d"] - expect) > 0.02 * expect or dec["d2h"] != 2 * B * 4:
+        raise AssertionError(f"4c kv_host decode replay: H2D {dec['h2d']} bytes (windows "
+                             f"{expect}), D2H {dec['d2h']}")
+    if dec["write_backs"] != L:
+        raise AssertionError(f"4c kv_host decode replay: {dec['write_backs']} write-backs")
+    log(f"  (c) kv_host: greedy tokens identical to (a)'s for {len(reqs)} requests; "
+        f"{len(windows)} cache windows of {sorted(set(windows))} bytes ({expect} a step; "
+        f"one 6-layer period a window of stage 0); a decode replay copied {dec['h2d']} "
+        f"bytes H2D and {dec['d2h']} D2H in {dec['copies']} copies, {dec['wall_ms']:.2f} ms "
+        f"wall; {dec['write_backs']} write-backs, {dec['write_back_ms']:.4f} ms; launches "
+        f"{hl} = {hper} per replay; step EWMA {eng.measured_step_s * 1e3:.2f} ms against "
+        f"the planner's {spec['kv_host'] * 1e3:.3f} ms; took {time.perf_counter() - t0:.1f} s")
+    kv_launches = hl["kv_stream"]
+    del server, reqs, eng
+    free()
+
+    # (d) preemption: arrivals one every 2 ticks
+    t0 = time.perf_counter()
+    pre = dataclasses.replace(scfg, preempt=True, preempt_wait=PREEMPT["wait"],
+                              verify_spills=True)
+    server = Server(bundle, pre, params, device="cuda")
+    reqs = serve_arrivals(server, prompts, 64, hook=pinned_spills)
+    check_preempted(f"4c (d) {cfg.name}", server, reqs, tokens, per)
+    log(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    del server, reqs, params, bundle
+    free()
+    log(f"== phase 4c (a)-(d) took {time.perf_counter() - t_phase:.1f} s")
+    return launches, kv_launches
+
+
 #: the serving kernels' names in a profiler trace, by wrapper name
 TRACE_NAMES = {"decode_attention": "decode_mma_kernel",
                "prefill_attention": "prefill_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
@@ -856,58 +1122,83 @@ def time_ms(fn, inputs, reps=3, iters=10, by_kernel=None):
     return statistics.median(per)
 
 
-def phase_times(launches, stats, plens, errs):
+def decode_record(q, kv, L):
+    """The decode kernel at one shape: its device ms, its plain version's
+    and SDPA's over the copies ``kv`` of the cache (cycled, past L2), and
+    what the call must move and compute for the live keys ``L`` a row
+    (``live``: their count)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels._build import sm_count
-    from repro_torch.kernels.decode_attention import flash_decode, num_splits
+    from repro_torch.kernels.decode_attention import flash_decode
+
+    B, Hq, D = q.shape
+    Hkv, Smax = kv[0][0].shape[1:3]
+    dec_in = [(q, k, v, L) for k, v in kv]
+    mask = (torch.arange(Smax, device="cuda")[None, :] < L[:, None])[:, None, None, :]
+    sd_in = [(q[:, :, None], k, v, mask) for k, v in kv]
+    keys = int(L.clamp(0, Smax).sum())
+    isz = q.element_size()
+    return dict(
+        ms=time_ms(flash_decode, dec_in),
+        plain_ms=time_ms(ref.decode_attention, dec_in, iters=4),
+        library_ms=time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mm, enable_gqa=True), sd_in),
+        bytes=2 * keys * Hkv * D * isz + 2 * q.numel() * isz + L.numel() * 4,
+        flops=4 * keys * Hq * D, live=keys)
+
+
+def prefill_record(q, srcs, q_pos, k_pos, **kw):
+    """The prefill kernel at one shape (mask ``kw``): its device ms over the
+    copies ``srcs`` of (cache k, v, chunk k, v), its plain version's and
+    SDPA's over cache ++ chunk, and what the call must move (each live key
+    once) and compute (``live``: the live (query, key) pairs)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_prefill
+
+    Hq, D = q.shape[1], q.shape[3]
+    Hkv = srcs[0][0].shape[1]
+    pre_in = [(q, kc, vc, q_pos, k_pos, kn, vn) for kc, vc, kn, vn in srcs]
+    cat_in = [(q, torch.cat([kc, kn], 2), torch.cat([vc, vn], 2), q_pos, k_pos)
+              for kc, vc, kn, vn in srcs[:2]]
+    live = live_mask(q_pos, k_pos, **kw)                           # (B, Sq, Sk)
+    sd_in = [(a[0], a[1], a[2], live[:, None]) for a in cat_in]
+    pairs = int(live.sum())
+    isz = q.element_size()
+    return dict(
+        ms=time_ms(lambda *a: flash_prefill(*a[:5], k_new=a[5], v_new=a[6], **kw), pre_in),
+        plain_ms=time_ms(lambda *a: ref.prefill_attention(*a, **kw), cat_in, reps=3,
+                         iters=2),
+        library_ms=time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mm, enable_gqa=True), sd_in),
+        bytes=(2 * int(live.any(1).sum()) * Hkv * D * isz + 2 * q.numel() * isz
+               + (q_pos.numel() + k_pos.numel()) * 4),
+        flops=4 * pairs * Hq * D, live=pairs)
+
+
+def phase_times(launches, stats, plens, errs):
+    import torch
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.decode_attention import num_splits
 
     log("== phase 5: times at the main path's shapes (bfloat16)")
     sms = sm_count(0)
     y = YI
     B, Hq, Hkv, D, Smax, Sn = y["B"], y["Hq"], y["Hkv"], y["D"], y["Smax"], y["chunk"]
-    dt, isz = torch.bfloat16, 2
+    dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(5)
     copies = 4   # 4 x 16.8 MB of K/V > 50 MB L2
 
     # decode: a mid-decode snapshot of phase 4 (first 8 prompts + 32 tokens)
     lens = [min(n + 32, Smax) for n in plens[:B]]
-    q, kv, L = decode_inputs(B, Hq, Hkv, D, Smax, lens, dt, gen, copies)
-    dec_in = [(q, k, v, L) for k, v in kv]
-    mask = (torch.arange(Smax, device="cuda")[None, :] < L[:, None])[:, None, None, :]
-    sd_in = [(q[:, :, None], k, v, mask) for k, v in kv]
-    kern = time_ms(flash_decode, dec_in)
-    plain = time_ms(ref.decode_attention, dec_in, iters=4)
-    lib = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mm, enable_gqa=True), sd_in)
-    keys = sum(lens)
-    dbytes = 2 * keys * Hkv * D * isz + 2 * q.numel() * isz + L.numel() * 4
-    dflops = 4 * keys * Hq * D
-    dec = dict(ms=kern, plain_ms=plain, library_ms=lib, bytes=dbytes, flops=dflops)
+    dec = decode_record(*decode_inputs(B, Hq, Hkv, D, Smax, lens, dt, gen, copies))
 
     # prefill: one 256-token chunk per row at cache fills spread 0..1792
     offs = [0, 256, 512, 768, 1024, 1280, 1536, 1792]
-    nls = [Sn] * B
     q, srcs = prefill_inputs(B, Hq, Hkv, D, Smax, Sn, dt, gen, copies)
-    q_pos, k_pos = prefill_positions(offs, nls, Smax, Sn)
-    pre_in = [(q, kc, vc, q_pos, k_pos, kn, vn) for kc, vc, kn, vn in srcs]
-    live = live_mask(q_pos, k_pos)                                  # (B, Sq, Sk)
-    cat_in = [(q, torch.cat([kc, kn], 2), torch.cat([vc, vn], 2), q_pos, k_pos)
-              for kc, vc, kn, vn in srcs[:2]]
-    kern = time_ms(lambda *a: flash_prefill(*a[:5], k_new=a[5], v_new=a[6]), pre_in)
-    plain = time_ms(lambda *a: ref.prefill_attention(
-        *a[:5]), cat_in, reps=3, iters=2)
-    sd_in = [(a[0], a[1], a[2], live[:, None]) for a in cat_in]
-    lib = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mm, enable_gqa=True), sd_in)
-    pairs = int(live.sum())
-    keys_read = int(live.any(1).sum())
-    pbytes = (2 * keys_read * Hkv * D * isz + 2 * q.numel() * isz
-              + (q_pos.numel() + k_pos.numel()) * 4)
-    pflops = 4 * pairs * Hq * D
-    pre = dict(ms=kern, plain_ms=plain, library_ms=lib, bytes=pbytes, flops=pflops)
+    pre = prefill_record(q, srcs, *prefill_positions(offs, [Sn] * B, Smax, Sn))
 
     steps = max(stats["decode_steps"], 1)
     rows = [
@@ -921,14 +1212,16 @@ def phase_times(launches, stats, plens, errs):
     ]
     log(f"  decode_attention launches per decode step: "
         f"{launches['decode_attention'] / steps:g}")
-    log(f"  decode_attention: {dbytes / dec['ms'] / 1e6:.1f} GB/s on its {keys} live keys "
+    log(f"  decode_attention: {dec['bytes'] / dec['ms'] / 1e6:.1f} GB/s on its "
+        f"{dec['live']} live keys "
         f"x {Hkv} KV heads, {rows[0]['bound_ms'] / dec['ms']:.3f} of the byte bound, "
         f"{dec['ms'] / dec['library_ms']:.2f}x SDPA; {num_splits(B, Hkv, Smax, 64, sms)} "
         f"blocks a (row, KV head) on {sms} SMs")
-    log(f"  prefill_attention: {pflops / pre['ms'] / 1e9:.1f} TFLOP/s on its "
-        f"{pairs} live (query, key) pairs x {Hq} heads, {rows[1]['bound_ms'] / pre['ms']:.3f} "
-        f"of the operation bound, {pre['ms'] / pre['library_ms']:.2f}x SDPA "
-        f"({pflops / pre['library_ms'] / 1e9:.1f} TFLOP/s)")
+    log(f"  prefill_attention: {pre['flops'] / pre['ms'] / 1e9:.1f} TFLOP/s on its "
+        f"{pre['live']} live (query, key) pairs x {Hq} heads, "
+        f"{rows[1]['bound_ms'] / pre['ms']:.3f} of the operation bound, "
+        f"{pre['ms'] / pre['library_ms']:.2f}x SDPA "
+        f"({pre['flops'] / pre['library_ms'] / 1e9:.1f} TFLOP/s)")
     return rows
 
 
@@ -3283,6 +3576,20 @@ def main() -> int:
     del server, eager, servers
     torch.cuda.empty_cache()
     phase_granite_full()
+    t4c = time.perf_counter()
+    ring_recs, ring_errs = phase_ring_kernels()
+    gemma_launches, gemma_kv_launches = phase_gemma_full()
+    rows += [
+        kernel_row(f"{name} (gemma3-27b)", src, replaces, ring_recs[name],
+                   gemma_launches[name], ring_errs[n])
+        for name, src, replaces, n in (
+            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:71", "decode"),
+            ("prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
+             "src/repro/kernels/flash_attention.py:237", "prefill"),
+        )
+    ]
+    log(f"== phase 4c took {time.perf_counter() - t4c:.1f} s")
     server, eager, params, ssm_launches, mamba_tokens = phase_mamba_full()
     per_replay["mamba2-780m"] = copy.deepcopy(server.engine.graph_launches)
     rows.append(phase_ssd_times({"graphs": server, "eager": eager}, ssm_launches, errs))
@@ -3310,7 +3617,7 @@ def main() -> int:
     kv_rec, kv_err = phase_kv_stream_kernel()
     kv_launches, _ = phase_placed_serving()
     phase_opt_host_training()
-    kv_launches += phase_ssm_placed_serving()
+    kv_launches += phase_ssm_placed_serving() + gemma_kv_launches
     rows.append(kernel_row(
         "kv_stream", "src/repro_torch/csrc/kv_stream.cu",
         "none: no Pallas original (the reference's host transfers are XLA's, "

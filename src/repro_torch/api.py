@@ -378,7 +378,10 @@ class Runtime:
             self.faults.check("realize")
         pl = (policy or self.policy).placement(parse_role(role))
         leaves = tree_leaves(tree)
-        if pl.tier is MemoryTier.HBM and all(t.device == self.device for t in leaves):
+        # "cuda" is the current card: a tensor there reports its index
+        here = (torch.device("cuda", torch.cuda.current_device())
+                if self.device.type == "cuda" and self.device.index is None else self.device)
+        if pl.tier is MemoryTier.HBM and all(t.device == here for t in leaves):
             return tree
         if pl.tier is MemoryTier.HOST:
             # a mapped view lies on the card, a streamed leaf on the CPU

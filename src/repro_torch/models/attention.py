@@ -1,9 +1,12 @@
 """GQA attention blocks: param and cache defs, training, prefill, decode.
 
-Counterpart of the GQA half of ``repro/models/attention.py``; MLA and the
-ring caches of sliding-window (``L``) and chunked (``C``) layers are
-still to be ported: every cache here holds ``max_len`` slots, as a
-full-attention (``F``) layer's does.
+Counterpart of the GQA half of ``repro/models/attention.py``, for every
+GQA layer code: full (``F``), global (``G``, with its own RoPE base when
+the spec has one), sliding-window (``L``) and chunk-local (``C``); MLA is
+still to be ported (ROADMAP A4b).  An ``F``/``G`` cache holds ``max_len``
+slots; an ``L`` cache is a ring of ``min(max_len, window)`` and a ``C``
+cache a ring of ``min(max_len, 2 * chunk)``, each position written at
+slot ``pos % size``.
 
 The KV cache is updated **in place**: a layer receives per-layer views of
 the stacked cache tensors and writes through them.  That is the port's
@@ -28,7 +31,7 @@ from repro_torch.models.sharding import Param
 def attention_defs(d_model: int, spec: AttentionSpec) -> dict:
     if spec.kind == "mla":
         raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP queue A)"
+            "MLA attention is not ported yet (ROADMAP queue A, A4b)"
         )
     defs = {
         "w_q": Param(
@@ -82,7 +85,7 @@ def cache_defs(
 
     Every layer code and the MLA cache are described, as the reference
     does, so the planner can size any config's cache; the port's model
-    applies only ``F``-code GQA caches (``ModelBundle`` refuses the rest).
+    applies the GQA caches (``ModelBundle`` refuses MLA).
     """
     if spec.kind == "mla":
         return {
@@ -254,9 +257,17 @@ def gqa_prefill_at(
 def gqa_decode(params, x, cache, lengths, spec: AttentionSpec, code: str):
     """One-token decode; x (B,1,D); lengths (B,) tokens already cached.
 
-    The new key/value is written into the cache (in place) *before* the
-    attention, which then sees ``min(lengths + 1, size)`` entries.
-    Returns the block output.
+    The new key/value is written into the cache (in place) at slot
+    ``lengths % size`` *before* the attention.  An ``F``, ``G`` or ``L``
+    layer then attends to the first ``min(lengths + 1, size)`` slots, as
+    the reference does: a sliding ring of ``window`` slots holds exactly
+    the window.  A ``C`` ring holds the previous chunk and the current
+    one, so its slots are masked by the *position* each holds
+    (``_ring_positions``): the query at ``lengths`` sees the keys of its
+    own chunk, through the chunk-prefill kernel with one query.  (The
+    reference masks a ``C`` layer to the first ``lengths % chunk + 1``
+    slots, which is the current chunk only while a row is in its first
+    one: ROADMAP C1.)  Returns the block output.
     """
     B = x.shape[0]
     positions = lengths[:, None, None]           # (B,1,1) for (B,H,1,dh)
@@ -269,8 +280,16 @@ def gqa_decode(params, x, cache, lengths, spec: AttentionSpec, code: str):
     cache["k"][bidx, :, slot] = k.to(cache["k"].dtype)
     cache["v"][bidx, :, slot] = v.to(cache["v"].dtype)
 
-    valid = torch.clamp(lengths + 1, max=size)
-    o = ops.decode_attention(
-        q.contiguous(), cache["k"], cache["v"], valid.to(torch.int32)
-    )
+    if code == "C" and spec.chunk:
+        lengths = lengths.to(torch.int32)
+        o = ops.prefill_attention(
+            q[:, :, None].contiguous(), cache["k"], cache["v"],
+            lengths[:, None].contiguous(), _ring_positions(lengths + 1, size),
+            kind="chunked", chunk=spec.chunk,
+        )[:, :, 0]
+    else:
+        valid = torch.clamp(lengths + 1, max=size)
+        o = ops.decode_attention(
+            q.contiguous(), cache["k"], cache["v"], valid.to(torch.int32)
+        )
     return _merge_heads(o[:, :, None], params["w_o"])

@@ -1,10 +1,13 @@
 """Model bundle: one object per architecture, its train and serve entry points.
 
 Counterpart of ``repro/models/model_zoo.py``.  The port trains and serves
-dense decoders whose layers are all full-attention GQA (``F``), and the
-SSM and hybrid families whose layers are Mamba-2 (``M``) and Zamba-style
-shared GQA attention (``S``) — mamba2 and zamba2.  Every other family or
-layer code raises ``NotImplementedError`` naming ROADMAP queue A.
+dense GQA decoders whatever their attention layer codes — full (``F``),
+global (``G``), sliding-window (``L``) and chunk-local (``C``) rings, as
+gemma3 mixes them — and the SSM and hybrid families whose layers are
+Mamba-2 (``M``) and Zamba-style shared GQA attention (``S``): mamba2 and
+zamba2.  MoE (ROADMAP A6), MLA (A4b), vision frontends and
+encoder-decoders (A7) raise ``NotImplementedError`` naming the ROADMAP
+queue A item that ports them.
 
 The sizing half — the bytes, flops and planner profiles of a shape — is
 pure arithmetic over the config and lives in :class:`ModelSizing`, which
@@ -152,20 +155,28 @@ class ModelBundle(ModelSizing):
     def __post_init__(self):
         cfg = self.cfg
         codes = set(cfg.layer_codes())
-        if cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None:
+        if cfg.attention is not None and cfg.attention.kind == "mla":
+            raise NotImplementedError(
+                f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue A, "
+                "A4b, with A6)"
+            )
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue A, "
+                "A6)"
+            )
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
                 "port serves dense GQA decoders, mamba2 and zamba2 "
-                "(ROADMAP queue A)"
+                "(ROADMAP queue A, A7)"
             )
         if not codes <= set(tf_mod.LAYER_CODES):
             raise NotImplementedError(
-                f"{cfg.name}: layer pattern {cfg.layer_pattern!r} needs the "
-                "L/G/C layer codes, not ported yet (ROADMAP queue A)"
+                f"{cfg.name}: layer pattern {cfg.layer_pattern!r} has codes "
+                "the port does not run (ROADMAP queue A)"
             )
-        if codes & {"F", "S"} and (
-            cfg.attention is None or cfg.attention.kind != "gqa"
-        ):
+        if codes - {"M"} and (cfg.attention is None or cfg.attention.kind != "gqa"):
             raise NotImplementedError(
                 f"{cfg.name}: only GQA attention is ported (ROADMAP queue A)"
             )

@@ -1,6 +1,8 @@
 """Decoder-only LM assembled from pattern stages.
 
-Counterpart of ``repro/models/transformer.py`` for full-attention (``F``),
+Counterpart of ``repro/models/transformer.py`` for the GQA attention
+layers — full (``F``), global (``G``), sliding-window (``L``) and
+chunk-local (``C``), whose caches are rings (``attention.cache_defs``) —
 Mamba-2 (``M``) and Zamba-style shared-attention (``S``) layers.  The
 params and caches keep the reference's pytree — one stacked dict per
 stage of ``cfg.stages()``, plus the model-level ``shared_attn`` block
@@ -42,8 +44,9 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.sharding import Param, stack_defs, tree_leaves, tree_map
 
-#: layer codes ported so far; L/G/C (ring caches) wait for ROADMAP queue A
-LAYER_CODES = ("F", "M", "S")
+#: layer codes ported so far (MLA attention and MoE FFNs wait for ROADMAP
+#: A4b and A6; ``ModelBundle`` refuses them by config)
+LAYER_CODES = ("F", "L", "G", "C", "M", "S")
 
 
 # ---------------------------------------------------------------------------
@@ -65,7 +68,7 @@ def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
     if code == "S":
         return {}  # the shared block's params live at model level
     if cfg.moe is not None and cfg.moe.is_moe_layer(layer_idx):
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue A)")
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue A, A6)")
     ff = cfg.d_ff
     if cfg.moe is not None and cfg.moe.dense_d_ff:
         ff = cfg.moe.dense_d_ff

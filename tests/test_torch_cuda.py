@@ -1389,6 +1389,8 @@ def _write_back_case(B, H, S, D, pos, n, dtype, seed=0):
      [256, 256, 256, 200, 13, 0, 256, 1]),                                   # prefill, H 8, D 64
     (4, 2, 64, 256, [60, 0, 33, 7], [9, 64, 0, 70]),                         # D 256
     (8, 4, 2048, 128, [0, 7, 100, 2047, 1500, 64, 9, 2046], [0] * 8),        # nothing to write
+    (8, 16, 1024, 128, [0, 900, 1000, 1023, 1500, 2047, 5, 3000],
+     [256, 256, 256, 1, 256, 256, 0, 200]),                                  # gemma3's L ring
 ])
 def test_kv_write_back_kernel_matches_plain_into_pinned_memory(B, H, S, D, pos, n, dtype):
     from repro_torch.kernels.kv_stream import kv_write_back
@@ -1844,3 +1846,146 @@ def test_asyncio_scheduler_replays_the_graphs_from_its_worker_thread(policy):
     assert asyncio.run(main()) == base
     st = server.stats()
     assert st["captures"] == 2 and st["decode_replays"] == st["decode_steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# ring caches: gemma3's L and G layers, chunk-local C decode
+# ---------------------------------------------------------------------------
+
+@requires_cuda
+def test_prefill_bf16_over_gemma3_wrapped_ring():
+    """The bf16 prefill kernel at gemma3-27b's serving shape (8 rows, 32/16
+    heads, D 128) over an L ring of 1024 slots that has wrapped (key
+    positions out of order along the cache), a 256-token chunk, the
+    sliding window of 1024: against the plain version."""
+    from repro_torch.models.attention import _ring_positions
+
+    B, Sc, Sn = 8, 1024, 256
+    offs = torch.tensor([0, 256, 700, 1024, 1100, 1500, 1792, 3000], dtype=torch.int32)
+    nl = torch.tensor([256, 256, 256, 256, 0, 100, 256, 1], dtype=torch.int32)
+    j = torch.arange(Sn, dtype=torch.int32)[None]
+    q_pos = offs[:, None] + j
+    k_pos = torch.cat([_ring_positions(offs, Sc), torch.where(j < nl[:, None], q_pos, -1)], 1)
+    _bf16_prefill_matches_plain(B, 2, 16, 128, Sn, Sc, Sn, kind="sliding",
+                                kw={"window": 1024},
+                                positions=(q_pos.cuda().contiguous(), k_pos.cuda().contiguous()))
+
+
+def _c_block(dtype):
+    """llama4-smoke's attention (4/2 heads, D 16) with chunk 16 on the card
+    and on the CPU: params, spec, and a C ring (2 chunks) per device."""
+    from repro_torch.configs import AttentionSpec
+    from repro_torch.models import attention as attn
+
+    spec = AttentionSpec(n_heads=4, n_kv_heads=2, d_head=16, chunk=16)
+    g = torch.Generator().manual_seed(3)
+    params = {n: torch.randn(*p.shape, generator=g) * 0.3
+              for n, p in attn.attention_defs(64, spec).items()}
+    shape = attn.cache_defs(4, 64, spec, "C")["k"].shape
+    assert shape[2] == 32
+    cache = {n: torch.randn(*shape, generator=g) for n in ("k", "v")}
+    return {d: (tree_map(lambda t: t.to(d, dtype), params),
+                {n: t.to(d, dtype) for n, t in cache.items()}) for d in ("cpu", "cuda")}, spec
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_c_decode_runs_the_prefill_kernel_with_one_query(dtype):
+    """A C layer's decode on the card launches the prefill kernel once
+    (one query, masked by the positions the ring holds) and no decode
+    kernel, in a CUDA graph too, and gives what it gives on the CPU; rows
+    in the first chunk, at and past its end, past the ring's end."""
+    from repro_torch.models import attention as attn
+
+    blocks, spec = _c_block(dtype)
+    lengths = torch.tensor([3, 16, 40, 77], dtype=torch.int32)
+    x = torch.randn(4, 1, 64, generator=torch.Generator().manual_seed(4)).to(dtype)
+    out = {}
+    for d, (params, cache) in blocks.items():
+        before = (flash_prefill.launches, flash_decode.launches)
+        out[d] = attn.gqa_decode(params, x.to(d), cache, lengths.to(d), spec, "C")
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert (flash_prefill.launches, flash_decode.launches) == (before[0] + 1,
+                                                                       before[1])
+    torch.testing.assert_close(out["cuda"].float().cpu(), out["cpu"].float(), **TOL[dtype])
+    for n in ("k", "v"):
+        torch.testing.assert_close(blocks["cuda"][1][n].float().cpu(),
+                                   blocks["cpu"][1][n].float(), **TOL[dtype])
+    # the same call captured and replayed
+    params, cache = blocks["cuda"]
+    xs, ls = x.cuda(), lengths.cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        attn.gqa_decode(params, xs, cache, ls, spec, "C")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = attn.gqa_decode(params, xs, cache, ls, spec, "C")
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float().cpu(), out["cpu"].float(), **TOL[dtype])
+
+
+@requires_cuda
+def test_c_decode_kernel_at_llama4_widths_against_plain():
+    """The prefill kernel with one query over a C ring of 2 x 8192 slots
+    (llama4: 40/8 heads, D 128), bf16, lengths in the first chunk, at its
+    end, in the second, at and past the ring's end: against the plain
+    version on the same ring positions."""
+    from repro_torch.models.attention import _ring_positions
+
+    lens = torch.tensor([100, 8191, 8192, 8300, 12000, 16383, 16384, 20000],
+                        dtype=torch.int32, device="cuda")
+    B, size = 8, 16384
+    q_pos = lens[:, None].contiguous()
+    k_pos = _ring_positions(lens + 1, size)
+    _bf16_prefill_matches_plain(B, 5, 8, 128, 1, size, 0, kind="chunked",
+                                kw={"chunk": 8192}, positions=(q_pos, k_pos))
+
+
+@requires_cuda
+def test_gemma3_smoke_on_card_matches_cpu():
+    """gemma3-27b-smoke (window 32) in float32 through Server on the card
+    (CUDA graphs) and on the CPU, same weights, prompts of 40-90 tokens
+    with chunk 8 (the L rings wrap): the same greedy tokens; a replay
+    launches one attention kernel a layer."""
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("gemma3-27b"), dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, tb.cfg.vocab, n).astype(np.int32) for n in (40, 90, 55, 71)]
+    tokens = {}
+    for d in ("cpu", "cuda"):
+        p = params if d == "cpu" else tree_map(lambda t: t.cuda(), params)
+        server = Server(tb, ServeConfig(batch_slots=2, max_len=128, prefill_chunk=8), p,
+                        device=d)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=6) for i, pr in enumerate(prompts)]
+        server.add_requests(reqs)
+        server.run_until_done(max_steps=500)
+        tokens[d] = [r.out_tokens for r in reqs]
+        if d == "cuda":
+            L = tb.cfg.n_layers
+            assert server.engine.graph_launches == {
+                "decode": {"decode_attention": L}, "prefill": {"prefill_attention": L}}
+    assert tokens["cuda"] == tokens["cpu"]
+
+
+@requires_cuda
+def test_realize_keeps_a_tree_already_on_the_card():
+    """Realizing params or a cache that already lie on the card under
+    ``hbm_resident`` hands back the same tensors: a model of 54 GB (gemma3)
+    must not be copied on an 80 GB card, whether the runtime was given
+    ``cuda`` or ``cuda:0``."""
+    from repro_torch.api import Runtime
+    from repro_torch.core.placement import Role
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("gemma3-27b"), dtype="float32"))
+    params = tb.init_params(torch.Generator(device="cuda").manual_seed(0))
+    for device in ("cuda", "cuda:0"):
+        rt = Runtime(tb, device, "hbm_resident")
+        assert rt.realize(params, Role.PARAMS) is params
+        cache = tb.init_cache(2, 64, device=device)
+        assert rt.realize(cache, Role.KV_CACHE) is cache
