@@ -24,12 +24,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``q_offset > 0`` and ``Sq != Sk``, the smoke head dim and a length off
    the tile;
 3. smoke parity on the card and on the CPU from the same weights:
-   yi-6b-smoke and granite-8b-smoke in float32 through ``Server`` (the
-   card's through its CUDA graphs; greedy tokens identical per request),
-   then olmo-1b-smoke and yi-6b-smoke in float32 for 3 AdamW steps of the
-   same batches (losses and grad norms within tolerance); (3c) the same
-   for mamba2-smoke and zamba2-smoke (the SSD scan's forward and backward
-   kernels, launches counted);
+   yi-6b-smoke, granite-8b-smoke and llama4-maverick-smoke (GShard MoE)
+   in float32 through ``Server`` (the card's through its CUDA graphs;
+   greedy tokens identical per request), then olmo-1b-smoke, yi-6b-smoke
+   and llama4-maverick-smoke in float32 for 3 AdamW steps of the same
+   batches (losses, grad norms and the MoE aux loss within tolerance;
+   llama4's card steps each start from the CPU's state, since routing
+   is not continuous in the weights); (3c) the same for mamba2-smoke
+   and zamba2-smoke (the SSD scan's forward and backward kernels,
+   launches counted);
 4. serving: full-width, full-depth yi-6b in bfloat16, weights drawn on the
    card from a seeded generator: 16 requests (prompts of 128-1536 tokens,
    64 new tokens each) through 8 slots, the server's decode step and
@@ -52,6 +55,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode replay copies against the cache windows', 62 write-backs a
    replay), (d) the 16 arriving one every 2 ticks with preemption, ring
    slots spilled and promoted; greedy tokens identical across (a)-(d);
+   (4d) llama4-maverick at full width and depth 4 (one ``CCCG`` period,
+   MoE on layers 1 and 3: 128 experts top-1 + 1 shared; 34.25 B params,
+   68.5 GB in bf16 — the full 48 layers, 399.7 B params, fit no card)
+   in bfloat16, 8 slots x 2048: (a) phase 4's 16 requests through the
+   graphs (per replay 1 decode_attention for the ``G`` layer and 3
+   prefill_attention for the ``C`` layers' decode, 4 prefill_attention a
+   prefill dispatch; finite logits; a slot's bytes; the peak memory and
+   the decode EWMA beside the planner's price), (d) profiler windows over
+   decode steps and a prefill dispatch, the MoE FFN and its expert
+   products timed alone against the bytes they read, (e) the two serving
+   kernels at its decode shapes against their plain versions and timed,
+   (b) the first 4 requests eagerly, (c) two requests past the ``C``
+   chunk of 8192 positions through the graphs and eagerly; greedy tokens
+   identical graphs / eager;
 5. times at the phase 4 shapes: each kernel, its plain version, the
    PyTorch library call for the same function (a yardstick the port never
    calls), and the least time the card could take, with the prefill
@@ -569,9 +586,9 @@ def phase_smoke_parity():
     from repro_torch.models.sharding import tree_map
     from repro_torch.serve import Request, ServeConfig, Server
 
-    log("== phase 3: yi-6b-smoke and granite-8b-smoke float32, card (CUDA graphs) "
-        "against CPU")
-    for arch in ("yi-6b", "granite-8b"):
+    log("== phase 3: yi-6b-smoke, granite-8b-smoke and llama4-maverick-smoke float32, "
+        "card (CUDA graphs) against CPU")
+    for arch in ("yi-6b", "granite-8b", "llama4-maverick-400b-a17b"):
         cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
         bundle = ModelBundle(cfg)
         params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
@@ -668,15 +685,15 @@ def same_tokens(label, a, b):
         f"{len(b)} requests compared")
 
 
-def check_logits(bundle, params, server, rows):
+def check_logits(bundle, params, server, rows, length=1600):
     """The logits behind the served tokens are finite (one more step on the
-    served caches, eager and uncounted)."""
+    served caches at position ``length``, eager and uncounted)."""
     import torch
 
     logits, _ = bundle.decode_step(
         params,
         {"tokens": torch.zeros(rows, 1, dtype=torch.int32, device="cuda"),
-         "lengths": torch.full((rows,), 1600, dtype=torch.int32, device="cuda")},
+         "lengths": torch.full((rows,), length, dtype=torch.int32, device="cuda")},
         server.engine.caches,
     )
     if not torch.isfinite(logits).all():
@@ -771,11 +788,19 @@ def phase_granite_full():
 #: 1024 slots, which is their window
 GEMMA = dict(B=8, Hq=32, Hkv=16, D=128, ring=1024, Smax=2048, chunk=256, window=1024)
 
-#: llama4's chunk-local attention widths for 4c's C decode check: 40/8
-#: heads, head dim 128, chunk 8192, ring 2 x 8192; lengths in the first
-#: chunk, at and past its end, in the second, at and past the ring's end
-LLAMA4_C = dict(B=8, Hq=40, Hkv=8, D=128, chunk=8192, ring=16384,
-                lengths=[100, 8191, 8192, 8300, 12000, 16383, 16384, 20000])
+#: 4c's C decode check at llama4's attention widths (:func:`llama4_attention`)
+#: on a ring of 2 chunks: lengths in the first chunk, at and past its end,
+#: in the second, at and past the ring's end (chunk 8192)
+LLAMA4_C = dict(B=8, lengths=[100, 8191, 8192, 8300, 12000, 16383, 16384, 20000])
+
+
+def llama4_attention():
+    """llama4-maverick's attention widths from its config: {"Hq", "Hkv",
+    "D", "chunk"} (40/8 heads, head dim 128, chunk 8192)."""
+    from repro_torch.configs import get_config
+
+    a = get_config("llama4-maverick-400b-a17b").attention
+    return dict(Hq=a.n_heads, Hkv=a.n_kv_heads, D=a.d_head, chunk=a.chunk)
 
 
 def ring_prefill_positions(offsets, new_lens, size, Sn):
@@ -810,7 +835,8 @@ def phase_ring_kernels():
     from repro_torch.kernels.flash_attention import flash_prefill
     from repro_torch.models.attention import _ring_positions
 
-    c = LLAMA4_C
+    c = {**LLAMA4_C, **llama4_attention()}
+    c["ring"] = 2 * c["chunk"]
     log(f"== phase 4c (e): C decode through the prefill kernel (one query), llama4's "
         f"widths {c['Hq']}/{c['Hkv']} heads, D {c['D']}, chunk {c['chunk']}, ring "
         f"{c['ring']}, bfloat16")
@@ -1020,6 +1046,301 @@ def phase_gemma_full():
     return launches, kv_launches
 
 
+#: llama4-maverick serving (phase 4d): full width (its config's) at depth
+#: 4, one CCCG period (C layers 0-2 on rings of min(max_len, 2 x 8192)
+#: slots, G layer 3; GShard MoE on layers 1 and 3: 128 experts top-1 + 1
+#: shared), 8 slots x 2048, prefill chunk 256; (c) 2 slots x 8448 serving
+#: two requests that pass the C chunk of 8192 positions (one in prefill,
+#: one in decode)
+LLAMA4 = dict(depth=4, B=8, Smax=2048, prefill_chunk=256,
+              long_slots=2, long_max_len=8448, long_prompts=(8160, 8300), long_new=64)
+
+
+def expert_bytes(cfg):
+    """Bytes of one MoE layer's routed experts (w_gate, w_up, w_down), bf16."""
+    m = cfg.moe
+    return 3 * m.n_experts * cfg.d_model * m.d_ff_expert * 2
+
+
+def phase_llama4_kernels(lens):
+    """4d (e): the two serving kernels at llama4's served shapes, bf16,
+    against their plain versions and timed beside SDPA and their bounds:
+    the ``G`` layer's decode through ``decode_attention`` (8 rows, 40/8
+    heads, a 2048-slot cache) and a ``C`` layer's decode through
+    ``prefill_attention`` with one query over its ring of 2048 slots,
+    masked by position (chunk 8192).  ``lens``: each row's cache fill.
+    Returns ({kernel: record}, {kernel: max abs error})."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_prefill
+    from repro_torch.models.attention import _ring_positions
+
+    c = {**LLAMA4, **llama4_attention()}
+    B, Hq, Hkv, D, size = c["B"], c["Hq"], c["Hkv"], c["D"], c["Smax"]
+    log(f"== phase 4d (e): the serving kernels at llama4-maverick's decode shapes "
+        f"(B {B}, {Hq}/{Hkv} heads, D {D}, {size} slots, fills {lens}), bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    dt = torch.bfloat16
+    copies = 8     # 8 x 21 MB of live K/V > 50 MB L2
+    q, kv, L = decode_inputs(B, Hq, Hkv, D, size, lens, dt, gen, copies)
+    got = flash_decode(q, *kv[0], L)
+    torch.cuda.synchronize()
+    errs = {"decode": check_close(f"decode llama4 G B{B} Hq{Hq} Hkv{Hkv} D{D} Smax{size} "
+                                  f"lengths {lens}", got, ref.decode_attention(q, *kv[0], L),
+                                  "bfloat16")}
+    recs = {"decode_attention": decode_record(q, kv, L)}
+    # the C decode: the new key written at slot lens % size first, then one
+    # query at position lens over the ring's positions
+    q4 = q[:, :, None].contiguous()
+    q_pos = L[:, None].contiguous()
+    k_pos = _ring_positions(L + 1, size)
+    kw = dict(kind="chunked", chunk=c["chunk"])
+    got = flash_prefill(q4, *kv[0], q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    want = ref.prefill_attention(q4, *kv[0], q_pos, k_pos, **kw)
+    errs["prefill"] = check_close(f"C decode llama4 B{B} Hq{Hq} Hkv{Hkv} D{D} ring {size}",
+                                  got, want, "bfloat16")
+    recs["prefill_attention"] = prefill_record(
+        q4, [(k, v, None, None) for k, v in kv], q_pos, k_pos, **kw)
+    for name, r in recs.items():
+        log(f"  {name} at llama4's decode shape: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms ({r['bytes']} bytes, "
+            f"{r['flops']} flops)")
+    del q, q4, kv, got, want
+    torch.cuda.empty_cache()
+    return recs, errs
+
+
+def profile_moe(bundle, params):
+    """The MoE FFN alone on layer 1's weights, bf16, device ms a call (the
+    profiler's kernel records): at the decode shape (8 tokens: every
+    expert gets capacity(8) = 4 rows) and at the prefill dispatch's (8 x
+    256 tokens), and the three expert products alone at the decode shape
+    against the bytes they read (one MoE layer's experts, once)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+
+    cfg = bundle.cfg
+    lp = {k: v[0] for k, v in params["stages"][0]["1C"]["moe"].items() if k != "shared"}
+    lp["shared"] = {k: v[0] for k, v in params["stages"][0]["1C"]["moe"]["shared"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    c = LLAMA4
+    out = {}
+    for label, S in (("decode", 1), ("prefill", c["prefill_chunk"])):
+        x = torch.randn(c["B"], S, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+        by = {}
+        out[label] = time_ms(lambda xx: moe_mod.apply_moe(lp, xx, cfg.moe, cfg.act), [(x,)],
+                             reps=3, iters=4, by_kernel=by)
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+        log(f"  apply_moe at the {label} shape ({c['B']} x {S} tokens, capacity "
+            f"{moe_mod.capacity(c['B'] * S, cfg.moe)}): {out[label]:.3f} ms of device time a "
+            f"call; its largest kernels " + "; ".join(f"{v:.3f} ms {k[:60]}" for k, v in top))
+    C = moe_mod.capacity(c["B"], cfg.moe)
+    xin = torch.randn(cfg.moe.n_experts, C, cfg.d_model, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    h = torch.randn(cfg.moe.n_experts, C, cfg.moe.d_ff_expert, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def experts(a, b):
+        torch.bmm(a, lp["w_gate"])
+        torch.bmm(a, lp["w_up"])
+        torch.bmm(b, lp["w_down"])
+
+    out["experts"] = time_ms(experts, [(xin, h)], reps=3, iters=4)
+    nbytes = expert_bytes(cfg)
+    out["expert_bound"] = nbytes / peaks()[0] * 1e3
+    log(f"  the expert products at the decode shape ({cfg.moe.n_experts} x {C} rows): "
+        f"{out['experts']:.3f} ms, {nbytes / out['experts'] / 1e6:.1f} GB/s on the "
+        f"{nbytes} bytes of one MoE layer's experts (bound {out['expert_bound']:.3f} ms at "
+        f"{peaks()[0] / 1e12:.2f} TB/s)")
+    return out
+
+
+def phase_llama4_full(plens):
+    """4d: llama4-maverick at full width and depth 4 (one CCCG period; 34.25
+    B params, 68.5 GB in bf16 — depth 8 would be 135 GB, the full 48
+    layers 399.7 B params, neither fits one card), weights drawn on the
+    card from seed 0, 8 slots x 2048, chunk 256.  (a) phase 4's 16
+    requests, 64 new tokens each, through the CUDA graphs: per replay 1
+    decode_attention (the G layer) and 3 prefill_attention (the C layers'
+    decode, one query) a decode step, 4 prefill_attention a prefill
+    dispatch; finite logits; a slot's bytes against
+    ``Executor.slot_bytes()``; the peak memory and the decode EWMA beside
+    the planner's hbm_resident price; (d) a profiler window over decode
+    steps and one over a prefill dispatch, the MoE FFN and its expert
+    products timed alone; (b) the first 4 requests eagerly, tokens those
+    of (a); (c) two requests past the C chunk of 8192 positions (2 slots
+    x 8448) through the graphs and eagerly, tokens identical, finite
+    logits.  Returns ((a)'s launches, its launches per replay, (e)'s
+    kernel records and errors)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.core.placement import parse_policy
+    from repro_torch.core.planner import predict
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    c = LLAMA4
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"), n_layers=c["depth"])
+    full = get_config("llama4-maverick-400b-a17b")
+    moe = [i for i in range(cfg.n_layers) if cfg.moe.is_moe_layer(i)]
+    log(f"== phase 4d: {cfg.name} bfloat16 at full width, depth {cfg.n_layers} of "
+        f"{full.n_layers} (stages {cfg.stages()}; MoE on layers {moe}: "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} + {cfg.moe.n_shared} shared, "
+        f"d_ff {cfg.moe.d_ff_expert}; dense d_ff {cfg.moe.dense_d_ff}), d_model "
+        f"{cfg.d_model}, {cfg.attention.n_heads}/{cfg.attention.n_kv_heads} heads, "
+        f"{cfg.num_params() / 1e9:.2f} B params ({cfg.num_params() * 2 / 1e9:.1f} GB bf16; "
+        f"depth 8 {dataclasses.replace(cfg, n_layers=8).num_params() * 2 / 1e9:.1f} GB, "
+        f"all {full.n_layers} layers {full.num_params() / 1e9:.1f} B params), through the "
+        "CUDA graphs")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{weights / 2**30:.2f} GiB (peak while drawing "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    B, S = c["B"], c["Smax"]
+    scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=c["prefill_chunk"])
+    slot = int(bundle.cache_bytes_for(1, S))
+    shape = ShapeSpec("serve", S, B, "decode")
+    price = predict(bundle.decode_workload(shape), parse_policy("hbm_resident"),
+                    SPEC_SYSTEM).step_s
+    prompts, _ = dense_prompts(cfg.vocab)
+
+    # (a) through the graphs
+    t0 = time.perf_counter()
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64)
+    st, eng = server.stats(), server.engine
+    peak = torch.cuda.max_memory_allocated()
+    per = copy.deepcopy(eng.graph_launches)
+    want_per = {"decode": {"decode_attention": 1, "prefill_attention": 3},
+                "prefill": {"prefill_attention": 4}}
+    if per != want_per or server.policy.name != "hbm_resident":
+        raise AssertionError(f"4d: launches per replay {per} under {server.policy.name}")
+    want = {"decode_attention": st["decode_steps"],
+            "prefill_attention": 3 * st["decode_steps"] + 4 * st["prefill_dispatches"],
+            "ssd_scan": 0, "kv_stream": 0}
+    if launches != want:
+        raise AssertionError(f"4d: launches {launches} != {want}")
+    if eng.slot_bytes() != slot:
+        raise AssertionError(f"4d: a slot is {eng.slot_bytes()} bytes, the sizing says {slot}")
+    # a permuted copy of one expert leaf (10.7 GB) would show here
+    if peak - weights > 4 * 2**30:
+        raise AssertionError(f"4d: serving took {(peak - weights) / 2**30:.2f} GiB past the "
+                             "weights")
+    check_logits(bundle, params, server, B)
+    tokens = [r.out_tokens for r in reqs]
+    ewma = eng.measured_step_s
+    tp = server.throughput()
+    log(f"  (a) graphs: {slot} bytes a slot ({B * slot} for {B}); decode {tp['decode_tps']:.1f} "
+        f"tok/s, prefill {tp['prefill_tps']:.1f} tok/s; decode step EWMA {ewma * 1e3:.2f} ms "
+        f"against the planner's hbm_resident price {price * 1e3:.3f} ms "
+        f"({ewma / price:.2f}x; it prices every expert, which the dense dispatch reads); "
+        f"peak memory {peak / 2**30:.2f} GiB ({(peak - weights) / 2**30:.2f} past the "
+        f"weights); finite logits; took {time.perf_counter() - t0:.1f} s")
+
+    # (d) where the time goes
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    for i in range(B):
+        # room for every retake of the profiler window (4 steps each)
+        server.submit(rng.integers(0, cfg.vocab, 1024),
+                      max_new_tokens=4 * TRACE_ATTEMPTS + 5, rid=100 + i)
+    server.step()
+    server.step()
+    dec = profile_window("4d (d) graphs: decode step at 8 x ~1030 cached tokens",
+                         server.step, 4, expected_trace(server, "decode"))
+    server.run_until_done()
+    toks = rng.integers(0, cfg.vocab, (B, c["prefill_chunk"])).astype(np.int32)
+    offs = np.arange(0, B * c["prefill_chunk"], c["prefill_chunk"], dtype=np.int32)
+    pre = profile_window("4d (d) graphs: prefill dispatch (8 x 256 tokens at fills "
+                         "0..1792)", lambda: eng.dispatch_prefill(
+                             toks, np.full(B, c["prefill_chunk"], np.int32), offs),
+                         steps=2, expect=expected_trace(server, "prefill"))
+    per_launch = {}
+    for name, trace in (("prefill_attention", "prefill_mma_kernel"),
+                        ("decode_attention", "decode_mma_kernel")):
+        ms = sum(v[0] for k, v in dec["kernels"].items() if trace in k)
+        n = sum(v[1] for k, v in dec["kernels"].items() if trace in k)
+        per_launch[name] = ms / max(n, 1)
+    moe_ms = profile_moe(bundle, params)
+    share = len(moe) * moe_ms["decode"] / dec["busy_ms"]
+    log(f"  (d) a decode step: {dec['busy_ms']:.2f} ms of device time, {dec['wall_ms']:.2f} "
+        f"ms wall; the {len(moe)} MoE layers ~{len(moe) * moe_ms['decode']:.2f} ms of it "
+        f"({100 * share:.1f} %, an estimate: the FFN timed alone, not read from the step's "
+        f"trace); the expert products of a layer "
+        f"{moe_ms['experts']:.3f} ms against their {moe_ms['expert_bound']:.3f} ms bound; "
+        f"per launch: prefill_attention on a C decode (one query) "
+        f"{per_launch['prefill_attention']:.4f} ms, decode_attention on the G decode "
+        f"{per_launch['decode_attention']:.4f} ms; a prefill dispatch {pre['busy_ms']:.2f} ms "
+        f"of device time, the MoE FFN alone {moe_ms['prefill']:.3f} ms a layer; took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del server, reqs, eng
+    free()
+
+    # (e) the kernels at the served decode shape (phase 4's first 8 prompts
+    # + 32 tokens)
+    recs, errs = phase_llama4_kernels([min(int(n) + 32, S) for n in plens[:B]])
+
+    # (b) eagerly, the first 4 requests: rows 0-3 take the capacity first
+    # in every group, so their routing is (a)'s
+    t0 = time.perf_counter()
+    eager, ereqs, _, elaunches = serve_requests(bundle, params, scfg, prompts[:4], 64,
+                                                eager=True)
+    est = eager.stats()
+    if elaunches["decode_attention"] != est["decode_steps"]:
+        raise AssertionError(f"4d eager: launches {elaunches}")
+    if [r.out_tokens for r in ereqs] != tokens[:4]:
+        raise AssertionError("4d (b): eager tokens differ from the graphs'")
+    log(f"  (b) eager: greedy tokens identical to (a)'s for {len(ereqs)} requests; took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del eager, ereqs
+    free()
+
+    # (c) past the C chunk: prompts of 8160 (decode crosses 8192) and 8300
+    # (prefill crosses it), 64 new tokens each
+    t0 = time.perf_counter()
+    lcfg = ServeConfig(batch_slots=c["long_slots"], max_len=c["long_max_len"],
+                       prefill_chunk=c["prefill_chunk"])
+    rng = np.random.default_rng(4)
+    long = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in c["long_prompts"]]
+    chunk = cfg.attention.chunk
+    if not all(len(p) + c["long_new"] > chunk for p in long):
+        raise AssertionError("4d (c): a request stays inside the first chunk")
+    runs = {}
+    for eager in (False, True):
+        srv, lreqs, _, _ = serve_requests(bundle, params, lcfg, long, c["long_new"],
+                                          eager=eager)
+        check_logits(bundle, params, srv, c["long_slots"], length=c["long_max_len"] - 40)
+        runs[eager] = [r.out_tokens for r in lreqs]
+        del srv, lreqs
+        free()
+    if runs[False] != runs[True]:
+        raise AssertionError("4d (c): graph and eager tokens differ past the chunk")
+    log(f"  (c) {len(long)} requests of {[len(p) for p in long]} prompt tokens + "
+        f"{c['long_new']} new (past the chunk of {chunk}) on {c['long_slots']} slots x "
+        f"{c['long_max_len']}: greedy tokens identical, graphs against eager; finite logits; "
+        f"took {time.perf_counter() - t0:.1f} s")
+    del params, bundle
+    free()
+    log(f"== phase 4d took {time.perf_counter() - t_phase:.1f} s")
+    return launches, per, recs, errs
+
+
 #: the serving kernels' names in a profiler trace, by wrapper name
 TRACE_NAMES = {"decode_attention": "decode_mma_kernel",
                "prefill_attention": "prefill_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
@@ -1044,7 +1365,7 @@ def profile_decode(servers, steps=4):
         rng = np.random.default_rng(1)
         for i in range(server.cfg.batch_slots):
             server.submit(rng.integers(0, server.bundle.cfg.vocab, 1024),
-                          max_new_tokens=steps + 5, rid=100 + i)
+                          max_new_tokens=steps * TRACE_ATTEMPTS + 5, rid=100 + i)
         server.step()                       # admission + first decode
         server.step()
         profile_window(f"{label}: decode step at 8 x ~1030 cached tokens", server.step,
@@ -1073,50 +1394,33 @@ def profile_prefill(servers):
 
 def time_ms(fn, inputs, reps=3, iters=10, by_kernel=None):
     """Device milliseconds per call: the card's own kernel records
-    (``torch.profiler``, CUPTI) summed over ``iters`` calls, median of
+    (``torch.profiler``, CUPTI, through :func:`traced_window`, which keeps
+    every record of the calls) summed over ``iters`` calls, median of
     ``reps``.  Host launch overhead is left out — a CUDA-event window
     around these calls would time the Python wrapper, not the card.  The
     calls cycle through ``inputs``, copies big enough that the 50 MB L2
     does not hold them, so each call finds its operands cold.  Given a dict
     ``by_kernel``, fills it with each kernel's own device ms per call, by
-    the profiler's name, median over the repetitions that recorded it.
-
-    A profiler window now and then comes back with no device records at
-    all (seen once in a run of every phase); such a window is taken again,
-    up to three times, and a repetition that still has none is timed with
-    CUDA events instead, which adds the host's launch gaps and is logged."""
+    the trace's name, median over the repetitions."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def run():
         for i in range(iters):
             fn(*inputs[i % len(inputs)])
-        torch.cuda.synchronize()
 
     for i in range(3):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
     per, parts = [], {}
     for _ in range(reps):
-        for _attempt in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
-            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-            if events:
-                per.append(sum(e.self_device_time_total for e in events) / 1e3 / iters)
-                for e in events:
-                    parts.setdefault(e.key, []).append(e.self_device_time_total / 1e3 / iters)
-                break
-        else:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            run()
-            end.record()
-            torch.cuda.synchronize()
-            per.append(start.elapsed_time(end) / iters)
-            log(f"  (torch.profiler recorded no device time three times: this "
-                f"repetition timed with CUDA events, {per[-1]:.4f} ms)")
+        inside, _ = traced_window("time_ms", run)
+        kernels = [e for e in inside if e.get("cat") == "kernel"]
+        per.append(sum(e.get("dur", 0) for e in kernels) / 1e3 / iters)
+        names = {}
+        for e in kernels:
+            names[e["name"]] = names.get(e["name"], 0) + e.get("dur", 0) / 1e3 / iters
+        for k, v in names.items():
+            parts.setdefault(k, []).append(v)
     if by_kernel is not None:
         by_kernel.update({k: statistics.median(v) for k, v in parts.items()})
     return statistics.median(per)
@@ -1152,7 +1456,9 @@ def prefill_record(q, srcs, q_pos, k_pos, **kw):
     """The prefill kernel at one shape (mask ``kw``): its device ms over the
     copies ``srcs`` of (cache k, v, chunk k, v), its plain version's and
     SDPA's over cache ++ chunk, and what the call must move (each live key
-    once) and compute (``live``: the live (query, key) pairs)."""
+    once) and compute (``live``: the live (query, key) pairs).  Chunk k, v
+    None: one key source (a ``C`` layer's decode, the new key already in
+    its ring)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1161,7 +1467,8 @@ def prefill_record(q, srcs, q_pos, k_pos, **kw):
     Hq, D = q.shape[1], q.shape[3]
     Hkv = srcs[0][0].shape[1]
     pre_in = [(q, kc, vc, q_pos, k_pos, kn, vn) for kc, vc, kn, vn in srcs]
-    cat_in = [(q, torch.cat([kc, kn], 2), torch.cat([vc, vn], 2), q_pos, k_pos)
+    cat_in = [(q, kc, vc, q_pos, k_pos) if kn is None else
+              (q, torch.cat([kc, kn], 2), torch.cat([vc, vn], 2), q_pos, k_pos)
               for kc, vc, kn, vn in srcs[:2]]
     live = live_mask(q_pos, k_pos, **kw)                           # (B, Sq, Sk)
     sd_in = [(a[0], a[1], a[2], live[:, None]) for a in cat_in]
@@ -1306,6 +1613,70 @@ def phase_train_kernels():
     return errs
 
 
+#: 3b: the card's AdamW update of llama4-smoke against the CPU's from the
+#: same state.  AdamW's first step is lr x g / (|g| + eps), so an element
+#: whose gradient is near its rounding noise moves by a different amount,
+#: or the other way, on the other device: at most UPDATE_FLIPS of the
+#: elements may differ by more than lr / 2 (1 of 427,072 did on the H100),
+#: and over the others the norm of the difference is at most UPDATE_TOL of
+#: the norm of the CPU's update (2.06e-3, 3.69e-4, 1.99e-4 in steps 1-3 on
+#: the H100; with the moments from step 1 on, less noise is amplified)
+UPDATE_FLIPS = 1e-4
+UPDATE_TOL = 1e-2
+
+
+def moe_routes(bundle, params, batch):
+    """Each MoE layer's routing of ``batch`` in one forward pass, in layer
+    order: (expert, capacity slot) per (group, token, choice), slot -1 for
+    a choice the capacity drops (``moe.apply_moe``'s rule)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+
+    spec, picks, plain = bundle.cfg.moe, [], moe_mod.top_k
+
+    def recording(probs, k):
+        vals, idx = plain(probs, k)
+        picks.append(idx)
+        return vals, idx
+
+    moe_mod.top_k = recording
+    try:
+        with torch.no_grad():
+            bundle.train_loss(params, batch, remat="none")
+    finally:
+        moe_mod.top_k = plain
+    routes = []
+    for idx in picks:
+        g, G, K = idx.shape
+        onehot = (idx[..., None] == torch.arange(spec.n_experts, device=idx.device)).long()
+        pos = torch.cumsum(onehot.reshape(g, G * K, -1), 1).reshape(onehot.shape)
+        slot = (pos * onehot).sum(-1) - 1
+        slot = torch.where(slot < moe_mod.capacity(G, spec), slot, -1)
+        routes.append((idx.cpu(), slot.cpu()))
+    return routes
+
+
+def update_gap(start, card, cpu, lr):
+    """The card's update (``card - start``) against the CPU's (``cpu -
+    start``): (elements that differ by more than lr / 2, elements, norm of
+    the other elements' difference / norm of the CPU's update, largest
+    difference of one element / lr)."""
+    import torch
+    from repro_torch.models.sharding import tree_leaves
+
+    d2 = u2 = worst = 0.0
+    big = total = 0
+    for s0, a, c in zip(tree_leaves(start), tree_leaves(card), tree_leaves(cpu)):
+        diff = (a.cpu() - c).double().abs()
+        flip = diff > lr / 2
+        d2 += float(torch.where(flip, 0.0, diff).square().sum())
+        u2 += float((c - s0).double().square().sum())
+        worst = max(worst, float(diff.max()))
+        big += int(flip.sum())
+        total += diff.numel()
+    return big, total, d2 ** 0.5 / u2 ** 0.5, worst / lr
+
+
 def phase_train_parity():
     import dataclasses
 
@@ -1318,44 +1689,101 @@ def phase_train_parity():
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import TrainConfig, make_train_step
 
-    log("== phase 3b: smoke training, float32, card against CPU")
+    log("== phase 3b: smoke training, float32, card against CPU (llama4-maverick-smoke: "
+        "MoE, its aux loss and its AdamW updates compared too)")
     # step 1 starts from the same weights: the losses differ only by the
     # order of f32 sums.  Steps 2-3 start from weights that AdamW moved by
     # up to lr per element, and m / sqrt(v) turns a near-zero gradient's
     # rounding difference into a full-lr step, so their limit is looser.
-    tcfg = TrainConfig(remat="full", optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
-    for arch in ("olmo-1b", "yi-6b"):
+    lr = 1e-3
+    tcfg = TrainConfig(remat="full", optimizer=AdamWConfig(lr=lr, warmup_steps=1))
+
+    def to(dev, tree):
+        return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+    def fresh(params_cpu):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = to(dev, params_cpu)
+            out[dev] = [params, init_opt_state(params), make_train_step(bundle, tcfg)]
+        return out
+
+    def run_step(state, dev, b):
+        params, opt, step = state[dev]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        params, opt, _, m = step(params, opt, None, batch)
+        state[dev][:2] = [params, opt]
+        return {k: float(m[k]) for k in ("loss", "grad_norm", "aux")}
+
+    for arch in ("olmo-1b", "yi-6b", "llama4-maverick-400b-a17b"):
         cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
         bundle = ModelBundle(cfg)
         params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
         batches = [next(data) for _ in range(3)]
-        res = {}
-        for dev in ("cuda", "cpu"):
-            params = tree_map(lambda t: t.to(dev, copy=True), params_cpu)
-            opt = init_opt_state(params)
-            step = make_train_step(bundle, tcfg)
-            before = (flash_attention.launches, flash_attention_bwd.launches)
-            losses, gnorms = [], []
-            for b in batches:
-                batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-                params, opt, _, m = step(params, opt, None, batch)
-                losses.append(float(m["loss"]))
-                gnorms.append(float(m["grad_norm"]))
-            res[dev] = (losses, gnorms)
-            if dev == "cuda":
-                n = (flash_attention.launches - before[0],
-                     flash_attention_bwd.launches - before[1])
-                want = (2 * cfg.n_layers * 3, cfg.n_layers * 3)
-                if n != want:
-                    raise AssertionError(f"{arch}: attention launches {n} != {want}")
-        (lc, gc), (lp, gp) = res["cuda"], res["cpu"]
+        # MoE routing is not continuous in the weights: once AdamW has moved
+        # the two devices' weights apart by rounding, a token whose expert or
+        # capacity slot flips changes the gradient by a finite amount (the
+        # unsynced run below counts such routings).  So a MoE model's card
+        # step starts each time from the CPU's state (copied over), is held
+        # at step 1's limit, and its update is held to the CPU's
+        resync = cfg.moe is not None
+        res = {dev: [] for dev in ("cuda", "cpu")}
+        state, gaps = fresh(params_cpu), []
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        for b in batches:
+            if resync:
+                state["cuda"][:2] = [to("cuda", x) for x in state["cpu"][:2]]
+                start = state["cpu"][0]
+            for dev in ("cuda", "cpu"):
+                res[dev].append(run_step(state, dev, b))
+            if resync:
+                gaps.append(update_gap(start, state["cuda"][0], state["cpu"][0], lr))
+        n = (flash_attention.launches - before[0], flash_attention_bwd.launches - before[1])
+        want = (2 * cfg.n_layers * 3, cfg.n_layers * 3)
+        if n != want:
+            raise AssertionError(f"{arch}: attention launches {n} != {want}")
+        lc, gc, ac = ([r[k] for r in res["cuda"]] for k in ("loss", "grad_norm", "aux"))
+        lp, gp, ap = ([r[k] for r in res["cpu"]] for k in ("loss", "grad_norm", "aux"))
         for i in range(3):
-            lim = 1e-5 if i == 0 else 1e-3
-            if abs(lc[i] - lp[i]) > lim * abs(lp[i]) or abs(gc[i] - gp[i]) > 1e-2 * abs(gp[i]):
+            lim = 1e-5 if i == 0 or resync else 1e-3
+            if (abs(lc[i] - lp[i]) > lim * abs(lp[i]) or abs(gc[i] - gp[i]) > 1e-2 * abs(gp[i])
+                    or abs(ac[i] - ap[i]) > lim * max(abs(ap[i]), 1.0)):
                 raise AssertionError(f"{arch} step {i + 1}: card loss {lc[i]} grad norm "
-                                     f"{gc[i]} vs CPU {lp[i]} {gp[i]}")
-        log(f"  {arch}-smoke: losses card {lc} cpu {lp}; grad norms card {gc} cpu {gp}")
+                                     f"{gc[i]} aux {ac[i]} vs CPU {lp[i]} {gp[i]} {ap[i]}")
+        log(f"  {arch}-smoke: losses card {lc} cpu {lp}; grad norms card {gc} cpu {gp}"
+            + (f"; aux card {ac} cpu {ap} (each card step from the CPU's state)"
+               if resync else ""))
+        if not resync:
+            continue
+        if not all(a > 0 for a in ac):
+            raise AssertionError(f"{arch}: no aux loss from its MoE layers: {ac}")
+        for i, (big, total, rel, worst) in enumerate(gaps):
+            log(f"  {arch}-smoke step {i + 1}: card update against the CPU's from the same "
+                f"state: {big} of {total} elements off by more than lr / 2 (limit "
+                f"{int(UPDATE_FLIPS * total)}), the others' |difference| / |update| "
+                f"{rel:.3e} (limit {UPDATE_TOL:g}); largest element {worst:.3e} lr")
+        for i, (big, total, rel, _) in enumerate(gaps):
+            if big > UPDATE_FLIPS * total or not rel <= UPDATE_TOL:
+                raise AssertionError(f"{arch} step {i + 1}: the card's AdamW update differs "
+                                     f"from the CPU's: {big} of {total} elements by more "
+                                     f"than lr / 2, the others by {rel:.3e} of its norm")
+        # the same 3 steps with each device on its own state: the routings
+        # that differ at the start of each step, beside the grad norms
+        state = fresh(params_cpu)
+        for i, b in enumerate(batches):
+            routes, m = {}, {}
+            for dev in ("cuda", "cpu"):
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                routes[dev] = moe_routes(bundle, state[dev][0], batch)
+                m[dev] = run_step(state, dev, b)
+            diff = [int(((ea != eb) | (sa != sb)).sum()) for (ea, sa), (eb, sb)
+                    in zip(routes["cuda"], routes["cpu"])]
+            gn = (m["cuda"]["grad_norm"], m["cpu"]["grad_norm"])
+            log(f"  {arch}-smoke unsynced step {i + 1}: (token, choice) routings that differ "
+                f"(expert or capacity slot), by MoE layer: {diff} of "
+                f"{routes['cpu'][0][0].numel()} each; grad norm card {gn[0]} cpu {gn[1]} "
+                f"({abs(gn[0] - gn[1]) / gn[1]:.2e} apart)")
 
 
 def phase_ssm_train_parity():
@@ -1938,46 +2366,44 @@ def phase_zamba_full():
 
 
 def profile_window(label, fn, steps, expect=None):
-    """``torch.profiler`` over ``steps`` calls of ``fn``: wall and device
-    time per call, the busy share, the kernels that take the device time.
-    ``expect`` maps a kernel's trace name to its launches per call: the
-    trace must show exactly that many (a graph's launches confirmed from
-    the card's own records).  A window with no device records at all is
-    taken again, up to three times."""
+    """The card's own records of ``steps`` calls of ``fn``
+    (:func:`traced_window`, which keeps every record of the calls): wall
+    and device time per call, the busy share, the kernels and copies that
+    take the device time.  ``expect`` maps a kernel's trace name to its
+    launches per call: the trace must show exactly that many (a graph's
+    launches confirmed from the card's own records).  A retake calls
+    ``fn`` ``steps`` more times."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / steps
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        if kernels:
-            break
-        log(f"  ({label}: the profiler recorded no device time; taken again)")
-    else:
-        raise AssertionError(f"{label}: three profiler windows without device records")
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    n = sum(e.count for e in kernels) // steps
+
+    def run():
+        for _ in range(steps):
+            fn()
+
+    inside, wall = traced_window(label, run)
+    wall /= steps
+    kernels = {}
+    for e in inside:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms, count = kernels.get(e["name"], (0.0, 0))
+            kernels[e["name"]] = (ms + e.get("dur", 0) / 1e3, count + 1)
+    busy = sum(ms for ms, _ in kernels.values()) / steps
+    n = sum(count for _, count in kernels.values()) // steps
     log(f"  {label}: {wall * 1e3:.2f} ms wall, {busy:.2f} ms of device time "
         f"({100 * busy / (wall * 1e3):.1f} % busy), {n} kernel launches per call")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/call "
-            f"{e.count // steps:5d} launches/call  {e.key[:90]}")
+    for name, (ms, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"    {ms / steps:8.3f} ms/call {count // steps:5d} launches/call  {name[:90]}")
     for name, per_call in (expect or {}).items():
-        seen = sum(e.count for e in kernels if name in e.key)
+        seen = sum(count for key, (_, count) in kernels.items() if name in key)
         if seen != per_call * steps:
             raise AssertionError(f"{label}: the trace shows {seen} {name} launches, "
                                  f"the graph counted {per_call} x {steps} calls")
         log(f"    trace confirms {name}: {seen} launches = {per_call} per replay x {steps}")
-    return dict(wall_ms=wall * 1e3, busy_ms=busy, launches=n)
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, launches=n,
+                kernels={key: (ms / steps, count // steps)
+                         for key, (ms, count) in kernels.items()})
 
 
 def phase_ssd_times(servers, launches, errs):
@@ -2473,36 +2899,41 @@ def phase_kv_stream_kernel():
     return rec, err
 
 
-#: spin kernels a traced window runs before the call it measures, at
-#: first: a retake after a window that lost them all runs 8 times as many
-#: (late in a long process the tracer dropped the first ~83 kernel records
-#: of every window on the H100)
+#: spin kernels a traced window runs before the call it measures: a
+#: retake after a window that lost them all runs 8 times as many, up to
+#: TRACE_MAX_SPINS, and the count that worked stays for the later windows
+#: of the process (late in a long process the tracer dropped the first ~83
+#: kernel records of every window on the H100: without it each window
+#: would be taken twice)
 TRACE_LEAD_SPINS = 20
-#: profiler windows replay_traffic takes before it gives up
+#: the most leading spins a window runs (1280: ~6 ms of spins)
+TRACE_MAX_SPINS = 1280
+#: profiler windows traced_window takes before it gives up
 TRACE_ATTEMPTS = 5
 
 
-def replay_traffic(label, fn):
-    """Host<->device bytes and kernel launches of one call of ``fn``, from
-    ``torch.profiler``'s trace of the card's own records (CUPTI lists a
-    graph's kernels and copies one by one): memcpy bytes by direction, the
-    kernels and their device time.
+def traced_window(label, fn):
+    """The card's own records of one call of ``fn`` (``torch.profiler``,
+    CUDA activity only: kernels and copies as chrome-trace events, times
+    in us) and its wall seconds.
 
     The tracer loses the first records of a window (on the card: the
     first two or three copies of a step, whatever precedes them in the
     process; late in a long process, the first ~83 kernel records).  So
     the window opens with ``TRACE_LEAD_SPINS`` spin kernels (8 times as
-    many on each retake after a window that kept fewer than two),
-    then the call, then one more spin, and only the records between the
-    last leading spin and the closing one are counted.  A window with
-    fewer spins than that, or with no kernel between them (the tracer
-    dropped the call's records: every call measured here launches
-    kernels), is taken again, up to TRACE_ATTEMPTS times, each retake
-    after an empty profiler window."""
+    many on each retake after a window that kept fewer than two, at most
+    ``TRACE_MAX_SPINS``; a count that worked is kept from then on in the
+    process), then the call, then one more spin, and
+    only the records between the last leading spin and the closing one
+    are returned.  A window with fewer spins than that, or with no
+    kernel between them (the tracer dropped the call's records: every
+    call measured here launches kernels), is taken again, up to
+    TRACE_ATTEMPTS times, each retake after an empty profiler window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    path = ROOT / "build" / "phase10-trace.json"
+    global TRACE_LEAD_SPINS
+    path = ROOT / "build" / "trace-window.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     lead = TRACE_LEAD_SPINS
     for attempt in range(TRACE_ATTEMPTS):
@@ -2529,19 +2960,27 @@ def replay_traffic(label, fn):
         if len(spins) >= 2:
             lo, hi = spins[-2], spins[-1]
             inside = [e for e in events if lo < e.get("ts", lo) < hi]
-            kernels = [e for e in inside if e.get("cat") == "kernel"]
-            if kernels:
-                break
+            if any(e.get("cat") == "kernel" for e in inside):
+                TRACE_LEAD_SPINS = lead
+                return inside, wall
             log(f"  ({label}: the profiler kept its markers but no kernel of the call; "
                 "taken again)")
         else:
             n_kernels = sum(e.get("cat") == "kernel" for e in events)
-            log(f"  ({label}: the profiler kept {len(spins)} of its {lead + 1} spin markers "
-                f"and {n_kernels} kernel records; taken again with {8 * lead} leading)")
-            lead *= 8
-    else:
-        raise AssertionError(f"{label}: {TRACE_ATTEMPTS} profiler windows without the "
-                             "call's records")
+            lead = min(8 * lead, TRACE_MAX_SPINS)
+            log(f"  ({label}: the profiler kept {len(spins)} of its spin markers and "
+                f"{n_kernels} kernel records; taken again with {lead} leading)")
+    raise AssertionError(f"{label}: {TRACE_ATTEMPTS} profiler windows without the "
+                         "call's records")
+
+
+def replay_traffic(label, fn):
+    """Host<->device bytes and kernel launches of one call of ``fn``, from
+    the card's own records of it (:func:`traced_window`; CUPTI lists a
+    graph's kernels and copies one by one): memcpy bytes by direction, the
+    kernels and their device time."""
+    inside, wall = traced_window(label, fn)
+    kernels = [e for e in inside if e.get("cat") == "kernel"]
     copies = [e for e in inside if e.get("cat") == "gpu_memcpy"]
 
     def nbytes(direction):
@@ -3590,6 +4029,18 @@ def main() -> int:
         )
     ]
     log(f"== phase 4c took {time.perf_counter() - t4c:.1f} s")
+    llama_launches, llama_per, llama_recs, llama_errs = phase_llama4_full(plens)
+    rows += [
+        kernel_row(f"{name} (llama4-maverick {what})", src, replaces, llama_recs[name],
+                   llama_per["decode"][name] * llama_launches["decode_attention"],
+                   llama_errs[n])
+        for name, what, src, replaces, n in (
+            ("decode_attention", "G decode", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:71", "decode"),
+            ("prefill_attention", "C decode", "src/repro_torch/csrc/prefill_attention.cu",
+             "src/repro/kernels/flash_attention.py:237", "prefill"),
+        )
+    ]
     server, eager, params, ssm_launches, mamba_tokens = phase_mamba_full()
     per_replay["mamba2-780m"] = copy.deepcopy(server.engine.graph_launches)
     rows.append(phase_ssd_times({"graphs": server, "eager": eager}, ssm_launches, errs))

@@ -124,8 +124,10 @@ def train(args: argparse.Namespace) -> dict:
         out["grad_norms"].append(gnorm)
         out["step_s"].append(time.perf_counter() - t0)
         if len(out["losses"]) % args.log_every == 0:
-            log.info("step %d loss %.4f grad_norm %.3f (%.3f s)",
-                     len(out["losses"]), loss, gnorm, out["step_s"][-1])
+            # aux: the MoE load-balancing loss (0 without MoE layers)
+            log.info("step %d loss %.4f grad_norm %.3f aux %.4f (%.3f s)",
+                     len(out["losses"]), loss, gnorm, float(metrics["aux"]),
+                     out["step_s"][-1])
         return {"params": p, "opt": o, "ef": e}, metrics
 
     try:

@@ -195,7 +195,7 @@ def mlp_defs(d: int, ff: int) -> dict:
     }
 
 
-_ACTS = {
+ACTS = {
     "silu": F.silu,
     # jax.nn.gelu defaults to the tanh approximation
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -206,4 +206,4 @@ _ACTS = {
 def apply_mlp(params: dict, x: torch.Tensor, act: str = "silu"):
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
-    return (_ACTS[act](g) * u) @ params["w_down"]
+    return (ACTS[act](g) * u) @ params["w_down"]

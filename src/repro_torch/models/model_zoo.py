@@ -1,13 +1,14 @@
 """Model bundle: one object per architecture, its train and serve entry points.
 
 Counterpart of ``repro/models/model_zoo.py``.  The port trains and serves
-dense GQA decoders whatever their attention layer codes — full (``F``),
+GQA decoders whatever their attention layer codes — full (``F``),
 global (``G``), sliding-window (``L``) and chunk-local (``C``) rings, as
-gemma3 mixes them — and the SSM and hybrid families whose layers are
-Mamba-2 (``M``) and Zamba-style shared GQA attention (``S``): mamba2 and
-zamba2.  MoE (ROADMAP A6), MLA (A4b), vision frontends and
-encoder-decoders (A7) raise ``NotImplementedError`` naming the ROADMAP
-queue A item that ports them.
+gemma3 mixes them — with dense FFNs or GShard MoE ones (family ``"moe"``:
+llama4), and the SSM and hybrid families whose layers are Mamba-2
+(``M``) and Zamba-style shared GQA attention (``S``): mamba2 and zamba2.
+MLA (ROADMAP A4b, which deepseek-v2 needs beside its MoE), vision
+frontends and encoder-decoders (A7) raise ``NotImplementedError`` naming
+the ROADMAP queue A item that ports them.
 
 The sizing half — the bytes, flops and planner profiles of a shape — is
 pure arithmetic over the config and lives in :class:`ModelSizing`, which
@@ -158,17 +159,12 @@ class ModelBundle(ModelSizing):
         if cfg.attention is not None and cfg.attention.kind == "mla":
             raise NotImplementedError(
                 f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue A, "
-                "A4b, with A6)"
+                "A4b)"
             )
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue A, "
-                "A6)"
-            )
-        if cfg.family not in ("dense", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                "port serves dense GQA decoders, mamba2 and zamba2 "
+                "port serves dense and MoE GQA decoders, mamba2 and zamba2 "
                 "(ROADMAP queue A, A7)"
             )
         if not codes <= set(tf_mod.LAYER_CODES):

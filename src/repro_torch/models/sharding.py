@@ -69,11 +69,21 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+#: the largest float32 draw of one leaf: a leaf above it is drawn in
+#: slices (a stacked MoE expert leaf of llama4 is 21.5 GB in float32)
+DRAW_BYTES = 1 << 30
+
+
 def _init_one(p: Param, generator: torch.Generator, dtype) -> torch.Tensor:
     """The reference's rule: integer leaves and ``zeros`` inits are zeros,
     ``ones`` are ones, and ``normal`` draws N(0, 1) in float32 times
     ``scale`` (default ``1/sqrt(shape[0])`` of the def as materialized, so
-    a stacked def scales by its stack count) before the cast."""
+    a stacked def scales by its stack count) before the cast.  The draw
+    is made slice by slice — runs of whole rows along the leaf's leading
+    dims, at most :data:`DRAW_BYTES` of float32 each — and each slice is
+    cast into the preallocated output, so no float32 copy of a large leaf
+    exists; a leaf within :data:`DRAW_BYTES` is one slice, the same draw
+    as one ``randn`` of its shape."""
     dt = torch_dtype(p.dtype or dtype)
     dev = generator.device
     if not dt.is_floating_point or p.init == "zeros":
@@ -81,9 +91,15 @@ def _init_one(p: Param, generator: torch.Generator, dtype) -> torch.Tensor:
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dt, device=dev)
     scale = p.scale if p.scale is not None else max(p.shape[0], 1) ** -0.5
-    out = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                      device=dev)
-    return out.mul_(scale).to(dt)
+    out = torch.empty(p.shape, dtype=dt, device=dev)
+    width = max(p.shape[-1], 1)
+    rows = out.view(-1, width)
+    step = max(1, DRAW_BYTES // (4 * width))
+    for i in range(0, rows.shape[0], step):
+        part = rows[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32, device=dev).mul_(scale))
+    return out
 
 
 def materialize(defs, generator: torch.Generator, dtype) -> dict:

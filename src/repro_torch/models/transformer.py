@@ -3,11 +3,13 @@
 Counterpart of ``repro/models/transformer.py`` for the GQA attention
 layers — full (``F``), global (``G``), sliding-window (``L``) and
 chunk-local (``C``), whose caches are rings (``attention.cache_defs``) —
-Mamba-2 (``M``) and Zamba-style shared-attention (``S``) layers.  The
-params and caches keep the reference's pytree — one stacked dict per
-stage of ``cfg.stages()``, plus the model-level ``shared_attn`` block
-whose params every ``S`` layer reuses over concat(hidden, embedding
-output) — and the reference's ``scan`` over the stacked layer dim becomes
+with a dense or a GShard MoE FFN (``models/moe.py``, on the layers
+``cfg.moe.is_moe_layer`` picks), Mamba-2 (``M``) and Zamba-style
+shared-attention (``S``) layers.  The params and caches keep the
+reference's pytree — one stacked dict per stage of ``cfg.stages()``, plus
+the model-level ``shared_attn`` block whose params every ``S`` layer
+reuses over concat(hidden, embedding output) — and the reference's
+``scan`` over the stacked layer dim becomes
 a Python loop that asks a *feed* for each layer's params and cache:
 views of its slice when both are resident on the device
 (:class:`ResidentFeed`), staging windows streamed from host memory under
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_embed,
@@ -44,8 +47,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.sharding import Param, stack_defs, tree_leaves, tree_map
 
-#: layer codes ported so far (MLA attention and MoE FFNs wait for ROADMAP
-#: A4b and A6; ``ModelBundle`` refuses them by config)
+#: layer codes ported so far (MLA attention waits for ROADMAP A4b;
+#: ``ModelBundle`` refuses it by config)
 LAYER_CODES = ("F", "L", "G", "C", "M", "S")
 
 
@@ -67,17 +70,19 @@ def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
         return {"norm": norm_defs(d, cfg.norm), "ssm": ssm_mod.ssm_defs(d, cfg.ssm)}
     if code == "S":
         return {}  # the shared block's params live at model level
-    if cfg.moe is not None and cfg.moe.is_moe_layer(layer_idx):
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP queue A, A6)")
-    ff = cfg.d_ff
-    if cfg.moe is not None and cfg.moe.dense_d_ff:
-        ff = cfg.moe.dense_d_ff
-    return {
+    defs = {
         "attn_norm": norm_defs(d, cfg.norm),
         "attn": attn.attention_defs(d, cfg.attention),
         "mlp_norm": norm_defs(d, cfg.norm),
-        "mlp": mlp_defs(d, ff),
     }
+    if cfg.moe is not None and cfg.moe.is_moe_layer(layer_idx):
+        defs["moe"] = moe_mod.moe_defs(d, cfg.moe)
+    else:
+        ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.dense_d_ff:
+            ff = cfg.moe.dense_d_ff
+        defs["mlp"] = mlp_defs(d, ff)
+    return defs
 
 
 def _shared_block_defs(cfg: ArchConfig) -> dict:
@@ -92,7 +97,16 @@ def _shared_block_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
+def _check_pattern(cfg: ArchConfig) -> None:
+    if cfg.moe is not None and cfg.moe.moe_period > 1:
+        assert len(cfg.layer_pattern) % cfg.moe.moe_period == 0, (
+            "moe_period must divide the pattern length so that every repeat "
+            "of a stage has the same layers"
+        )
+
+
 def lm_defs(cfg: ArchConfig) -> dict:
+    _check_pattern(cfg)
     defs = {
         "embed": embed_defs(cfg.vocab, cfg.d_model),
         "final_norm": norm_defs(cfg.d_model, cfg.norm),
@@ -136,20 +150,25 @@ def lm_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _apply_layer_train(cfg, code, lp, x, emb0, shared):
-    """One layer of the training forward.  An ``M`` layer has no MLP; an
-    ``S`` layer runs the ``shared`` block over concat(x, emb0)."""
+    """One layer of the training forward -> (x, aux): ``aux`` is an MoE
+    layer's load-balancing loss, None for any other layer.  An ``M`` layer
+    has no MLP; an ``S`` layer runs the ``shared`` block over
+    concat(x, emb0)."""
     _check_code(code)
     if code == "M":
         return x + ssm_mod.ssm_train(
             lp["ssm"], apply_norm(lp["norm"], x, cfg.norm), cfg.d_model, cfg.ssm
-        )
+        ), None
     if code == "S":
         xin = apply_norm(shared["norm"], torch.cat([x, emb0], dim=-1), cfg.norm)
-        return x + attn.gqa_train(shared, xin, cfg.attention, "F")
+        return x + attn.gqa_train(shared, xin, cfg.attention, "F"), None
     h = apply_norm(lp["attn_norm"], x, cfg.norm)
     x = x + attn.gqa_train(lp["attn"], h, cfg.attention, code)
     h = apply_norm(lp["mlp_norm"], x, cfg.norm)
-    return x + apply_mlp(lp["mlp"], h, cfg.act)
+    if "moe" in lp:
+        out, aux = moe_mod.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
+        return x + out, aux
+    return x + apply_mlp(lp["mlp"], h, cfg.act), None
 
 
 def _attn_step(params, h, cache, lengths, spec, code, mode, new_lens):
@@ -195,6 +214,11 @@ def _apply_layer_step(
     x = x + _attn_step(lp["attn"], h, cache, lengths, cfg.attention, code,
                        mode, new_lens)
     h = apply_norm(lp["mlp_norm"], x, cfg.norm)
+    if "moe" in lp:
+        # every row of the step is routed, idle ones included, as in the
+        # reference: through the capacity they share, a row's output
+        # depends on its batch-mates
+        return x + moe_mod.apply_moe(lp["moe"], h, cfg.moe, cfg.act)[0]
     return x + apply_mlp(lp["mlp"], h, cfg.act)
 
 
@@ -221,35 +245,40 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _stage_body(cfg, codes, x, lp, emb0, shared):
+def _stage_body(cfg, codes, x, aux, lp, emb0, shared):
     for j, code in enumerate(codes):
-        x = _apply_layer_train(cfg, code, lp[f"{j}{code}"], x, emb0, shared)
-    return x
+        x, a = _apply_layer_train(cfg, code, lp[f"{j}{code}"], x, emb0, shared)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _run_stages_train(cfg, params, x, remat: str):
-    """Every layer in order; ``remat`` = none | full | dots.  ``emb0`` (the
+    """Every layer in order -> (x, aux summed over the MoE layers in
+    layer order, f32); ``remat`` = none | full | dots.  ``emb0`` (the
     embedding output, when the pattern has ``S`` layers) and the shared
     block's params go into every stage's checkpoint, as the reference's
-    scans close over them."""
+    scans close over them; the aux sum is carried through each
+    checkpoint, as through the reference's scan carry."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat {remat!r}")
     shared = params.get("shared_attn")
     emb0 = x if "S" in cfg.layer_pattern else None
+    aux = x.new_zeros((), dtype=torch.float32)
     for (codes, count, _), stage_params in zip(cfg.stages(), params["stages"]):
         body = functools.partial(_stage_body, cfg, codes)
         for lp in _layer_slices(stage_params, count):
             if remat == "none":
-                x = body(x, lp, emb0, shared)
+                x, aux = body(x, aux, lp, emb0, shared)
             elif remat == "full":
-                x = checkpoint(body, x, lp, emb0, shared, use_reentrant=False)
+                x, aux = checkpoint(body, x, aux, lp, emb0, shared, use_reentrant=False)
             else:
-                x = checkpoint(
-                    body, x, lp, emb0, shared, use_reentrant=False,
+                x, aux = checkpoint(
+                    body, x, aux, lp, emb0, shared, use_reentrant=False,
                     context_fn=functools.partial(
                         create_selective_checkpoint_contexts, _save_dots),
                 )
-    return x, x.new_zeros((), dtype=torch.float32)
+    return x, aux
 
 
 class ResidentFeed:

@@ -1989,3 +1989,98 @@ def test_realize_keeps_a_tree_already_on_the_card():
         assert rt.realize(params, Role.PARAMS) is params
         cache = tb.init_cache(2, 64, device=device)
         assert rt.realize(cache, Role.KV_CACHE) is cache
+
+
+# ---------------------------------------------------------------------------
+# the GShard MoE FFN and llama4-maverick-smoke
+# ---------------------------------------------------------------------------
+
+def _moe_case(dtype, E=8, K=2, cf=0.5, B=4, S=16, d=64, ff=96, seed=6):
+    """An MoE layer's params and input on the CPU in ``dtype``, routed with
+    clear margins: each token leans on one or two router directions
+    (orthonormal columns), so the top-k is the same in bf16 and f32.  A
+    capacity of 8 rows an expert for 64 tokens: some tokens drop."""
+    from repro_torch.configs import MoESpec
+    from repro_torch.models import moe as moe_mod
+
+    spec = MoESpec(n_experts=E, top_k=K, d_ff_expert=ff, n_shared=1, capacity_factor=cf)
+    g = torch.Generator().manual_seed(seed)
+    params = tree_map(lambda p: torch.randn(*p.shape, generator=g) * p.shape[-2] ** -0.5,
+                      moe_mod.moe_defs(d, spec))
+    basis, _ = torch.linalg.qr(torch.randn(d, d, generator=g))
+    params["router"] = basis[:, :E] * 4
+    first = torch.randint(0, E, (B * S,), generator=g)
+    second = (first + 1 + torch.randint(0, E - 1, (B * S,), generator=g)) % E
+    x = (0.1 * torch.randn(B * S, d, generator=g) + 2 * basis[:, first].T
+         + basis[:, second].T).reshape(B, S, d)
+    return spec, tree_map(lambda t: t.to(dtype), params), x.to(dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_moe_in_a_cuda_graph_replays_as_eager(dtype):
+    """``apply_moe`` captures (every shape static, no host read) and its
+    replay, on new input written into the captured buffer, equals an eager
+    call bit for bit."""
+    from repro_torch.models import moe as moe_mod
+
+    spec, params, x = _moe_case(dtype)
+    params = tree_map(lambda t: t.cuda(), params)
+    xs = x.cuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_mod.apply_moe(params, xs, spec)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, aux = moe_mod.apply_moe(params, xs, spec)
+    xs.copy_(torch.flip(x, [1]).cuda())
+    graph.replay()
+    want, want_aux = moe_mod.apply_moe(params, xs, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
+
+
+@requires_cuda
+def test_apply_moe_bf16_on_card_matches_f32_on_cpu():
+    """bf16 on the card against f32 on the CPU from the same (bf16-rounded)
+    values: the same routing and drops, outputs within bf16's limit."""
+    from repro_torch.models import moe as moe_mod
+
+    spec, params, x = _moe_case(torch.bfloat16)
+    got, aux = moe_mod.apply_moe(tree_map(lambda t: t.cuda(), params), x.cuda(), spec)
+    want, want_aux = moe_mod.apply_moe(tree_map(lambda t: t.float(), params), x.float(), spec)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.float().cpu(), want, atol=2e-2 * scale, rtol=2e-2)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-3, rtol=1e-3)
+
+
+@requires_cuda
+def test_llama4_smoke_on_card_matches_cpu():
+    """llama4-maverick-smoke (CCCG, MoE on layers 1 and 3) in float32
+    through Server on the card (CUDA graphs) and on the CPU, same weights,
+    prompts within the chunk of 64 (chunk 4: dispatches drop tokens): the
+    same greedy tokens; a decode replay launches the decode kernel for the
+    G layer and the prefill kernel for the 3 C layers."""
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("llama4-maverick-400b-a17b"),
+                                         dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, tb.cfg.vocab, n).astype(np.int32) for n in (20, 9, 33, 4, 27)]
+    tokens = {}
+    for d in ("cpu", "cuda"):
+        p = params if d == "cpu" else tree_map(lambda t: t.cuda(), params)
+        server = Server(tb, ServeConfig(batch_slots=2, max_len=64, prefill_chunk=4), p,
+                        device=d)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=12) for i, pr in enumerate(prompts)]
+        server.add_requests(reqs)
+        server.run_until_done(max_steps=500)
+        tokens[d] = [r.out_tokens for r in reqs]
+        if d == "cuda":
+            assert server.engine.graph_launches == {
+                "decode": {"decode_attention": 1, "prefill_attention": 3},
+                "prefill": {"prefill_attention": 4}}
+    assert tokens["cuda"] == tokens["cpu"]

@@ -54,6 +54,7 @@ def test_packages_import_without_building_or_jax():
         "import repro_torch.launch.train, repro_torch.optim, repro_torch.train\n"
         "import repro_torch.data, repro_torch.runtime, repro_torch.checkpoint\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.models.moe\n"
         "import repro_torch.core, repro_torch.core.calibration\n"
         "import repro_torch.benchmarks, repro_torch.benchmarks.run\n"
         "import repro_torch.benchmarks.bench_gemm, repro_torch.benchmarks.bench_membw\n"

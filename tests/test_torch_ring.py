@@ -273,8 +273,7 @@ def test_gemma3_bundle_builds_and_sizes_its_rings():
     assert prof.bytes_per_role[Role.KV_CACHE] == 8 * 603_979_776
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("llama4-maverick-400b-a17b", "A6"), ("deepseek-v2-236b", "A4b")])
+@pytest.mark.parametrize("arch,item", [("deepseek-v2-236b", "A4b")])
 def test_moe_and_mla_still_refused_naming_their_item(arch, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
         ModelBundle(get_config(arch))
