@@ -22,15 +22,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    the plain version), at the olmo-1b training shape (4, 16, 2048, 128), a
    yi-6b GQA shape, the sliding / chunked / bidirectional masks with
    ``q_offset > 0`` and ``Sq != Sk``, the smoke head dim and a length off
-   the tile;
+   the tile; and in bfloat16 at MLA's head dims (q/k 192, v 128: phase
+   6c's shape, 4 x 128 heads x 2048, and a ragged one), float32 refused
+   there;
 3. smoke parity on the card and on the CPU from the same weights:
-   yi-6b-smoke, granite-8b-smoke and llama4-maverick-smoke (GShard MoE)
-   in float32 through ``Server`` (the card's through its CUDA graphs;
-   greedy tokens identical per request), then olmo-1b-smoke, yi-6b-smoke
-   and llama4-maverick-smoke in float32 for 3 AdamW steps of the same
-   batches (losses, grad norms and the MoE aux loss within tolerance;
-   llama4's card steps each start from the CPU's state, since routing
-   is not continuous in the weights); (3c) the same for mamba2-smoke
+   yi-6b-smoke, granite-8b-smoke, llama4-maverick-smoke (GShard MoE) and
+   deepseek-v2-smoke (MLA + MoE) in float32 through ``Server`` (the
+   card's through its CUDA graphs; greedy tokens identical per request),
+   then olmo-1b-smoke, yi-6b-smoke, llama4-maverick-smoke and
+   deepseek-v2-smoke in float32 for 3 AdamW steps of the same batches
+   (losses, grad norms and the MoE aux loss within tolerance; the MoE
+   models' card steps each start from the CPU's state, since routing is
+   not continuous in the weights; deepseek-v2-smoke's attention runs the
+   kernels at (24, 16) padded to (32, 32)); (3c) the same for mamba2-smoke
    and zamba2-smoke (the SSD scan's forward and backward kernels,
    launches counted);
 4. serving: full-width, full-depth yi-6b in bfloat16, weights drawn on the
@@ -69,6 +73,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    (b) the first 4 requests eagerly, (c) two requests past the ``C``
    chunk of 8192 positions through the graphs and eagerly; greedy tokens
    identical graphs / eager;
+   (4e) deepseek-v2 at full width and depth 8 (layer 0 dense, 1-7 MoE:
+   160 experts top-6 + 2 shared; MLA with a 512-wide latent; 28.67 B
+   params, 53.4 GiB) in bfloat16, 8 slots x 2048: (a) phase 4's 16
+   requests through the graphs (no hand-written kernel: MLA's absorbed
+   products are cuBLAS's; a slot's 18,874,368 bytes; finite logits; the
+   decode EWMA beside the planner's price), (d) no copy of a full-size
+   MLA weight in an eager decode step, profiler windows over decode
+   steps and a prefill dispatch, MLA's attention and the MoE FFN timed
+   alone, (b) the first 4 requests eagerly and (c) under ``kv_host``,
+   tokens those of a graph run of the same 4;
 5. times at the phase 4 shapes: each kernel, its plain version, the
    PyTorch library call for the same function (a yardstick the port never
    calls), and the least time the card could take, with the prefill
@@ -88,9 +102,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens each: 2 forward and 1 backward scan launches per ``M`` layer
    per step (and zamba2's shared block through the attention kernels),
    and the scan backward's share of the profiled step's device time;
+   (6c) deepseek-v2's dense lead layer at full width (depth 1, 0.862 B
+   params), 4 AdamW steps of 4 x 2048 tokens through ``make_train_step``:
+   2 forward and 1 backward attention launches a step at (192, 128);
 7. times of the training attention kernels at the phase 6 shape, beside
    their plain versions, SDPA and their bounds, with each one's TFLOP/s,
-   its fraction of the operation bound and its ratio to SDPA;
+   its fraction of the operation bound and its ratio to SDPA; (7c) the
+   same at phase 6c's shape (q/k 192, v 128), naming SDPA's backend;
 8. Mamba-2 serving.  (a) the SSD scan kernel against its plain versions
    (the chunked oracle and the literal recurrence) in bfloat16 and float32
    at the mamba2-780m serving shape (B 8, T 256, H 48, P 64, N 128) with a
@@ -257,6 +275,11 @@ YI = dict(B=8, Hq=32, Hkv=4, D=128, Smax=2048, chunk=256)
 
 #: training path (olmo-1b, batch 4 x 2048 tokens, 16/16 heads, head dim 128)
 OLMO_TRAIN = dict(B=4, Hq=16, Hkv=16, S=2048, D=128, steps=4)
+
+#: deepseek-v2 training at full width, depth 1 (the dense lead layer: MLA
+#: + a 12288-wide MLP), batch 4 x 2048 tokens: the attention kernels at
+#: 128 heads, q/k head dim 192 (128 no-rope + 64 rope), v head dim 128
+MLA_TRAIN = dict(B=4, H=128, S=2048, D=192, Dv=128, depth=1, steps=4)
 
 #: Mamba-2 serving path (mamba2-780m: ServeConfig(8, 2048, 256), 48 SSD
 #: heads of P 64, state N 128) and zamba2-1.2b's SSD widths
@@ -447,8 +470,8 @@ def log_ptxas(lib, out):
                   "fa_bwd_dkdv_mma_kernel": "bwd_dkdv"}
 
     def dynamic(kernel, args):
-        if kernel in fa_dynamic:
-            return smem_footprint_bytes(int(args[-1]))[fa_dynamic[kernel]]
+        if kernel in fa_dynamic:         # <D, DV>
+            return smem_footprint_bytes(int(args[-2]), int(args[-1]))[fa_dynamic[kernel]]
         if kernel == "prefill_mma_kernel":
             return prefill_smem_bytes(int(args[0]), YI["Smax"] + YI["chunk"])
         if kernel in ("mm_wgmma_kernel", "mm_fma_kernel"):
@@ -586,9 +609,9 @@ def phase_smoke_parity():
     from repro_torch.models.sharding import tree_map
     from repro_torch.serve import Request, ServeConfig, Server
 
-    log("== phase 3: yi-6b-smoke, granite-8b-smoke and llama4-maverick-smoke float32, "
-        "card (CUDA graphs) against CPU")
-    for arch in ("yi-6b", "granite-8b", "llama4-maverick-400b-a17b"):
+    log("== phase 3: yi-6b-smoke, granite-8b-smoke, llama4-maverick-smoke and "
+        "deepseek-v2-smoke float32, card (CUDA graphs) against CPU")
+    for arch in ("yi-6b", "granite-8b", "llama4-maverick-400b-a17b", "deepseek-v2-236b"):
         cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
         bundle = ModelBundle(cfg)
         params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
@@ -1341,6 +1364,378 @@ def phase_llama4_full(plens):
     return launches, per, recs, errs
 
 
+#: deepseek-v2 serving (phase 4e): full width (its config's: MLA with a
+#: 512-wide latent and a 64-wide rope key, 128 heads) at depth 8 (layer 0
+#: dense with d_ff 12288, layers 1-7 MoE: 160 experts top-6 + 2 shared),
+#: 8 slots x 2048, prefill chunk 256; (b) and (c) serve the first
+#: ``compare`` requests, held to a graph run of the same requests
+DEEPSEEK = dict(depth=8, B=8, Smax=2048, prefill_chunk=256, compare=4)
+
+
+def mla_weight_copies(bundle, params, caches, rows):
+    """The copies an eager decode step makes of a full-size MLA weight
+    (``w_k_b``, ``w_v_b``, ``w_q_b``, ``w_o`` of a layer, or any
+    permutation of one): ``torch.profiler``'s CPU ops with their input
+    shapes, the copy and clone ops whose input holds as many elements as
+    one of those weights.  The products read the weights as they lie, so
+    the list must be empty; and the trace must show ``w_k_b`` going into a
+    ``bmm`` as it lies (else it recorded no shapes, and an empty list
+    proves nothing)."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lp = params["stages"][1]
+    sizes = {name: math.prod(lp["0F"]["attn"][name].shape[1:])
+             for name in ("w_k_b", "w_v_b", "w_q_b", "w_o")}
+    batch = {"tokens": torch.zeros(rows, 1, dtype=torch.int32, device="cuda"),
+             "lengths": torch.full((rows,), 1000, dtype=torch.int32, device="cuda")}
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        bundle.decode_step(params, batch, caches)
+        torch.cuda.synchronize()
+    copies, read = [], False
+    for e in prof.events():
+        shapes = [tuple(sh) for sh in e.input_shapes or () if sh]
+        if e.name == "aten::bmm":
+            read |= any(math.prod(sh) == sizes["w_k_b"] for sh in shapes)
+        if e.name not in ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy"):
+            continue
+        for shape in shapes:
+            hit = [k for k, v in sizes.items() if math.prod(shape) == v]
+            if hit:
+                copies.append((e.name, shape, hit))
+    if not read:
+        raise AssertionError("4e (d): the CPU trace shows no bmm reading w_k_b: no shapes "
+                             "recorded")
+    return copies, sizes
+
+
+def time_mla_parts(bundle, params, caches):
+    """Device ms a call of layer 1's MLA attention, on a copy of its
+    latent cache (8 rows x 2048 slots): a decode step's (8 queries) and a
+    prefill dispatch's (8 x 256 queries at fills 0..1792), and of its MoE
+    FFN at the same two shapes, each alone (``time_ms``)."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+
+    cfg, c = bundle.cfg, DEEPSEEK
+    lp = {k: v[0] for k, v in params["stages"][1]["0F"]["attn"].items()}
+    moe = {k: v[0] for k, v in params["stages"][1]["0F"]["moe"].items() if k != "shared"}
+    moe["shared"] = {k: v[0] for k, v in params["stages"][1]["0F"]["moe"]["shared"].items()}
+    cache = {k: v[0].clone() for k, v in caches["stages"][1]["0F"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    x1 = torch.randn(c["B"], 1, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    xp = torch.randn(c["B"], c["prefill_chunk"], cfg.d_model, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    lengths = torch.full((c["B"],), 1500, dtype=torch.int32, device="cuda")
+    chunk = c["prefill_chunk"]
+    offs = torch.arange(0, c["B"] * chunk, chunk, dtype=torch.int32, device="cuda")
+    new = torch.full((c["B"],), chunk, dtype=torch.int32, device="cuda")
+    return {
+        "mla_decode": time_ms(lambda xx: attn_mod.mla_decode(
+            lp, xx, cache, lengths, cfg.attention), [(x1,)], reps=3, iters=8),
+        "mla_prefill": time_ms(lambda xx: attn_mod.mla_prefill_at(
+            lp, xx, cache, offs, new, cfg.attention), [(xp,)], reps=2, iters=2),
+        "moe_decode": time_ms(lambda xx: moe_mod.apply_moe(moe, xx, cfg.moe, cfg.act),
+                              [(x1,)], reps=3, iters=4),
+        "moe_prefill": time_ms(lambda xx: moe_mod.apply_moe(moe, xx, cfg.moe, cfg.act),
+                               [(xp,)], reps=3, iters=2),
+    }
+
+
+def phase_deepseek_full():
+    """4e: deepseek-v2 at full width and depth 8 (layer 0 dense, 1-7 MoE:
+    28.67 B params, 53.4 GiB in bf16; all 60 layers are 236 B), weights
+    drawn on the card from seed 0, 8 slots x 2048, chunk 256.  (a) phase
+    4's 16 requests, 64 new tokens each, through the CUDA graphs: MLA's
+    absorbed decode and chunk prefill are cuBLAS products (no Pallas
+    original, so no hand-written kernel: none launched), finite logits, a
+    slot's bytes (8 layers x 2048 x 576 x 2) against
+    ``Executor.slot_bytes()``, the peak memory and the decode EWMA beside
+    the planner's ``hbm_resident`` price; (d) profiler windows over decode
+    steps and a prefill dispatch, the MLA decode attention and the MoE FFN
+    timed alone, and no copy of a full-size MLA weight in an eager decode
+    step; (b) the first 4 requests eagerly and (c) under ``kv_host``, each
+    held to a graph run of the same 4 requests under ``hbm_resident``."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.core.placement import parse_policy
+    from repro_torch.core.planner import predict
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    c = DEEPSEEK
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, n_layers=c["depth"])
+    a, m = cfg.attention, cfg.moe
+    log(f"== phase 4e: {cfg.name} bfloat16 at full width, depth {cfg.n_layers} of "
+        f"{full.n_layers} (stages {cfg.stages()}: layer 0 dense, d_ff {m.dense_d_ff}; MoE "
+        f"on the rest: {m.n_experts} experts top-{m.top_k} + {m.n_shared} shared, d_ff "
+        f"{m.d_ff_expert}), MLA: {a.n_heads} heads, latent {a.kv_lora} + rope key "
+        f"{a.rope_head_dim}, q_lora {a.q_lora}; d_model {cfg.d_model}, "
+        f"{cfg.num_params() / 1e9:.2f} B params ({cfg.num_params() * 2 / 2**30:.1f} GiB "
+        f"bf16; all {full.n_layers} layers {full.num_params() / 1e9:.1f} B), through the "
+        "CUDA graphs")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{weights / 2**30:.2f} GiB (peak while drawing "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    B, S = c["B"], c["Smax"]
+    scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=c["prefill_chunk"])
+    slot = cfg.n_layers * S * (a.kv_lora + a.rope_head_dim) * 2
+    shape = ShapeSpec("serve", S, B, "decode")
+    price = predict(bundle.decode_workload(shape), parse_policy("hbm_resident"),
+                    SPEC_SYSTEM).step_s
+    prompts, _ = dense_prompts(cfg.vocab)
+    none = {"decode": {}, "prefill": {}}
+
+    # (a) through the graphs
+    t0 = time.perf_counter()
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64)
+    st, eng = server.stats(), server.engine
+    peak = torch.cuda.max_memory_allocated()
+    if eng.graph_launches != none or any(launches.values()):
+        raise AssertionError(f"4e: MLA serving launched {launches} ({eng.graph_launches} "
+                             "per replay); its products are cuBLAS's")
+    if server.policy.name != "hbm_resident":
+        raise AssertionError(f"4e: the planner picked {server.policy.name}")
+    if eng.slot_bytes() != slot or bundle.cache_bytes_for(1, S) != slot:
+        raise AssertionError(f"4e: a slot is {eng.slot_bytes()} bytes, want {slot}")
+    check_logits(bundle, params, server, B)
+    ewma = eng.measured_step_s
+    tp = server.throughput()
+    log(f"  (a) graphs: {slot} bytes a slot ({B * slot} for {B}); decode "
+        f"{tp['decode_tps']:.1f} tok/s, prefill {tp['prefill_tps']:.1f} tok/s "
+        f"({st['prefill_dispatches']} dispatches); decode step EWMA {ewma * 1e3:.2f} ms "
+        f"against the planner's hbm_resident price {price * 1e3:.3f} ms "
+        f"({ewma / price:.2f}x); peak memory {peak / 2**30:.2f} GiB "
+        f"({(peak - weights) / 2**30:.2f} past the weights); no hand-written kernel "
+        f"launched; finite logits; took {time.perf_counter() - t0:.1f} s")
+
+    # (d) where the time goes
+    t0 = time.perf_counter()
+    copies, sizes = mla_weight_copies(bundle, params, eng.caches, B)
+    if copies:
+        raise AssertionError(f"4e (d): an eager decode step copies MLA weights: {copies}")
+    log(f"  (d) an eager decode step copies no MLA weight (none of the copy / clone ops "
+        f"in its CPU trace takes {sizes} elements)")
+    rng = np.random.default_rng(1)
+    for i in range(B):
+        server.submit(rng.integers(0, cfg.vocab, 1024),
+                      max_new_tokens=4 * TRACE_ATTEMPTS + 5, rid=100 + i)
+    server.step()
+    server.step()
+    dec = profile_window("4e (d) graphs: decode step at 8 x ~1030 cached tokens",
+                         server.step, 4, expected_trace(server, "decode"))
+    server.run_until_done()
+    toks = rng.integers(0, cfg.vocab, (B, c["prefill_chunk"])).astype(np.int32)
+    offs = np.arange(0, B * c["prefill_chunk"], c["prefill_chunk"], dtype=np.int32)
+    pre = profile_window("4e (d) graphs: prefill dispatch (8 x 256 tokens at fills "
+                         "0..1792)", lambda: eng.dispatch_prefill(
+                             toks, np.full(B, c["prefill_chunk"], np.int32), offs),
+                         steps=2, expect=expected_trace(server, "prefill"))
+    parts = time_mla_parts(bundle, params, eng.caches)
+    n_moe = sum(cfg.moe.is_moe_layer(i) for i in range(cfg.n_layers))
+    log(f"  (d) a decode step: {dec['busy_ms']:.2f} ms of device time, {dec['wall_ms']:.2f} "
+        f"ms wall, {dec['launches']} launches; alone, per layer: the MLA decode "
+        f"attention {parts['mla_decode']:.3f} ms (x {cfg.n_layers}: "
+        f"{100 * cfg.n_layers * parts['mla_decode'] / dec['busy_ms']:.1f} % of the step), "
+        f"the MoE FFN {parts['moe_decode']:.3f} ms (x {n_moe}: "
+        f"{100 * n_moe * parts['moe_decode'] / dec['busy_ms']:.1f} %); estimates from the "
+        f"parts timed alone.  A prefill dispatch: {pre['busy_ms']:.2f} ms of device time, "
+        f"{pre['launches']} launches; alone, per layer: the MLA chunk attention "
+        f"{parts['mla_prefill']:.3f} ms (x {cfg.n_layers}: "
+        f"{100 * cfg.n_layers * parts['mla_prefill'] / pre['busy_ms']:.1f} %), the MoE FFN "
+        f"{parts['moe_prefill']:.3f} ms (x {n_moe}: "
+        f"{100 * n_moe * parts['moe_prefill'] / pre['busy_ms']:.1f} %); "
+        f"took {time.perf_counter() - t0:.1f} s")
+    del server, reqs, eng
+    free()
+
+    # (b) eagerly and (c) under kv_host: the first requests, each held to a
+    # graph run of the same requests in the same order (routing couples a
+    # step's rows through the capacity, idle rows included)
+    t0 = time.perf_counter()
+    sub = prompts[:c["compare"]]
+    runs, ewmas = {}, {}
+    for label, cfg_, eager in (
+            ("graphs", scfg, False), ("eager", scfg, True),
+            ("kv_host", dataclasses.replace(scfg, policy="kv_host"), False)):
+        srv, sreqs, _, _ = serve_requests(bundle, params, cfg_, sub, 64, eager=eager)
+        if label == "kv_host" and srv.policy.name != "kv_host":
+            raise AssertionError(f"4e (c): served under {srv.policy.name}")
+        runs[label] = [r.out_tokens for r in sreqs]
+        ewmas[label] = srv.engine.measured_step_s
+        del srv, sreqs
+        free()
+    for label in ("eager", "kv_host"):
+        if runs[label] != runs["graphs"]:
+            raise AssertionError(f"4e: {label} tokens differ from a graph run of the same "
+                                 "requests")
+    log(f"  (b) eager and (c) kv_host: greedy tokens identical to a graph run of the same "
+        f"{len(sub)} requests; decode step EWMA graphs {ewmas['graphs'] * 1e3:.2f} ms, "
+        f"eager {ewmas['eager'] * 1e3:.2f} ms, kv_host {ewmas['kv_host'] * 1e3:.2f} ms "
+        f"(each MLA entry's {B * S * (a.kv_lora + a.rope_head_dim) * 2} bytes a layer "
+        f"copied in and back whole each step); took {time.perf_counter() - t0:.1f} s")
+    del params, bundle
+    free()
+    log(f"== phase 4e took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_mla_train_full():
+    """6c: deepseek-v2 training at full width and depth 1 (the dense lead
+    layer: MLA + a 12288-wide MLP, 0.862 B params; a MoE layer's AdamW
+    state, ~63 GB, fits beside nothing else) in bf16, 4 AdamW steps of 4
+    x 2048 tokens of ``SyntheticLM`` through ``make_train_step`` with remat
+    ``full``: finite losses and grad norms, 2 forward and 1 backward
+    attention launches a step at (192, 128), tokens/s and peak memory.
+    Returns the launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    mt = MLA_TRAIN
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=mt["depth"])
+    log(f"== phase 6c: training {cfg.name} bfloat16 at full width, depth {cfg.n_layers} "
+        f"(stages {cfg.stages()}), {cfg.num_params() / 1e9:.3f} B params, batch {mt['B']} x "
+        f"{mt['S']}, remat full, {mt['steps']} AdamW steps")
+    bundle = ModelBundle(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    opt = init_opt_state(params)
+    step = make_train_step(bundle, TrainConfig(
+        remat="full", optimizer=AdamWConfig(lr=3e-4, warmup_steps=2)))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=mt["S"], global_batch=mt["B"]))
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    losses, norms, times = [], [], []
+    for _ in range(mt["steps"]):
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, metrics = step(params, opt, None, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    launches = {"attention_fwd_mla": flash_attention.launches,
+                "attention_bwd_mla": flash_attention_bwd.launches}
+    bad = [x for x in losses + norms if not x == x or abs(x) == float("inf")]
+    if bad:
+        raise AssertionError(f"6c: non-finite losses / grad norms {bad}")
+    want = {"attention_fwd_mla": 2 * cfg.n_layers * mt["steps"],
+            "attention_bwd_mla": cfg.n_layers * mt["steps"]}
+    if launches != want:
+        raise AssertionError(f"6c: attention launches {launches} != {want}")
+    steady = statistics.median(times[1:])
+    log(f"  losses {losses}; grad norms {norms}; step times {[round(t, 4) for t in times]} s;"
+        f" steady step {steady:.4f} s -> {mt['B'] * mt['S'] / steady:.1f} training tokens/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; attention "
+        f"launches {launches} at (192, 128), no padding")
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sdpa_backend(fn, inputs):
+    """The backend ``scaled_dot_product_attention`` picked for ``fn`` on
+    ``inputs``: read from its kernels' names in the trace."""
+    names = {}
+    time_ms(fn, inputs, reps=1, iters=1, by_kernel=names)
+    top = max(names, key=names.get).lower()
+    for frag, backend in (("flash", "flash"), ("cudnn", "cuDNN"), ("fmha", "efficient"),
+                          ("cutlass", "efficient")):
+        if frag in top:
+            return backend
+    return f"math (largest kernel {top[:60]})"
+
+
+def phase_mla_train_times(launches, errs):
+    """7c: the attention kernels at MLA's head dims (phase 6c's shape: 4 x
+    128 heads x 2048, q/k 192, v 128, causal, bf16) beside their plain
+    versions and SDPA, past L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    mt = MLA_TRAIN
+    B, H, S, D, Dv = mt["B"], mt["H"], mt["S"], mt["D"], mt["Dv"]
+    log(f"== phase 7c: training attention times at MLA's head dims ({B}, {H}, {S}, q/k {D},"
+        f" v {Dv}) causal bfloat16")
+    dt, isz = torch.bfloat16, 2
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sets = [fa_inputs(B, H, H, S, S, D, dt, gen, Dv=Dv) for _ in range(2)]
+    fwd_in = [(q, k, v) for q, k, v, _ in sets]
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+    backend = sdpa_backend(sdpa, fwd_in)
+    fwd = dict(
+        ms=time_ms(lambda q, k, v: flash_attention(q, k, v), fwd_in),
+        plain_ms=time_ms(lambda q, k, v: ref.attention(q, k, v), fwd_in, reps=2, iters=1),
+        library_ms=time_ms(sdpa, fwd_in, reps=2, iters=2),
+    )
+    bwd_in = []
+    for q, k, v, dout in sets:
+        out, lse = flash_attention(q, k, v)
+        bwd_in.append((q, k, v, out, lse, dout))
+    bwd_ms = time_ms(lambda *a: flash_attention_bwd(*a), bwd_in)
+    q, k, v, dout = sets[0]
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    graph = ref.attention(*qkv)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout, retain_graph=True),
+                        [()], reps=2, iters=1)
+    del graph
+    graph = sdpa(*qkv)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout, retain_graph=True),
+                      [()], reps=2, iters=1)
+    del graph, bwd_in, sets, fwd_in, qkv
+    torch.cuda.empty_cache()
+    pairs = B * H * S * (S + 1) // 2
+    rows_ = B * H * S
+    fwd.update(bytes=rows_ * (2 * D + 2 * Dv) * isz + rows_ * 4,
+               flops=pairs * (2 * D + 2 * Dv))
+    bwd = dict(ms=bwd_ms, plain_ms=plain_bwd, library_ms=lib_bwd,
+               bytes=rows_ * (4 * D + 4 * Dv) * isz + rows_ * 4,
+               flops=pairs * (6 * D + 4 * Dv))
+    _, bf16_flops_per_s, _ = peaks()
+    for name, rec in (("forward", fwd), ("backward", bwd)):
+        log(f"  {name}: {rec['flops'] / rec['ms'] / 1e9:.1f} TFLOP/s "
+            f"({rec['flops']} flops in {rec['ms']:.4f} ms), "
+            f"{rec['flops'] / bf16_flops_per_s * 1e3 / rec['ms']:.3f} of the operation bound, "
+            f"{rec['ms'] / rec['library_ms']:.3f} x SDPA's {rec['library_ms']:.4f} ms "
+            f"(backend {backend}); plain {rec['plain_ms']:.4f} ms")
+    return [
+        kernel_row(f"{name} (deepseek-v2 q/k 192, v 128)",
+                   "src/repro_torch/csrc/flash_attention.cu", replaces, rec,
+                   launches[name + "_mla"], errs[(name + "_mla", "bfloat16")])
+        for name, rec, replaces in (
+            ("attention_fwd", fwd, "src/repro/kernels/flash_attention.py:115"),
+            ("attention_bwd", bwd, "src/repro/kernels/ops.py:66"),
+        )
+    ]
+
+
 #: the serving kernels' names in a profiler trace, by wrapper name
 TRACE_NAMES = {"decode_attention": "decode_mma_kernel",
                "prefill_attention": "prefill_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
@@ -1552,15 +1947,17 @@ def fa_live_rows(kind, kw, Sq, Sk, q_offset):
     return live.any(-1)
 
 
-def fa_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, rows=None):
-    """q, k, v and a cotangent dout; dout is 0 on rows without a live key
-    (padding: the kernel gives 0 there, the plain version mean(V))."""
+def fa_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, rows=None, Dv=None):
+    """q, k (head dim D), v (Dv, default D) and a cotangent dout; dout is 0
+    on rows without a live key (padding: the kernel gives 0 there, the
+    plain version mean(V))."""
     import torch
 
+    Dv = Dv or D
     q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
-    dout = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, Dv, generator=gen, device="cuda").to(dtype)
+    dout = torch.randn(B, Hq, Sq, Dv, generator=gen, device="cuda").to(dtype)
     if rows is not None:
         dout = dout * rows[:, None].to(dtype)
     return q, k, v, dout
@@ -1573,7 +1970,7 @@ def phase_train_kernels():
 
     log("== phase 2b: training attention kernel, forward and backward, against "
         "the plain version and autograd through it")
-    o = OLMO_TRAIN
+    o, m = OLMO_TRAIN, MLA_TRAIN
     cases = [
         ("olmo-train", o["B"], o["Hq"], o["Hkv"], o["S"], o["S"], o["D"], 0, "causal", {}),
         ("yi-gqa", 2, 32, 4, 1024, 1024, 128, 0, "causal", {}),
@@ -1583,13 +1980,19 @@ def phase_train_kernels():
         ("smoke", 2, 8, 1, 64, 64, 16, 0, "causal", {}),
         ("ragged", 2, 16, 16, 1000, 1000, 128, 0, "causal", {}),
     ]
+    # MLA's head dims (q/k 192, v 128: bf16 kernels only): phase 6c's shape
+    # and a ragged one, off every tile
+    mla = [("mla-train", m["B"], m["H"], m["H"], m["S"], m["S"], m["D"], 0, "causal", {}),
+           ("mla-ragged", 2, 16, 16, 1000, 1000, m["D"], 0, "causal", {})]
     gen = torch.Generator(device="cuda").manual_seed(3)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for tag, B, Hq, Hkv, Sq, Sk, D, q_off, kind, kw in cases:
+        for tag, B, Hq, Hkv, Sq, Sk, D, q_off, kind, kw in (
+                cases + (mla if dtype == torch.bfloat16 else [])):
+            Dv = m["Dv"] if tag.startswith("mla") else D
             rows = fa_live_rows(kind, kw, Sq, Sk, q_off)
-            q, k, v, dout = fa_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, rows)
+            q, k, v, dout = fa_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, rows, Dv)
             mask = dict(kind=kind, q_offset=q_off, **kw)
             out, lse = flash_attention(q, k, v, **mask)
             grads = flash_attention_bwd(q, k, v, out, lse, dout, **mask)
@@ -1597,7 +2000,7 @@ def phase_train_kernels():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             want = ref.attention(*qkv, **mask)
             want_g = torch.autograd.grad(want, qkv, dout)
-            shape = f"B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D} q_offset{q_off} {kind}"
+            shape = f"B{B} Hq{Hq} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D} Dv{Dv} q_offset{q_off} {kind}"
             e_out = check_close(f"attention fwd {tag} {dn} {shape}", out,
                                 want.detach(), dn, rows[None, None].expand(B, Hq, Sq))
             e_grad = max(
@@ -1605,11 +2008,19 @@ def phase_train_kernels():
                             tols=GRAD_TOL)
                 for name, g, w in zip(("dq", "dk", "dv"), grads, want_g)
             )
-            if tag == "olmo-train":
-                errs[("attention_fwd", dn)] = e_out
-                errs[("attention_bwd", dn)] = e_grad
+            if tag in ("olmo-train", "mla-train"):
+                suffix = "_mla" if tag == "mla-train" else ""
+                errs[("attention_fwd" + suffix, dn)] = e_out
+                errs[("attention_bwd" + suffix, dn)] = e_grad
             del q, k, v, dout, out, lse, grads, qkv, want, want_g
         torch.cuda.empty_cache()
+    x = torch.zeros(1, 2, 64, m["D"], device="cuda")
+    try:
+        flash_attention(x, x, x[..., :m["Dv"]].contiguous())
+    except ValueError as e:
+        log(f"  float32 at (192, 128) refused: {e}")
+    else:
+        raise AssertionError("the float32 kernel took head dims (192, 128)")
     return errs
 
 
@@ -1689,8 +2100,10 @@ def phase_train_parity():
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import TrainConfig, make_train_step
 
-    log("== phase 3b: smoke training, float32, card against CPU (llama4-maverick-smoke: "
-        "MoE, its aux loss and its AdamW updates compared too)")
+    log("== phase 3b: smoke training, float32, card against CPU (llama4-maverick-smoke and "
+        "deepseek-v2-smoke: MoE, its aux loss and its AdamW updates compared too; "
+        "deepseek-v2-smoke's MLA through the attention kernels at (24, 16) padded to "
+        "(32, 32))")
     # step 1 starts from the same weights: the losses differ only by the
     # order of f32 sums.  Steps 2-3 start from weights that AdamW moved by
     # up to lr per element, and m / sqrt(v) turns a near-zero gradient's
@@ -1715,7 +2128,7 @@ def phase_train_parity():
         state[dev][:2] = [params, opt]
         return {k: float(m[k]) for k in ("loss", "grad_norm", "aux")}
 
-    for arch in ("olmo-1b", "yi-6b", "llama4-maverick-400b-a17b"):
+    for arch in ("olmo-1b", "yi-6b", "llama4-maverick-400b-a17b", "deepseek-v2-236b"):
         cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
         bundle = ModelBundle(cfg)
         params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
@@ -4041,6 +4454,7 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:237", "prefill"),
         )
     ]
+    phase_deepseek_full()
     server, eager, params, ssm_launches, mamba_tokens = phase_mamba_full()
     per_replay["mamba2-780m"] = copy.deepcopy(server.engine.graph_launches)
     rows.append(phase_ssd_times({"graphs": server, "eager": eager}, ssm_launches, errs))
@@ -4052,6 +4466,7 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
     rows += phase_train_times(train_launches, errs)
+    rows += phase_mla_train_times(phase_mla_train_full(), errs)
     ssm_train_launches = phase_ssm_train_full()
     rows.append(kernel_row("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
                            "src/repro/kernels/ops.py:162", bwd_rec,

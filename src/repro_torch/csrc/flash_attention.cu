@@ -77,6 +77,13 @@
 //    key tiles (9 products of 16 x 8 x D per pair of tiles in the backward
 //    against 7 without it).
 //
+// Head dims: q and k are D wide, v (and so out and dO) DV wide.  Both routes
+// take D = DV in {16, 32, 64, 128}; the bf16 route also takes MLA's D = 192
+// with DV = 128 (DeepSeek-V2: 128 no-rope + 64 rope dims, v 128), its tiles
+// sized in Tc<D, DV>: the forward keeps 64 query rows a block instead of 128,
+// so that two blocks still share an SM.  The float32 kernels spread D over
+// their 128 threads and refuse 192.
+//
 // Plain C interface (loaded with ctypes): each *_launch returns
 // cudaGetLastError() after its launches; each *_smem_bytes the dynamic
 // shared memory a bf16 kernel takes for a head dim.
@@ -571,28 +578,32 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int STAGES = 2;             // shared-memory ring depth
 
-// Tiles and shared memory of the three bf16 kernels for a head dim D.  Every
-// tile row is D bf16 padded by 16 bytes: the row stride is then 4 banks
-// past a multiple of 32, so the eight row addresses of an ldmatrix hit
-// eight distinct groups of four banks.  A block has a warp per 16 resident
-// rows.  Mirrored by kernels/flash_attention.py::smem_footprint_bytes.
-template <int D>
+// Tiles and shared memory of the three bf16 kernels for a q/k head dim D and
+// a v head dim DV (MLA: D = 192, DV = 128; else DV = D).  Q, K and dQ rows
+// are D wide, V, O and dO rows DV wide.  Every tile row is its width in
+// bf16 padded by 16 bytes: the row stride is then 4 banks past a multiple
+// of 32, so the eight row addresses of an ldmatrix hit eight distinct groups
+// of four banks.  A block has a warp per 16 resident rows.  Mirrored by
+// kernels/flash_attention.py::smem_footprint_bytes.
+template <int D, int DV>
 struct Tc {
-  static constexpr int LD = TcRow<D>::LD;                // elements
-  static constexpr int RB = TcRow<D>::RB;                // bytes
-  // forward: 128 query rows (8 warps); K and V tiles of 64 keys in the ring;
-  // two blocks share an SM
-  static constexpr int F_BQ = 128, F_BK = 64;
-  static constexpr size_t fwd_bytes = (size_t)(F_BQ + STAGES * 2 * F_BK) * RB;
+  static constexpr int LD = TcRow<D>::LD, LDV = TcRow<DV>::LD;   // elements
+  static constexpr int RB = TcRow<D>::RB, RBV = TcRow<DV>::RB;   // bytes
+  // forward: 128 query rows (8 warps) up to D 128, 64 (4 warps) past it;
+  // K and V tiles of 64 keys in the ring; two blocks share an SM (at D 192
+  // 128 rows would take 137,216 bytes, and one block an SM)
+  static constexpr int F_BQ = D > 128 ? 64 : 128, F_BK = 64;
+  static constexpr size_t fwd_bytes = (size_t)F_BQ * RB + (size_t)STAGES * F_BK * (RB + RBV);
   // dQ: 64 query rows of Q and dO (4 warps); K and V tiles of 32 keys, so
   // S and dP take 16 registers each beside the dQ accumulator's 64 (D 128)
+  // or 96 (D 192)
   static constexpr int DQ_BQ = 64, DQ_BK = 32;
-  static constexpr size_t dq_bytes = (size_t)(2 * DQ_BQ + STAGES * 2 * DQ_BK) * RB;
+  static constexpr size_t dq_bytes = (size_t)(DQ_BQ + STAGES * DQ_BK) * (RB + RBV);
   // dK/dV: 64 key rows of K and V (4 warps); Q and dO tiles of 32 queries,
   // with their lse and delta rows, in the ring
   static constexpr int KV_BK = 64, KV_BQ = 32;
   static constexpr size_t dkdv_bytes =
-      (size_t)(2 * KV_BK + STAGES * 2 * KV_BQ) * RB + STAGES * 2 * KV_BQ * sizeof(float);
+      (size_t)(KV_BK + STAGES * KV_BQ) * (RB + RBV) + STAGES * 2 * KV_BQ * sizeof(float);
 };
 
 // Under every mask kind the keys a query row reaches form one interval, and
@@ -625,13 +636,14 @@ __device__ __forceinline__ void mask_tile(float (&s)[NB][4], int col0, const int
 // One block per (128 query rows, query head, batch row), launched heaviest
 // causal tile first.  Online softmax in the log2 domain: x = s scale
 // log2(e), p = exp2(x - m), lse = m ln 2 + log(l).
-template <int D>
-__global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
+template <int D, int DV>
+__global__ void __launch_bounds__(Tc<D, DV>::F_BQ * 2, 2) fa_fwd_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
     Mask mask, float scale) {
-  using T = Tc<D>;
+  using T = Tc<D, DV>;
   constexpr int BQ = T::F_BQ, BK = T::F_BK, ST = STAGES, NB = BK / 8, RB = T::RB;
+  constexpr int KVB = BK * (RB + T::RBV);        // one ring stage
   constexpr int NT = BQ * 2;                     // a warp per 16 rows
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t q_addr = smem_addr(smem);
@@ -643,7 +655,7 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
   const int iw = i0 + warp * 16;                 // this warp's first row
   const size_t q_row0 = ((size_t)b * Hq + hq) * Sq;
   const bf16* kb = k + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
-  const bf16* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
+  const bf16* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * DV;
 
   int k_begin, k_end, wk_begin, wk_end;
   mask.key_range(i0, min(i0 + BQ, Sq), Sk, &k_begin, &k_end);
@@ -656,9 +668,9 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
 
   // tile t goes to stage t % ST; tiles 0 .. ST - 2 (and Q) before the loop
   auto load_kv = [&](int t) {
-    const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+    const uint32_t st = kv_addr + (t % ST) * KVB;
     load_rows_async<D, BK, NT>(st, kb, j_first + t * BK, Sk);
-    load_rows_async<D, BK, NT>(st + BK * RB, vb, j_first + t * BK, Sk);
+    load_rows_async<DV, BK, NT>(st + BK * RB, vb, j_first + t * BK, Sk);
   };
   load_rows_async<D, BQ, NT>(q_addr, q + q_row0 * D, i0, Sq);
 #pragma unroll
@@ -667,9 +679,9 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
     cp_async_commit();
   }
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  for (int nb = 0; nb < DV / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const float c = scale * LOG2E;
 
@@ -682,7 +694,7 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
     cp_async_commit();
     const int j0 = j_first + t * BK;
     if (warp_live && j0 < wk_end && j0 + BK > wk_begin) {
-      const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+      const uint32_t st = kv_addr + (t % ST) * KVB;
       float s[NB][4];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
@@ -724,7 +736,7 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
         }
       }
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
+      for (int nb = 0; nb < DV / 8; ++nb) {
         o[nb][0] *= alpha[0];
         o[nb][1] *= alpha[0];
         o[nb][2] *= alpha[1];
@@ -732,7 +744,7 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
       }
       uint32_t pa[NB / 2][4];
       pack_a<NB>(pa, s);
-      mma_pm<D, NB / 2>(o, pa, st + BK * RB);
+      mma_pm<DV, NB / 2>(o, pa, st + BK * RB);
     }
   }
   cp_async_wait<0>();
@@ -744,8 +756,8 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
     l[r] = quad_sum(l[r]);
     f[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  store_rows<D>(out + q_row0 * D, o, f, q_s + warp * 16 * T::LD, iw, Sq);
+  bf16* q_s = reinterpret_cast<bf16*>(smem);   // each warp stages in its own Q rows
+  store_rows<DV>(out + q_row0 * DV, o, f, q_s + warp * 16 * T::LD, iw, Sq);
   if (tq == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -760,19 +772,20 @@ __global__ void __launch_bounds__(Tc<D>::F_BQ * 2, 2) fa_fwd_mma_kernel(
 // causal tile first.  Two passes over the key tiles its rows reach: the
 // first takes delta = sum_j P dP for its rows and writes it; the second
 // accumulates dQ = scale dS K with dS = P (dP - delta).
-template <int D>
-__global__ void __launch_bounds__(Tc<D>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
+template <int D, int DV>
+__global__ void __launch_bounds__(Tc<D, DV>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, bf16* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk,
     Mask mask, float scale) {
-  using T = Tc<D>;
+  using T = Tc<D, DV>;
   constexpr int BQ = T::DQ_BQ, BK = T::DQ_BK, ST = STAGES, NB = BK / 8, RB = T::RB;
+  constexpr int RBV = T::RBV, KVB = BK * (RB + RBV);
   constexpr int NT = BQ * 2;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t q_addr = smem_addr(smem);
   const uint32_t do_addr = q_addr + BQ * RB;
-  const uint32_t kv_addr = do_addr + BQ * RB;    // stage s: K, then V, of BK rows
+  const uint32_t kv_addr = do_addr + BQ * RBV;   // stage s: K, then V, of BK rows
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, hq = blockIdx.y, b = blockIdx.z;
@@ -780,7 +793,7 @@ __global__ void __launch_bounds__(Tc<D>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
   const int iw = i0 + warp * 16;
   const size_t q_row0 = ((size_t)b * Hq + hq) * Sq;
   const bf16* kb = k + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
-  const bf16* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * D;
+  const bf16* vb = v + ((size_t)b * Hkv + hk) * (size_t)Sk * DV;
 
   int k_begin, k_end, wk_begin, wk_end;
   mask.key_range(i0, min(i0 + BQ, Sq), Sk, &k_begin, &k_end);
@@ -795,12 +808,12 @@ __global__ void __launch_bounds__(Tc<D>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
   const int n_iter = 2 * n_tiles;
   auto load_kv = [&](int t) {
     const int j0 = j_first + (t % n_tiles) * BK;
-    const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+    const uint32_t st = kv_addr + (t % ST) * KVB;
     load_rows_async<D, BK, NT>(st, kb, j0, Sk);
-    load_rows_async<D, BK, NT>(st + BK * RB, vb, j0, Sk);
+    load_rows_async<DV, BK, NT>(st + BK * RB, vb, j0, Sk);
   };
   load_rows_async<D, BQ, NT>(q_addr, q + q_row0 * D, i0, Sq);
-  load_rows_async<D, BQ, NT>(do_addr, dout + q_row0 * D, i0, Sq);
+  load_rows_async<DV, BQ, NT>(do_addr, dout + q_row0 * DV, i0, Sq);
 #pragma unroll
   for (int t = 0; t < ST - 1; ++t) {
     if (t < n_iter) load_kv(t);
@@ -838,7 +851,7 @@ __global__ void __launch_bounds__(Tc<D>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
     const bool pass2 = t >= n_tiles;
     const int j0 = j_first + (pass2 ? t - n_tiles : t) * BK;
     if (warp_live && j0 < wk_end && j0 + BK > wk_begin) {
-      const uint32_t st = kv_addr + (t % ST) * 2 * BK * RB;
+      const uint32_t st = kv_addr + (t % ST) * KVB;
       float s[NB][4], dp[NB][4];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
@@ -859,7 +872,7 @@ __global__ void __launch_bounds__(Tc<D>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nb][e] = exp2f(s[nb][e]);
       }
-      mma_abt<D, NB>(dp, do_addr + warp * 16 * RB, st + BK * RB);
+      mma_abt<DV, NB>(dp, do_addr + warp * 16 * RBV, st + BK * RB);
       if (!pass2) {
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb) {
@@ -891,26 +904,27 @@ __global__ void __launch_bounds__(Tc<D>::DQ_BQ * 2, 2) fa_bwd_dq_mma_kernel(
 // holds their dK and dV in registers.  The block streams the (query head,
 // query tile) pairs that reach its keys — the G query heads of its KV head
 // in order — so the GQA sum is taken in a fixed order, with no atomics.
-template <int D>
-__global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
+template <int D, int DV>
+__global__ void __launch_bounds__(Tc<D, DV>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq,
     int Hkv, int Sq, int Sk, Mask mask, float scale) {
-  using T = Tc<D>;
+  using T = Tc<D, DV>;
   constexpr int BKV = T::KV_BK, QT = T::KV_BQ, ST = STAGES, NB = QT / 8, RB = T::RB;
+  constexpr int RBV = T::RBV, QDB = QT * (RB + RBV);
   constexpr int NT = BKV * 2;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t k_addr = smem_addr(smem);
   const uint32_t v_addr = k_addr + BKV * RB;
-  const uint32_t qd_addr = v_addr + BKV * RB;    // stage s: Q, then dO, of QT rows
-  float* stats = reinterpret_cast<float*>(smem + (2 * BKV + ST * 2 * QT) * RB);
+  const uint32_t qd_addr = v_addr + BKV * RBV;   // stage s: Q, then dO, of QT rows
+  float* stats = reinterpret_cast<float*>(smem + BKV * (RB + RBV) + ST * QDB);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 
   const int j0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int jw = j0 + warp * 16;                 // this warp's first key
-  const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Sk * D;
+  const size_t kv_row0 = ((size_t)b * Hkv + hk) * (size_t)Sk;
 
   int i_begin, i_end, wi_begin, wi_end;
   mask.row_range(j0, min(j0 + BKV, Sk), Sq, &i_begin, &i_end);
@@ -933,9 +947,9 @@ __global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
     const int i0 = i_first + (t % nq) * QT;
     const size_t q_row0 = ((size_t)b * Hq + hk * G + t / nq) * Sq;
     const int s = t % ST;
-    const uint32_t st = qd_addr + s * 2 * QT * RB;
+    const uint32_t st = qd_addr + s * QDB;
     load_rows_async<D, QT, NT>(st, q + q_row0 * D, i0, Sq);
-    load_rows_async<D, QT, NT>(st + QT * RB, dout + q_row0 * D, i0, Sq);
+    load_rows_async<DV, QT, NT>(st + QT * RB, dout + q_row0 * DV, i0, Sq);
     if (threadIdx.x < 2 * QT) {
       const int r = threadIdx.x % QT, which = threadIdx.x / QT;
       const bool in = i0 + r < Sq;
@@ -943,8 +957,8 @@ __global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
       cp_async4(smem_addr(stats + (s * 2 + which) * QT + r), src, in);
     }
   };
-  load_rows_async<D, BKV, NT>(k_addr, k + kv_off, j0, Sk);
-  load_rows_async<D, BKV, NT>(v_addr, v + kv_off, j0, Sk);
+  load_rows_async<D, BKV, NT>(k_addr, k + kv_row0 * D, j0, Sk);
+  load_rows_async<DV, BKV, NT>(v_addr, v + kv_row0 * DV, j0, Sk);
 #pragma unroll
   for (int t = 0; t < ST - 1; ++t) {
     if (t < n_tiles) load_qt(t);
@@ -952,12 +966,11 @@ __global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
   }
 
   const float c = scale * LOG2E;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[D / 8][4], dv_acc[DV / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) {
-    dk_acc[nb][0] = dk_acc[nb][1] = dk_acc[nb][2] = dk_acc[nb][3] = 0.f;
-    dv_acc[nb][0] = dv_acc[nb][1] = dv_acc[nb][2] = dv_acc[nb][3] = 0.f;
-  }
+  for (int nb = 0; nb < D / 8; ++nb) dk_acc[nb][0] = dk_acc[nb][1] = dk_acc[nb][2] = dk_acc[nb][3] = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < DV / 8; ++nb) dv_acc[nb][0] = dv_acc[nb][1] = dv_acc[nb][2] = dv_acc[nb][3] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<ST - 2>();
@@ -967,7 +980,7 @@ __global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
     const int i0 = i_first + (t % nq) * QT;
     if (warp_live && i0 < wi_end && i0 + QT > wi_begin) {
       const int s_ = t % ST;
-      const uint32_t qs = qd_addr + s_ * 2 * QT * RB, dos = qs + QT * RB;
+      const uint32_t qs = qd_addr + s_ * QDB, dos = qs + QT * RB;
       const float* lse_s = stats + (s_ * 2) * QT;
       const float* dl_s = lse_s + QT;
       // P^T (16 keys x QT queries) = exp2(K Q^T c - lse log2(e)), masked
@@ -993,10 +1006,10 @@ __global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) p[nb][e] = exp2f(p[nb][e]);
       }
-      mma_abt<D, NB>(dpt, v_addr + warp * 16 * RB, dos);     // dP^T = V dO^T
+      mma_abt<DV, NB>(dpt, v_addr + warp * 16 * RBV, dos);   // dP^T = V dO^T
       uint32_t pa[NB / 2][4];
       pack_a<NB>(pa, p);
-      mma_pm<D, NB / 2>(dv_acc, pa, dos);                    // dV += P^T dO
+      mma_pm<DV, NB / 2>(dv_acc, pa, dos);                   // dV += P^T dO
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         const float2 dl = *reinterpret_cast<const float2*>(dl_s + nb * 8 + 2 * tq);
@@ -1013,8 +1026,8 @@ __global__ void __launch_bounds__(Tc<D>::KV_BK * 2, 2) fa_bwd_dkdv_mma_kernel(
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + BKV * T::LD;
   const float fk[2] = {scale, scale}, fv[2] = {1.f, 1.f};
-  store_rows<D>(dk + kv_off, dk_acc, fk, k_s + warp * 16 * T::LD, jw, Sk);
-  store_rows<D>(dv + kv_off, dv_acc, fv, v_s + warp * 16 * T::LD, jw, Sk);
+  store_rows<D>(dk + kv_row0 * D, dk_acc, fk, k_s + warp * 16 * T::LD, jw, Sk);
+  store_rows<DV>(dv + kv_row0 * DV, dv_acc, fv, v_s + warp * 16 * T::LDV, jw, Sk);
 }
 
 // ---------------------------------------------------------------------------
@@ -1031,21 +1044,22 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* configured) {
   return e;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, void* lse,
                   int B, int Hq, int Hkv, int Sq, int Sk, Mask mask, float scale,
                   cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = Tc<D>::fwd_bytes;
+    const size_t smem = Tc<D, DV>::fwd_bytes;
     static bool configured = false;
-    const cudaError_t e = allow_smem(fa_fwd_mma_kernel<D>, smem, &configured);
+    const cudaError_t e = allow_smem(fa_fwd_mma_kernel<D, DV>, smem, &configured);
     if (e != cudaSuccess) return e;
-    constexpr int BQ = Tc<D>::F_BQ;
-    fa_fwd_mma_kernel<D><<<dim3((Sq + BQ - 1) / BQ, Hq, B), BQ * 2, smem, stream>>>(
+    constexpr int BQ = Tc<D, DV>::F_BQ;
+    fa_fwd_mma_kernel<D, DV><<<dim3((Sq + BQ - 1) / BQ, Hq, B), BQ * 2, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse),
         Hq, Hkv, Sq, Sk, mask, scale);
   } else {
+    static_assert(D == DV, "the float32 kernels take one head dim");
     fa_fwd_kernel<T, D><<<dim3((Sq + F_BQ - 1) / F_BQ, Hq, B), F_NT, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(out), static_cast<float*>(lse), Hq, Hkv, Sq, Sk, mask, scale);
@@ -1053,7 +1067,7 @@ cudaError_t fwd_t(const void* q, const void* k, const void* v, void* out, void* 
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, const void* lse, void* delta, void* dq,
                   void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
@@ -1067,21 +1081,22 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaSuccess;
   if constexpr (std::is_same<T, bf16>::value) {
     // the dQ kernel takes delta = sum_j P dP itself and writes it for dK/dV
-    using TC = Tc<D>;
+    using TC = Tc<D, DV>;
     static bool conf_dkdv = false, conf_dq = false;
-    e = allow_smem(fa_bwd_dkdv_mma_kernel<D>, TC::dkdv_bytes, &conf_dkdv);
-    if (e == cudaSuccess) e = allow_smem(fa_bwd_dq_mma_kernel<D>, TC::dq_bytes, &conf_dq);
+    e = allow_smem(fa_bwd_dkdv_mma_kernel<D, DV>, TC::dkdv_bytes, &conf_dkdv);
+    if (e == cudaSuccess) e = allow_smem(fa_bwd_dq_mma_kernel<D, DV>, TC::dq_bytes, &conf_dq);
     if (e != cudaSuccess) return e;
-    fa_bwd_dq_mma_kernel<D><<<dim3((Sq + TC::DQ_BQ - 1) / TC::DQ_BQ, Hq, B), TC::DQ_BQ * 2,
-                              TC::dq_bytes, stream>>>(
+    fa_bwd_dq_mma_kernel<D, DV><<<dim3((Sq + TC::DQ_BQ - 1) / TC::DQ_BQ, Hq, B),
+                                  TC::DQ_BQ * 2, TC::dq_bytes, stream>>>(
         q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dq), Hq, Hkv, Sq, Sk, mask, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    fa_bwd_dkdv_mma_kernel<D><<<dim3((Sk + TC::KV_BK - 1) / TC::KV_BK, Hkv, B), TC::KV_BK * 2,
-                                TC::dkdv_bytes, stream>>>(
+    fa_bwd_dkdv_mma_kernel<D, DV><<<dim3((Sk + TC::KV_BK - 1) / TC::KV_BK, Hkv, B),
+                                    TC::KV_BK * 2, TC::dkdv_bytes, stream>>>(
         q_, k_, v_, do_, lse_, dl_, static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv,
         Sq, Sk, mask, scale);
   } else {
+    static_assert(D == DV, "the float32 kernels take one head dim");
     const long long rows = (long long)B * Hq * Sq;
     fa_bwd_delta_kernel<T><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
         static_cast<const T*>(o), do_, dl_, rows, D);
@@ -1103,27 +1118,38 @@ cudaError_t bwd_t(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int Hq, int Hkv, int Sq, int Sk, int D, int dtype, int kind,
+// The (q/k, v) head dims the kernels take: (16, 16), (32, 32), (64, 64) and
+// (128, 128) in both dtypes; MLA's (192, 128) in bfloat16 only (the float32
+// kernels take one head dim that divides their 128 threads).  Mirrored by
+// kernels/flash_attention.py::FA_HEAD_DIMS.
+bool takes_head_dims(int D, int DV, int dtype) {
+  if (D == DV) return D == 16 || D == 32 || D == 64 || D == 128;
+  return dtype == 1 && D == 192 && DV == 128;
+}
+
+bool bad_shape(int B, int Hq, int Hkv, int Sq, int Sk, int D, int DV, int dtype, int kind,
                int window, int chunk) {
   return B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
-         (D != 16 && D != 32 && D != 64 && D != 128) || (dtype != 0 && dtype != 1) ||
+         (dtype != 0 && dtype != 1) || !takes_head_dims(D, DV, dtype) ||
          kind < 0 || kind > 3 || (kind == 1 && window <= 0) ||
          (kind == 2 && chunk <= 0) || Hq > 65535 || B > 65535;
 }
 
 // the dynamic shared memory of a bf16 kernel (0: fwd, 1: dQ, 2: dK/dV) for
-// head dim D; -1 for a head dim the kernels do not take
-template <int D>
+// head dims (D, DV); -1 for head dims the bf16 kernels do not take
+template <int D, int DV>
 int smem_of(int which) {
-  return (int)(which == 0 ? Tc<D>::fwd_bytes
-                          : which == 1 ? Tc<D>::dq_bytes : Tc<D>::dkdv_bytes);
+  return (int)(which == 0 ? Tc<D, DV>::fwd_bytes
+                          : which == 1 ? Tc<D, DV>::dq_bytes : Tc<D, DV>::dkdv_bytes);
 }
-int smem_bytes(int which, int D) {
+int smem_bytes(int which, int D, int DV) {
+  if (!takes_head_dims(D, DV, 1)) return -1;
   switch (D) {
-    case 16: return smem_of<16>(which);
-    case 32: return smem_of<32>(which);
-    case 64: return smem_of<64>(which);
-    case 128: return smem_of<128>(which);
+    case 16: return smem_of<16, 16>(which);
+    case 32: return smem_of<32, 32>(which);
+    case 64: return smem_of<64, 64>(which);
+    case 128: return smem_of<128, 128>(which);
+    case 192: return smem_of<192, 128>(which);
   }
   return -1;
 }
@@ -1133,30 +1159,32 @@ int smem_bytes(int which, int D) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; kind: 0 causal, 1 sliding, 2 chunked,
-// 3 bidirectional.  Writes out (B, Hq, Sq, D) and lse (B, Hq, Sq) f32.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a shape the kernel does not take.
+// 3 bidirectional.  q and k are (.., D) wide, v (.., DV).  Writes out (B, Hq,
+// Sq, DV) and lse (B, Hq, Sq) f32.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a shape the kernel does not take.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* out, void* lse, int B, int Hq, int Hkv,
-                               int Sq, int Sk, int D, int dtype, int kind,
+                               int Sq, int Sk, int D, int DV, int dtype, int kind,
                                int window, int chunk, int q_offset, float scale,
                                void* stream) {
-  if (bad_shape(B, Hq, Hkv, Sq, Sk, D, dtype, kind, window, chunk))
+  if (bad_shape(B, Hq, Hkv, Sq, Sk, D, DV, dtype, kind, window, chunk))
     return (int)cudaErrorInvalidValue;
   const Mask mask{kind, window, chunk, q_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-#define REPRO_FA_FWD(TT, DD) \
-  e = fwd_t<TT, DD>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, mask, scale, s)
-#define REPRO_FA_FWD_D(TT)                  \
-  switch (D) {                              \
-    case 16: REPRO_FA_FWD(TT, 16); break;   \
-    case 32: REPRO_FA_FWD(TT, 32); break;   \
-    case 64: REPRO_FA_FWD(TT, 64); break;   \
-    case 128: REPRO_FA_FWD(TT, 128); break; \
+#define REPRO_FA_FWD(TT, DD, VV) \
+  e = fwd_t<TT, DD, VV>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, mask, scale, s)
+#define REPRO_FA_FWD_D(TT)                       \
+  switch (D) {                                   \
+    case 16: REPRO_FA_FWD(TT, 16, 16); break;    \
+    case 32: REPRO_FA_FWD(TT, 32, 32); break;    \
+    case 64: REPRO_FA_FWD(TT, 64, 64); break;    \
+    case 128: REPRO_FA_FWD(TT, 128, 128); break; \
   }
   if (dtype == 0) {
     REPRO_FA_FWD_D(float)
+  } else if (D == 192) {
+    REPRO_FA_FWD(__nv_bfloat16, 192, 128);
   } else {
     REPRO_FA_FWD_D(__nv_bfloat16)
   }
@@ -1165,33 +1193,35 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   return (int)e;
 }
 
-// Gradients of the forward above: dq (B, Hq, Sq, D), dk and dv (B, Hkv, Sk,
-// D) in the operands' dtype, from q, k, v, the forward's out and lse, and
-// dout.  delta is (B, Hq, Sq) f32 scratch.  Two (bf16) or three (f32)
-// launches on one stream.
+// Gradients of the forward above: dq (B, Hq, Sq, D), dk (B, Hkv, Sk, D) and
+// dv (B, Hkv, Sk, DV) in the operands' dtype, from q, k, v, the forward's
+// out and lse, and dout.  delta is (B, Hq, Sq) f32 scratch.  Two (bf16) or
+// three (f32) launches on one stream.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* out, const void* dout, const void* lse,
                                void* delta, void* dq, void* dk, void* dv, int B,
-                               int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
+                               int Hq, int Hkv, int Sq, int Sk, int D, int DV, int dtype,
                                int kind, int window, int chunk, int q_offset,
                                float scale, void* stream) {
-  if (bad_shape(B, Hq, Hkv, Sq, Sk, D, dtype, kind, window, chunk))
+  if (bad_shape(B, Hq, Hkv, Sq, Sk, D, DV, dtype, kind, window, chunk))
     return (int)cudaErrorInvalidValue;
   const Mask mask{kind, window, chunk, q_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-#define REPRO_FA_BWD(TT, DD)                                                     \
-  e = bwd_t<TT, DD>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, \
-                    Sk, mask, scale, s)
-#define REPRO_FA_BWD_D(TT)                  \
-  switch (D) {                              \
-    case 16: REPRO_FA_BWD(TT, 16); break;   \
-    case 32: REPRO_FA_BWD(TT, 32); break;   \
-    case 64: REPRO_FA_BWD(TT, 64); break;   \
-    case 128: REPRO_FA_BWD(TT, 128); break; \
+#define REPRO_FA_BWD(TT, DD, VV)                                                     \
+  e = bwd_t<TT, DD, VV>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, \
+                        Sk, mask, scale, s)
+#define REPRO_FA_BWD_D(TT)                       \
+  switch (D) {                                   \
+    case 16: REPRO_FA_BWD(TT, 16, 16); break;    \
+    case 32: REPRO_FA_BWD(TT, 32, 32); break;    \
+    case 64: REPRO_FA_BWD(TT, 64, 64); break;    \
+    case 128: REPRO_FA_BWD(TT, 128, 128); break; \
   }
   if (dtype == 0) {
     REPRO_FA_BWD_D(float)
+  } else if (D == 192) {
+    REPRO_FA_BWD(__nv_bfloat16, 192, 128);
   } else {
     REPRO_FA_BWD_D(__nv_bfloat16)
   }
@@ -1200,12 +1230,13 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   return (int)e;
 }
 
-// Dynamic shared memory, in bytes, of the bf16 kernels for head dim D
-// (-1 for a head dim they do not take): the forward, the dQ kernel and the
-// dK/dV kernel.
-int flash_attention_fwd_smem_bytes(int D) { return smem_bytes(0, D); }
-int flash_attention_bwd_dq_smem_bytes(int D) { return smem_bytes(1, D); }
-int flash_attention_bwd_dkdv_smem_bytes(int D) { return smem_bytes(2, D); }
+// Dynamic shared memory, in bytes, of the bf16 kernels (which: 0 the forward,
+// 1 the dQ kernel, 2 the dK/dV kernel) for head dims (D, DV); -1 for head
+// dims they do not take.  The three one-argument forms take DV = D.
+int flash_attention_smem_bytes(int which, int D, int DV) { return smem_bytes(which, D, DV); }
+int flash_attention_fwd_smem_bytes(int D) { return smem_bytes(0, D, D); }
+int flash_attention_bwd_dq_smem_bytes(int D) { return smem_bytes(1, D, D); }
+int flash_attention_bwd_dkdv_smem_bytes(int D) { return smem_bytes(2, D, D); }
 
 const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

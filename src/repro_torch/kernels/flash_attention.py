@@ -4,10 +4,12 @@ Counterpart of ``repro/kernels/flash_attention.py``:
 
 * :func:`flash_attention` — full-sequence attention for training and
   whole-prompt prefill (``repro_torch/csrc/flash_attention.cu``), with
-  :func:`flash_attention_bwd`, its backward.  The plain version of the
-  same function is :func:`repro_torch.kernels.ref.attention`, and of the
-  backward ``torch.autograd.grad`` through it; :func:`smem_footprint_bytes`
-  gives the shared memory its bf16 kernels take.
+  :func:`flash_attention_bwd`, its backward, at the head dims of
+  :data:`FA_HEAD_DIMS`: q/k and v of one width, or MLA's q/k of 192 with
+  v of 128.  The plain version of the same function is
+  :func:`repro_torch.kernels.ref.attention`, and of the backward
+  ``torch.autograd.grad`` through it; :func:`smem_footprint_bytes` gives
+  the shared memory its bf16 kernels take.
 * :func:`flash_prefill` — chunked-prefill attention on explicit positions
   (``repro_torch/csrc/prefill_attention.cu``).  Unlike the Pallas kernel
   it reads keys from two sources — the prior cache and the chunk's own
@@ -37,6 +39,13 @@ from repro_torch.kernels.decode_attention import (
 MASK_KINDS = {"causal": 0, "sliding": 1, "chunked": 2}
 #: mask codes of the full-sequence kernel (csrc/flash_attention.cu)
 FA_MASK_KINDS = {"causal": 0, "sliding": 1, "chunked": 2, "bidirectional": 3}
+#: the (q/k, v) head dims the full-sequence kernels take, by dtype
+#: (csrc/flash_attention.cu: takes_head_dims); MLA's (192, 128) has bf16
+#: tensor-core kernels only
+FA_HEAD_DIMS = {
+    torch.float32: tuple((d, d) for d in SUPPORTED_D),
+    torch.bfloat16: tuple((d, d) for d in SUPPORTED_D) + ((192, 128),),
+}
 
 _fn = None
 _fa_fns = None
@@ -48,18 +57,32 @@ def _fa_launchers():
         lib = _build.load("flash_attention")
         P, I = ctypes.c_void_p, ctypes.c_int
         fwd = lib.flash_attention_fwd_launch
-        fwd.argtypes = [P] * 5 + [I] * 11 + [ctypes.c_float, P]
+        fwd.argtypes = [P] * 5 + [I] * 12 + [ctypes.c_float, P]
         fwd.restype = I
         bwd = lib.flash_attention_bwd_launch
-        bwd.argtypes = [P] * 10 + [I] * 11 + [ctypes.c_float, P]
+        bwd.argtypes = [P] * 10 + [I] * 12 + [ctypes.c_float, P]
         bwd.restype = I
         _fa_fns = fwd, bwd
     return _fa_fns
 
 
+def fa_head_dims(dtype: torch.dtype, d: int, dv: int) -> tuple[int, int]:
+    """The head dims a (q/k ``d``, v ``dv``) attention runs at in the
+    kernels: the smallest pair of :data:`FA_HEAD_DIMS` at least as wide in
+    both, which is ``(d, dv)`` itself when the kernels take it.  Raises
+    when none is."""
+    if dtype not in FA_HEAD_DIMS:
+        raise TypeError(f"the attention kernels take float32 or bfloat16, got {dtype}")
+    fits = [p for p in FA_HEAD_DIMS[dtype] if p[0] >= d and p[1] >= dv]
+    if not fits:
+        raise ValueError(f"head dims (q/k {d}, v {dv}): no {dtype} attention kernel "
+                         f"takes them or a wider pair ({FA_HEAD_DIMS[dtype]})")
+    return min(fits)
+
+
 def _fa_check(q, k, v, kind, window, chunk, name):
-    """Shapes (B, Hq, Sq, D) / (B, Hkv, Sk, D) x2 and the mask arguments;
-    raises on anything the kernel does not take."""
+    """Shapes (B, Hq, Sq, D) / (B, Hkv, Sk, D) / (B, Hkv, Sk, Dv) and the
+    mask arguments; raises on anything the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {q.device}")
     if q.dtype not in DTYPE_CODES:
@@ -70,29 +93,31 @@ def _fa_check(q, k, v, kind, window, chunk, name):
         raise ValueError("sliding mask needs window > 0")
     if kind == "chunked" and chunk <= 0:
         raise ValueError("chunked mask needs chunk > 0")
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(
             f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
+    Dv = v.shape[3]
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
-    if D not in SUPPORTED_D:
-        raise ValueError(f"head dim {D} not in {SUPPORTED_D}")
+    if (D, Dv) not in FA_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dims (q/k {D}, v {Dv}) not in "
+                         f"{FA_HEAD_DIMS[q.dtype]} for {q.dtype}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if min(B, Sq, Sk) <= 0 or max(B, Hq) > 65535:
         raise ValueError(f"empty or oversized shape q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
     check_operands({"q": q, "k": k, "v": v}, dtype=q.dtype, device=q.device)
-    return B, Hq, Hkv, Sq, Sk, D
+    return B, Hq, Hkv, Sq, Sk, D, Dv
 
 
 def flash_attention(
     q: torch.Tensor,        # (B, Hq, Sq, D)
     k: torch.Tensor,        # (B, Hkv, Sk, D)
-    v: torch.Tensor,        # (B, Hkv, Sk, D)
+    v: torch.Tensor,        # (B, Hkv, Sk, Dv)
     *,
     kind: str = "causal",
     window: int = 0,
@@ -103,20 +128,20 @@ def flash_attention(
     """Launch the forward kernel on ``q``'s device and current stream.
 
     Query ``i`` sits at position ``q_offset + i``, key ``j`` at ``j``.
-    Returns ``(out, lse)``: ``out`` (B, Hq, Sq, D) in q's dtype — 0 on a
+    Returns ``(out, lse)``: ``out`` (B, Hq, Sq, Dv) in q's dtype — 0 on a
     row with no live key — and the row log-sum-exp of the scaled scores,
     ``lse`` (B, Hq, Sq) float32, which the backward reads.
     """
-    B, Hq, Hkv, Sq, Sk, D = _fa_check(q, k, v, kind, window, chunk,
-                                      "flash_attention")
+    B, Hq, Hkv, Sq, Sk, D, Dv = _fa_check(q, k, v, kind, window, chunk,
+                                          "flash_attention")
     scale = D ** -0.5 if scale is None else float(scale)
     fwd, _ = _fa_launchers()
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, Sq, Dv))
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         status = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, DTYPE_CODES[q.dtype],
+            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, Dv, DTYPE_CODES[q.dtype],
             FA_MASK_KINDS[kind], int(window), int(chunk), int(q_offset), scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -140,12 +165,13 @@ def flash_attention_bwd(
     and dK/dV summed over each KV head's query heads inside one block —
     counted as one launch of the backward.
     """
-    B, Hq, Hkv, Sq, Sk, D = _fa_check(q, k, v, kind, window, chunk,
-                                      "flash_attention_bwd")
-    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (B, Hq, Sq):
+    B, Hq, Hkv, Sq, Sk, D, Dv = _fa_check(q, k, v, kind, window, chunk,
+                                          "flash_attention_bwd")
+    if (out.shape != (B, Hq, Sq, Dv) or dout.shape != out.shape
+            or lse.shape != (B, Hq, Sq)):
         raise ValueError(
             f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
-            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}"
+            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}, v {tuple(v.shape)}"
         )
     check_operands({"out": out, "dout": dout}, dtype=q.dtype, device=q.device)
     check_operands({"lse": lse}, dtype=torch.float32, device=q.device)
@@ -159,7 +185,7 @@ def flash_attention_bwd(
         status = bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D, Dv,
             DTYPE_CODES[q.dtype], FA_MASK_KINDS[kind], int(window), int(chunk),
             int(q_offset), scale, torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -174,26 +200,31 @@ flash_attention_bwd.launches = 0
 
 
 
-def smem_footprint_bytes(d: int) -> dict[str, int]:
+def smem_footprint_bytes(d: int, dv: int | None = None) -> dict[str, int]:
     """Dynamic shared memory, in bytes, of each bfloat16 kernel of
-    ``csrc/flash_attention.cu`` for head dim ``d`` — the port's counterpart
-    of the reference's ``vmem_footprint_bytes``, and the number the C side
-    exports as ``flash_attention_{fwd,bwd_dq,bwd_dkdv}_smem_bytes``.
+    ``csrc/flash_attention.cu`` for q/k head dim ``d`` and v head dim
+    ``dv`` (default ``d``) — the port's counterpart of the reference's
+    ``vmem_footprint_bytes``, and the number the C side exports as
+    ``flash_attention_smem_bytes`` (and, for ``dv == d``,
+    ``flash_attention_{fwd,bwd_dq,bwd_dkdv}_smem_bytes``).
 
-    Every tile row is ``d`` bf16 padded by 16 bytes, and every kernel
-    streams its tiles through a two-stage ring.  The forward keeps 128
-    query rows and rings 64-key K and V tiles; the dQ kernel keeps 64 rows
-    each of Q and dO and rings 32-key K and V tiles; the dK/dV kernel keeps
-    64 rows each of K and V and rings 32-query Q and dO tiles with their f32
-    lse and delta rows.
+    Every tile row is its width in bf16 padded by 16 bytes (Q, K rows
+    ``d`` wide, V, dO rows ``dv``), and every kernel streams its tiles
+    through a two-stage ring.  The forward keeps 128 query rows (64 past
+    ``d`` = 128) and rings 64-key K and V tiles; the dQ kernel keeps 64
+    rows each of Q and dO and rings 32-key K and V tiles; the dK/dV kernel
+    keeps 64 rows each of K and V and rings 32-query Q and dO tiles with
+    their f32 lse and delta rows.
     """
-    if d not in SUPPORTED_D:
-        raise ValueError(f"head dim {d} not in {SUPPORTED_D}")
-    row, stages = (d + 8) * 2, 2
+    dv = d if dv is None else dv
+    if (d, dv) not in FA_HEAD_DIMS[torch.bfloat16]:
+        raise ValueError(f"head dims ({d}, {dv}) not in {FA_HEAD_DIMS[torch.bfloat16]}")
+    row, vrow, stages = (d + 8) * 2, (dv + 8) * 2, 2
+    fwd_rows = 64 if d > 128 else 128
     return {
-        "fwd": (128 + stages * 2 * 64) * row,
-        "bwd_dq": (2 * 64 + stages * 2 * 32) * row,
-        "bwd_dkdv": (2 * 64 + stages * 2 * 32) * row + stages * 2 * 32 * 4,
+        "fwd": fwd_rows * row + stages * 64 * (row + vrow),
+        "bwd_dq": (64 + stages * 32) * (row + vrow),
+        "bwd_dkdv": (64 + stages * 32) * (row + vrow) + stages * 2 * 32 * 4,
     }
 
 

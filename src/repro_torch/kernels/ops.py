@@ -32,6 +32,7 @@ from repro_torch.kernels.blocked_matmul import (
 )
 from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import (
+    fa_head_dims,
     flash_attention,
     flash_attention_bwd,
     flash_prefill,
@@ -108,20 +109,34 @@ def attention(
     q_offset: int = 0,
     k_lengths=None,
 ):
-    """(B, Hq, Sq, D) x (B, Hkv, Sk, D) GQA attention with mask kinds.
+    """(B, Hq, Sq, D) x (B, Hkv, Sk, D) -> (B, Hq, Sq, Dv) GQA attention
+    with mask kinds; ``v`` is (B, Hkv, Sk, Dv).
 
     A CUDA tensor takes the flash-attention kernels (``k_lengths`` is a
-    decode-only argument they do not take: it raises there).  A CPU tensor
-    takes the reference's dispatch: the chunked plain version from
-    ``Sq >= 2048`` without ``k_lengths``, else the plain version.
+    decode-only argument they do not take: it raises there).  Head dims
+    they do not take natively run zero-padded to the next pair they do
+    (:func:`~repro_torch.kernels.flash_attention.fa_head_dims`: q and k to
+    its q/k width, v to its v width), at the scale of the unpadded ``D``,
+    the output sliced back (autograd drops the padded gradients); a pair
+    with no wider kernel raises.  A CPU tensor takes the reference's
+    dispatch: the chunked plain version from ``Sq >= 2048`` without
+    ``k_lengths``, else the plain version.
     """
     if _route(q) == "cuda":
         if k_lengths is not None:
             raise ValueError("the flash-attention kernel takes no k_lengths")
-        return _FlashAttention.apply(
+        D, Dv = q.shape[-1], v.shape[-1]
+        Dp, Dvp = fa_head_dims(q.dtype, D, Dv)
+        if (Dp, Dvp) != (D, Dv):
+            scale = D ** -0.5 if scale is None else scale
+            q = torch.nn.functional.pad(q, (0, Dp - D))
+            k = torch.nn.functional.pad(k, (0, Dp - D))
+            v = torch.nn.functional.pad(v, (0, Dvp - Dv))
+        out = _FlashAttention.apply(
             q.contiguous(), k.contiguous(), v.contiguous(),
             kind, window, chunk, scale, q_offset,
         )
+        return out[..., :Dv] if Dvp != Dv else out
     if k_lengths is None and q.shape[2] >= 2048:
         return ref.attention_chunked(
             q, k, v, kind=kind, window=window, chunk=chunk,

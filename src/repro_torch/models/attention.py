@@ -1,12 +1,17 @@
-"""GQA attention blocks: param and cache defs, training, prefill, decode.
+"""Attention blocks: param and cache defs, training, prefill, decode.
 
-Counterpart of the GQA half of ``repro/models/attention.py``, for every
-GQA layer code: full (``F``), global (``G``, with its own RoPE base when
-the spec has one), sliding-window (``L``) and chunk-local (``C``); MLA is
-still to be ported (ROADMAP A4b).  An ``F``/``G`` cache holds ``max_len``
-slots; an ``L`` cache is a ring of ``min(max_len, window)`` and a ``C``
-cache a ring of ``min(max_len, 2 * chunk)``, each position written at
-slot ``pos % size``.
+Counterpart of ``repro/models/attention.py``: GQA for every layer code —
+full (``F``), global (``G``, with its own RoPE base when the spec has
+one), sliding-window (``L``) and chunk-local (``C``) — and DeepSeek-V2's
+multi-head latent attention (MLA).  An ``F``/``G`` cache holds
+``max_len`` slots; an ``L`` cache is a ring of ``min(max_len, window)``
+and a ``C`` cache a ring of ``min(max_len, 2 * chunk)``, each position
+written at slot ``pos % size``.  An MLA cache holds each position's
+``kv_lora``-wide latent and its rope key, shared by every head, at slot
+``min(pos, max_len - 1)``; serving reads it through the **absorbed**
+formulation (queries through ``w_k_b``, the context through ``w_v_b``),
+so a decode step's reads scale with ``kv_lora + rope_head_dim``, not with
+heads x head dims.
 
 The KV cache is updated **in place**: a layer receives per-layer views of
 the stacked cache tensors and writes through them.  That is the port's
@@ -30,9 +35,35 @@ from repro_torch.models.sharding import Param
 
 def attention_defs(d_model: int, spec: AttentionSpec) -> dict:
     if spec.kind == "mla":
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP queue A, A4b)"
-        )
+        qk_head = spec.nope_head_dim + spec.rope_head_dim
+        defs = {
+            "w_kv_a": Param((d_model, spec.kv_lora), ("embed", "lora")),
+            "w_k_rope": Param((d_model, spec.rope_head_dim), ("embed", None)),
+            "w_k_b": Param(
+                (spec.kv_lora, spec.n_heads, spec.nope_head_dim),
+                ("lora", "heads", "head_dim"),
+            ),
+            "w_v_b": Param(
+                (spec.kv_lora, spec.n_heads, spec.v_head_dim),
+                ("lora", "heads", "head_dim"),
+            ),
+            "w_o": Param(
+                (spec.n_heads, spec.v_head_dim, d_model),
+                ("heads", "head_dim", "embed"),
+            ),
+        }
+        if spec.q_lora:
+            defs["w_q_a"] = Param((d_model, spec.q_lora), ("embed", "lora"))
+            defs["w_q_b"] = Param(
+                (spec.q_lora, spec.n_heads, qk_head),
+                ("lora", "heads", "head_dim"),
+            )
+        else:
+            defs["w_q"] = Param(
+                (d_model, spec.n_heads, qk_head),
+                ("embed", "heads", "head_dim"),
+            )
+        return defs
     defs = {
         "w_q": Param(
             (d_model, spec.n_heads, spec.d_head),
@@ -83,9 +114,9 @@ def cache_defs(
 ) -> dict:
     """Per-layer decode-cache defs (Param reused as a shaped placeholder).
 
-    Every layer code and the MLA cache are described, as the reference
-    does, so the planner can size any config's cache; the port's model
-    applies the GQA caches (``ModelBundle`` refuses MLA).
+    An MLA layer caches ``ckv`` (batch, max_len, kv_lora) and ``krope``
+    (batch, max_len, rope_head_dim); a GQA layer ``k`` and ``v`` (batch,
+    kv heads, slots, head dim), ``L`` and ``C`` layers over rings.
     """
     if spec.kind == "mla":
         return {
@@ -293,3 +324,214 @@ def gqa_decode(params, x, cache, lengths, spec: AttentionSpec, code: str):
             q.contiguous(), cache["k"], cache["v"], valid.to(torch.int32)
         )
     return _merge_heads(o[:, :, None], params["w_o"])
+
+
+# ---------------------------------------------------------------------------
+# Apply: MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_q(params, x, spec, positions):
+    """(qn, qr): the queries' no-rope and rope parts, (B, H, S, nope/rope)."""
+    if "w_q_a" in params:
+        q = _heads(x @ params["w_q_a"], params["w_q_b"])
+    else:
+        q = _heads(x, params["w_q"])
+    qn = q[..., : spec.nope_head_dim]
+    qr = rope(q[..., spec.nope_head_dim:], positions, spec.rope_theta)
+    return qn, qr
+
+
+def _mla_latent(params, x, spec, positions):
+    """(ckv, kr): each position's latent (B, S, kv_lora) and its rope key
+    (B, S, rope_head_dim), the key part every head shares."""
+    ckv = x @ params["w_kv_a"]
+    kr = rope(x @ params["w_k_rope"], positions, spec.rope_theta)
+    return ckv, kr
+
+
+def _mla_full(params, x, spec, positions, ckv, kr):
+    """Full-sequence causal MLA over the unabsorbed heads: keys
+    ``[ckv w_k_b, kr]`` (the rope key broadcast to every head), values
+    ``ckv w_v_b``, through ``ops.attention`` at the q/k head dim
+    ``nope + rope`` (its default scale) and the v head dim
+    ``v_head_dim``."""
+    qn, qr = _mla_q(params, x, spec, positions)
+    kn = _heads(ckv, params["w_k_b"])
+    v = _heads(ckv, params["w_v_b"])
+    q = torch.cat([qn, qr], -1)
+    k = torch.cat([kn, kr[:, None].expand(*kn.shape[:-1], spec.rope_head_dim)], -1)
+    o = ops.attention(q, k, v, kind="causal")
+    return _merge_heads(o, params["w_o"])
+
+
+def mla_train(params, x, spec: AttentionSpec, code: str = "F"):
+    """Full-sequence attention; x (B,S,D)."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    ckv, kr = _mla_latent(params, x, spec, positions)
+    return _mla_full(params, x, spec, positions, ckv, kr)
+
+
+def _append_latent(cache, ckv_new, kr_new, offsets, new_lens):
+    """Offset-aware latent append, in place: row ``b`` writes its first
+    ``new_lens[b]`` chunk entries at slots ``min(offsets[b] + j,
+    Smax - 1)``.
+
+    The reference scatters with ``mode="drop"``, routing the entries past
+    ``new_lens`` out of bounds.  As in :func:`_append_kv`, the port writes
+    a window instead: entry ``j``'s slot gets the chunk entry that lands
+    there (for the clamped last slot, the last kept entry that reaches
+    it, as the reference's scatter leaves it) or its own old value, so a
+    row with ``new_lens == 0`` keeps its cache bit for bit and nothing
+    stalls the host.
+    """
+    Smax = cache["ckv"].shape[1]
+    B, S, _ = ckv_new.shape
+    j = torch.arange(S, dtype=torch.int64, device=ckv_new.device)[None, :]
+    off = offsets.long()[:, None]
+    nl = new_lens.long()[:, None]
+    last = Smax - 1
+    inside = off + j < last
+    slot = torch.clamp(off + j, max=last)                     # (B, S)
+    src = torch.where(inside, j, nl - 1)
+    take = (src >= 0) & (src < nl) & (inside | (off + src >= last))
+    src = src.clamp(0, S - 1)
+    bidx = torch.arange(B, device=ckv_new.device)[:, None]
+    for name, new in (("ckv", ckv_new), ("krope", kr_new)):
+        buf = cache[name]
+        old = buf[bidx, slot]                                 # (B, S, w)
+        fresh = new[bidx, src].to(buf.dtype)
+        buf[bidx, slot] = torch.where(take[:, :, None], fresh, old)
+
+
+def mla_prefill(params, x, cache, spec: AttentionSpec, code: str = "F"):
+    """Whole-prompt attention + latent cache fill from position 0.
+
+    Returns the block output; ``cache`` is filled in place.
+    """
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    ckv, kr = _mla_latent(params, x, spec, positions)
+    out = _mla_full(params, x, spec, positions, ckv, kr)
+    zeros = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    _append_latent(cache, ckv, kr, zeros, zeros + S)
+    return out
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` (batched) summed in float32, the operands in their own
+    dtype: the reference's ``preferred_element_type=float32``.  On the card
+    a bfloat16 product is one cuBLAS call with a float32 output
+    (``out_dtype``), so the streamed cache is never copied to float32; the
+    CPU has no such kernel, and multiplies float32 copies (a bfloat16
+    product is exact in float32)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _per_head(t, wh):
+    """einsum("bhsk,hkr->bhsr") as one product per head: ``t`` (B, H, S,
+    k), ``wh`` an (H, k, r) view of a weight as it lies (a strided view,
+    which cuBLAS reads in place: no permuted copy of the weight).  Returns
+    (B, H, S, r) in ``t``'s dtype."""
+    B, H, S, k = t.shape
+    out = torch.bmm(t.transpose(0, 1).reshape(H, B * S, k), wh)
+    return out.view(H, B, S, -1).transpose(0, 1)
+
+
+def _mla_absorbed(params, qn, qr, cache, positions, spec, out_dtype):
+    """The absorbed attention of queries at ``positions`` (B, S) against
+    the whole latent cache, masked to slots ``< min(pos + 1, Smax)``:
+    ``q_abs = qn w_k_b`` in the cache's dtype, scores ``(q_abs ckv^T +
+    qr kr^T) (nope + rope)^-0.5`` summed in float32 from the cache as it
+    lies, a float32 softmax, ``p`` in the cache's dtype, the context
+    ``p ckv`` summed in float32 and cast to ``out_dtype``, then ``w_v_b``
+    and ``w_o``.  The reference's ``mla_decode`` is the case S = 1."""
+    ckv, kr = cache["ckv"], cache["krope"]
+    B, H, S, _ = qn.shape
+    Smax = ckv.shape[1]
+    q_abs = _per_head(qn, params["w_k_b"].permute(1, 2, 0)).to(ckv.dtype)
+    scores = _bmm_f32(q_abs.reshape(B, H * S, -1), ckv.transpose(1, 2))
+    scores.add_(_bmm_f32(qr.to(kr.dtype).reshape(B, H * S, -1), kr.transpose(1, 2)))
+    scores.mul_((spec.nope_head_dim + spec.rope_head_dim) ** -0.5)
+    kpos = torch.arange(Smax, dtype=torch.int32, device=ckv.device)
+    limit = torch.clamp(positions + 1, max=Smax)                       # (B, S)
+    dead = kpos[None, None, None, :] >= limit[:, None, :, None]        # (B, 1, S, Smax)
+    scores = scores.view(B, H, S, Smax).masked_fill_(dead, -1e30)
+    p = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    ctx = _bmm_f32(p.view(B, H * S, Smax), ckv).to(out_dtype)         # (B, H*S, r)
+    o = _per_head(ctx.view(B, H, S, -1), params["w_v_b"].permute(1, 0, 2))
+    return _merge_heads(o, params["w_o"])
+
+
+def mla_prefill_at(
+    params, x, cache, offsets, new_lens, spec: AttentionSpec, code: str = "F"
+):
+    """Offset-aware absorbed-MLA chunk prefill (decode-replay semantics).
+
+    Unlike :func:`gqa_prefill_at`, the chunk's latents are written into
+    the cache first (slot == position), and then the chunk's queries run
+    the absorbed formulation against the *updated* cache, masked by
+    absolute position — the score layout, dtype path and summation order
+    of :func:`mla_decode`, as in the reference.  Rows with ``new_lens ==
+    0`` keep their cache.  Returns the block output.
+    """
+    S = x.shape[1]
+    offsets = offsets.to(torch.int32)
+    positions = offsets[:, None] + torch.arange(S, dtype=torch.int32,
+                                                device=x.device)[None, :]
+    qn, qr = _mla_q(params, x, spec, positions[:, None, :])
+    ckv_new, kr_new = _mla_latent(params, x, spec, positions)
+    _append_latent(cache, ckv_new, kr_new, offsets, new_lens.to(torch.int32))
+    return _mla_absorbed(params, qn, qr, cache, positions, spec, x.dtype)
+
+
+def mla_decode(params, x, cache, lengths, spec: AttentionSpec, code: str = "F"):
+    """Absorbed MLA decode: x (B,1,D); lengths (B,) tokens already cached.
+
+    The new latent and rope key are written (in place) at slot
+    ``min(lengths, Smax - 1)`` before the attention, which reads the
+    latent cache in its storage dtype: its reads scale with ``kv_lora +
+    rope_head_dim``, not with heads x head dims.  Returns the block
+    output.
+    """
+    B = x.shape[0]
+    positions = lengths[:, None]                                  # (B, 1)
+    qn, qr = _mla_q(params, x, spec, positions[:, None])
+    ckv_new, kr_new = _mla_latent(params, x, spec, positions)
+    Smax = cache["ckv"].shape[1]
+    slot = torch.clamp(lengths, max=Smax - 1).long()
+    bidx = torch.arange(B, device=x.device)
+    cache["ckv"][bidx, slot] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][bidx, slot] = kr_new[:, 0].to(cache["krope"].dtype)
+    return _mla_absorbed(params, qn, qr, cache, positions, spec, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Unified dispatch
+# ---------------------------------------------------------------------------
+
+def attn_train(params, x, spec, code):
+    if spec.kind == "mla":
+        return mla_train(params, x, spec, code)
+    return gqa_train(params, x, spec, code)
+
+
+def attn_prefill(params, x, cache, spec, code):
+    if spec.kind == "mla":
+        return mla_prefill(params, x, cache, spec, code)
+    return gqa_prefill(params, x, cache, spec, code)
+
+
+def attn_prefill_at(params, x, cache, offsets, new_lens, spec, code):
+    if spec.kind == "mla":
+        return mla_prefill_at(params, x, cache, offsets, new_lens, spec, code)
+    return gqa_prefill_at(params, x, cache, offsets, new_lens, spec, code)
+
+
+def attn_decode(params, x, cache, lengths, spec, code):
+    if spec.kind == "mla":
+        return mla_decode(params, x, cache, lengths, spec, code)
+    return gqa_decode(params, x, cache, lengths, spec, code)

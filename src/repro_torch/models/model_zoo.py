@@ -3,12 +3,12 @@
 Counterpart of ``repro/models/model_zoo.py``.  The port trains and serves
 GQA decoders whatever their attention layer codes — full (``F``),
 global (``G``), sliding-window (``L``) and chunk-local (``C``) rings, as
-gemma3 mixes them — with dense FFNs or GShard MoE ones (family ``"moe"``:
-llama4), and the SSM and hybrid families whose layers are Mamba-2
+gemma3 mixes them — and MLA decoders (deepseek-v2), with dense FFNs or
+GShard MoE ones (family ``"moe"``: llama4, deepseek-v2 with its dense
+lead layer), and the SSM and hybrid families whose layers are Mamba-2
 (``M``) and Zamba-style shared GQA attention (``S``): mamba2 and zamba2.
-MLA (ROADMAP A4b, which deepseek-v2 needs beside its MoE), vision
-frontends and encoder-decoders (A7) raise ``NotImplementedError`` naming
-the ROADMAP queue A item that ports them.
+Vision frontends and encoder-decoders (A7) raise ``NotImplementedError``
+naming the ROADMAP queue A item that ports them.
 
 The sizing half — the bytes, flops and planner profiles of a shape — is
 pure arithmetic over the config and lives in :class:`ModelSizing`, which
@@ -156,25 +156,21 @@ class ModelBundle(ModelSizing):
     def __post_init__(self):
         cfg = self.cfg
         codes = set(cfg.layer_codes())
-        if cfg.attention is not None and cfg.attention.kind == "mla":
-            raise NotImplementedError(
-                f"{cfg.name}: MLA attention is not ported yet (ROADMAP queue A, "
-                "A4b)"
-            )
         if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                "port serves dense and MoE GQA decoders, mamba2 and zamba2 "
-                "(ROADMAP queue A, A7)"
+                "port serves dense and MoE GQA and MLA decoders, mamba2 and "
+                "zamba2 (ROADMAP queue A, A7)"
             )
         if not codes <= set(tf_mod.LAYER_CODES):
             raise NotImplementedError(
                 f"{cfg.name}: layer pattern {cfg.layer_pattern!r} has codes "
                 "the port does not run (ROADMAP queue A)"
             )
-        if codes - {"M"} and (cfg.attention is None or cfg.attention.kind != "gqa"):
+        if codes - {"M"} and (cfg.attention is None
+                              or cfg.attention.kind not in ("gqa", "mla")):
             raise NotImplementedError(
-                f"{cfg.name}: only GQA attention is ported (ROADMAP queue A)"
+                f"{cfg.name}: only GQA and MLA attention are ported (ROADMAP queue A)"
             )
 
     # -- defs ----------------------------------------------------------------

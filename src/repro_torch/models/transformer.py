@@ -1,8 +1,9 @@
 """Decoder-only LM assembled from pattern stages.
 
-Counterpart of ``repro/models/transformer.py`` for the GQA attention
-layers — full (``F``), global (``G``), sliding-window (``L``) and
-chunk-local (``C``), whose caches are rings (``attention.cache_defs``) —
+Counterpart of ``repro/models/transformer.py`` for the attention layers
+— GQA full (``F``), global (``G``), sliding-window (``L``) and
+chunk-local (``C``), whose caches are rings (``attention.cache_defs``),
+or MLA (an ``F`` layer of a spec whose kind is ``"mla"``, DeepSeek-V2) —
 with a dense or a GShard MoE FFN (``models/moe.py``, on the layers
 ``cfg.moe.is_moe_layer`` picks), Mamba-2 (``M``) and Zamba-style
 shared-attention (``S``) layers.  The params and caches keep the
@@ -47,8 +48,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.sharding import Param, stack_defs, tree_leaves, tree_map
 
-#: layer codes ported so far (MLA attention waits for ROADMAP A4b;
-#: ``ModelBundle`` refuses it by config)
+#: layer codes ported so far
 LAYER_CODES = ("F", "L", "G", "C", "M", "S")
 
 
@@ -163,7 +163,7 @@ def _apply_layer_train(cfg, code, lp, x, emb0, shared):
         xin = apply_norm(shared["norm"], torch.cat([x, emb0], dim=-1), cfg.norm)
         return x + attn.gqa_train(shared, xin, cfg.attention, "F"), None
     h = apply_norm(lp["attn_norm"], x, cfg.norm)
-    x = x + attn.gqa_train(lp["attn"], h, cfg.attention, code)
+    x = x + attn.attn_train(lp["attn"], h, cfg.attention, code)
     h = apply_norm(lp["mlp_norm"], x, cfg.norm)
     if "moe" in lp:
         out, aux = moe_mod.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
@@ -173,11 +173,11 @@ def _apply_layer_train(cfg, code, lp, x, emb0, shared):
 
 def _attn_step(params, h, cache, lengths, spec, code, mode, new_lens):
     if mode == "prefill":
-        return attn.gqa_prefill(params, h, cache, spec, code)
+        return attn.attn_prefill(params, h, cache, spec, code)
     if mode == "prefill_at":
-        return attn.gqa_prefill_at(params, h, cache, lengths, new_lens, spec, code)
+        return attn.attn_prefill_at(params, h, cache, lengths, new_lens, spec, code)
     if mode == "decode":
-        return attn.gqa_decode(params, h, cache, lengths, spec, code)
+        return attn.attn_decode(params, h, cache, lengths, spec, code)
     raise ValueError(f"step mode {mode!r}")
 
 

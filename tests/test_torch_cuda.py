@@ -369,17 +369,20 @@ def test_flash_attention_fwd_bwd_match_plain(B, Hq, Hkv, Sq, Sk, D, q_offset,
     _attention_matches_plain(B, Hq, Hkv, Sq, Sk, D, q_offset, kind, kw, dtype)
 
 
-def _attention_matches_plain(B, Hq, Hkv, Sq, Sk, D, q_offset, kind, kw, dtype, seed=8):
+def _attention_matches_plain(B, Hq, Hkv, Sq, Sk, D, q_offset, kind, kw, dtype, seed=8,
+                             Dv=None):
     """ops.attention's kernels, forward and backward (one launch each),
-    against ref.attention and autograd through it, at TOL / GRAD_TOL.  Rows
-    without a live key carry no cotangent and must come out 0 (the plain
-    version gives the mean of V there)."""
+    against ref.attention and autograd through it, at TOL / GRAD_TOL; v is
+    ``Dv`` wide (default ``D``).  Rows without a live key carry no
+    cotangent and must come out 0 (the plain version gives the mean of V
+    there)."""
     if dtype == torch.float32:
         torch.backends.cuda.matmul.allow_tf32 = False
+    Dv = Dv or D
     q = _randn(B, Hq, Sq, D, dtype=dtype, seed=seed).requires_grad_()
     k = _randn(B, Hkv, Sk, D, dtype=dtype, seed=seed + 1).requires_grad_()
-    v = _randn(B, Hkv, Sk, D, dtype=dtype, seed=seed + 2).requires_grad_()
-    dout = _randn(B, Hq, Sq, D, dtype=dtype, seed=seed + 3)
+    v = _randn(B, Hkv, Sk, Dv, dtype=dtype, seed=seed + 2).requires_grad_()
+    dout = _randn(B, Hq, Sq, Dv, dtype=dtype, seed=seed + 3)
     rows = _live_rows(kind, kw, Sq, Sk, q_offset)
     dout = dout * rows[:, None].to(dtype)      # padding rows carry no gradient
     f0, b0 = flash_attention.launches, flash_attention_bwd.launches
@@ -458,6 +461,34 @@ def test_flash_attention_bf16_few_key_rows(kind, kw, q_offset):
 
 
 @requires_cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,q_offset,kind,kw", [
+    (1, 8, 2048, 2048, 0, "causal", {}),         # deepseek-v2 training (fewer heads)
+    (2, 4, 77, 130, 0, "causal", {}),            # ragged: off every tile
+    (2, 4, 200, 330, 65, "sliding", {"window": 100}),
+    (1, 4, 129, 129, 0, "bidirectional", {}),
+])
+def test_flash_attention_mla_head_dims_match_plain(B, H, Sq, Sk, q_offset, kind, kw):
+    """MLA's q/k head dim 192 with v head dim 128 (bf16 tensor-core
+    kernels), forward and backward, natively: no padding."""
+    _attention_matches_plain(B, H, H, Sq, Sk, 192, q_offset, kind, kw, torch.bfloat16,
+                             seed=40, Dv=128)
+
+
+@requires_cuda
+def test_flash_attention_pads_head_dims_it_does_not_take():
+    """deepseek-v2-smoke's (24, 16) runs the f32 kernels at (32, 32), zero-
+    padded, at the scale of 24 (one launch each way); (192, 128) has no
+    f32 kernel and nothing wider, so it raises, padded or not."""
+    _attention_matches_plain(2, 4, 4, 50, 50, 24, 0, "causal", {}, torch.float32,
+                             seed=44, Dv=16)
+    x = torch.zeros(1, 2, 8, 192, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention(x, x, x[..., :128])
+    with pytest.raises(ValueError, match="head dims"):
+        ops.attention(x[..., :160], x[..., :160], x[..., :128])
+
+
+@requires_cuda
 def test_flash_attention_bf16_is_deterministic():
     """No atomics: two calls give bit-identical out, lse, dq, dk and dv."""
     dt = torch.bfloat16
@@ -493,6 +524,25 @@ def test_flash_attention_smem_bytes_match_the_kernels():
         assert got == smem_footprint_bytes(d), d
         assert max(got.values()) <= bmm.SMEM_BUDGET
     assert lib.flash_attention_fwd_smem_bytes(48) == -1
+
+
+@requires_cuda
+def test_flash_attention_smem_bytes_match_the_kernels_at_mla_head_dims():
+    """(192, 128): the C side's three kernels and smem_footprint_bytes
+    agree, each under the card's budget, two blocks an SM fitting."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import smem_footprint_bytes
+
+    fn = _build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    got = dict(zip(("fwd", "bwd_dq", "bwd_dkdv"), (fn(w, 192, 128) for w in range(3))))
+    assert got == smem_footprint_bytes(192, 128) == {
+        "fwd": 111_616, "bwd_dq": 86_016, "bwd_dkdv": 86_528}
+    # two blocks an SM: each takes its bytes + 1 KB reserved of the SM's 228 KB
+    assert 2 * (max(got.values()) + 1024) <= 228 * 1024
+    assert fn(0, 192, 192) == fn(0, 128, 64) == -1
 
 
 @requires_cuda

@@ -68,6 +68,17 @@ MOE_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This module's shapes are tiny: one intra-op thread runs them as fast,
+    and leaves the cores to the other test processes (the suite runs in
+    several).  Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -347,8 +358,21 @@ def test_moe_period_must_divide_the_pattern():
 
 
 def test_deepseek_v2_still_refused_for_mla():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, A4b"):
-        ModelBundle(get_config("deepseek-v2-236b"))
+    """No longer refused: MLA is ported (ROADMAP A4b), so the full
+    deepseek-v2 builds, its dense lead layer a stage of its own (d_ff
+    12288) before the 59 MoE layers (160 experts top-6 + 2 shared), its
+    defs the reference's."""
+    tb = ModelBundle(get_config("deepseek-v2-236b"))
+    assert tb.cfg.stages() == [("F", 1, 0), ("F", 59, 1)]
+    lead, moe = tb.param_defs()["stages"]
+    assert "mlp" in lead["0F"] and "moe" not in lead["0F"]
+    assert lead["0F"]["mlp"]["w_up"].shape == (1, 5120, 12288)
+    assert moe["0F"]["moe"]["w_gate"].shape == (59, 160, 5120, 1536)
+    assert moe["0F"]["attn"]["w_k_b"].shape == (59, 512, 128, 128)
+    shapes = lambda p: tuple(p.shape)  # noqa: E731
+    assert tree_map(shapes, tb.param_defs()) == jax.tree.map(
+        shapes, JaxBundle(jax_get_config("deepseek-v2-236b")).param_defs(),
+        is_leaf=lambda p: hasattr(p, "axes"))
 
 
 def test_llama4_prefill_then_decode_match_reference(llama):

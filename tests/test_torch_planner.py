@@ -357,7 +357,7 @@ def test_sizing_equals_reference(arch, smoke):
 
 
 def test_sizing_takes_what_the_bundle_refuses():
-    cfg = get_config("deepseek-v2-236b")      # MLA: refused until A4b
+    cfg = get_config("internvl2-1b")          # vision frontend: refused until A7
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         ModelBundle(cfg)
     assert ModelSizing(cfg).cache_bytes(SHAPES["decode_32k"]) > 0

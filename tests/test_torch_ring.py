@@ -275,8 +275,16 @@ def test_gemma3_bundle_builds_and_sizes_its_rings():
 
 @pytest.mark.parametrize("arch,item", [("deepseek-v2-236b", "A4b")])
 def test_moe_and_mla_still_refused_naming_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-        ModelBundle(get_config(arch))
+    """Ported by ``item`` and no longer refused: deepseek-v2 builds, and
+    its layout holds a lead stage of one dense layer and an MLA cache of
+    the latent and the rope key per layer (576 bf16 a position)."""
+    tb = ModelBundle(get_config(arch))
+    lead = tb.cfg.moe.first_k_dense
+    assert [(c, n) for c, n, _ in tb.cfg.stages()] == [("F", lead), ("F", 60 - lead)]
+    defs = tb.cache_defs(8, 2048)["stages"]
+    assert [tuple(d["0F"]["ckv"].shape) for d in defs] == [(1, 8, 2048, 512),
+                                                          (59, 8, 2048, 512)]
+    assert tb.cache_bytes_for(1, 2048) == 60 * 2048 * (512 + 64) * 2
 
 
 def test_gemma3_prefill_matches_reference(gemma):
