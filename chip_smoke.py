@@ -24,7 +24,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``q_offset > 0`` and ``Sq != Sk``, the smoke head dim and a length off
    the tile; and in bfloat16 at MLA's head dims (q/k 192, v 128: phase
    6c's shape, 4 x 128 heads x 2048, and a ragged one), float32 refused
-   there;
+   there; and bidirectional at head dim 64 with Sq != Sk, seamless-m4t's
+   cross-attention against 1024 frames at its decode (8, 16, 1, 1024),
+   prefill-chunk (8, 16, 256, 1024) and training (4, 16, 2048, 1024)
+   shapes, its encoder (4, 16, 1024, 1024) and a ragged Sq 37 x Sk 1000;
 3. smoke parity on the card and on the CPU from the same weights:
    yi-6b-smoke, granite-8b-smoke, llama4-maverick-smoke (GShard MoE) and
    deepseek-v2-smoke (MLA + MoE) in float32 through ``Server`` (the
@@ -36,7 +39,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    not continuous in the weights; deepseek-v2-smoke's attention runs the
    kernels at (24, 16) padded to (32, 32)); (3c) the same for mamba2-smoke
    and zamba2-smoke (the SSD scan's forward and backward kernels,
-   launches counted);
+   launches counted); (3d) seamless-m4t-smoke (encoder-decoder; its
+   attention projections at 1/sqrt(fan-in), see ``scale_attention``) and
+   internvl2-smoke (patch embeddings) the same way: ``Server`` tokens
+   (per replay one cross-attention ``flash_attention`` a decoder layer),
+   ``bundle.prefill`` over nonzero frame / patch embeddings then 6 decode
+   steps, 3 AdamW steps, and seamless-smoke admitted by decode-step replay
+   on the card (no prefill graph; ``decode_replay_prefills`` counted;
+   tokens those of chunked admission);
 4. serving: full-width, full-depth yi-6b in bfloat16, weights drawn on the
    card from a seeded generator: 16 requests (prompts of 128-1536 tokens,
    64 new tokens each) through 8 slots, the server's decode step and
@@ -83,6 +93,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps and a prefill dispatch, MLA's attention and the MoE FFN timed
    alone, (b) the first 4 requests eagerly and (c) under ``kv_host``,
    tokens those of a graph run of the same 4;
+   (4f) seamless-m4t-medium at full width and depth (12 encoder + 12
+   decoder layers, 1024 frames, 0.715 B params) in bfloat16, 8 slots x
+   2048: (a) phase 4's 16 requests through the graphs (per decode replay
+   12 decode_attention and 12 flash_attention, the cross-attention with
+   one query; per prefill dispatch 12 prefill_attention and 12
+   flash_attention; a slot's 150,994,944 bytes; finite logits; the decode
+   EWMA beside the planner's price), (d) profiler windows over decode
+   steps and a prefill dispatch, (c) ``bundle.prefill`` of 8 rows of 1024
+   frame embeddings and 256 tokens into the graphed server's caches (12
+   encoder, 12 self and 12 cross flash_attention launches), 32 decode
+   replays, and again with a preemption round trip of a slot whose cross
+   KV is nonzero: tokens unchanged; (b) the 16 requests eagerly, tokens
+   identical; (4g) internvl2-1b at full width and depth (24 layers, 14/2
+   heads, 0.494 B) the same way, graphs and eager, then ``bundle.prefill``
+   over 256 patch embeddings and 8 decode steps;
 5. times at the phase 4 shapes: each kernel, its plain version, the
    PyTorch library call for the same function (a yardstick the port never
    calls), and the least time the card could take, with the prefill
@@ -105,10 +130,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (6c) deepseek-v2's dense lead layer at full width (depth 1, 0.862 B
    params), 4 AdamW steps of 4 x 2048 tokens through ``make_train_step``:
    2 forward and 1 backward attention launches a step at (192, 128);
+   (6d) seamless-m4t-medium (over 1024 frame embeddings a row; no remat,
+   as the reference's encoder-decoder loss: 12 encoder + 12 self + 12
+   cross forward and backward launches a step) and internvl2-1b (256
+   patch embeddings + 1792 tokens a row) at full width and depth, 4 AdamW
+   steps of 4 x 2048 each through ``make_train_step``: finite losses,
+   tokens/s, peak memory, a profiled step;
 7. times of the training attention kernels at the phase 6 shape, beside
    their plain versions, SDPA and their bounds, with each one's TFLOP/s,
    its fraction of the operation bound and its ratio to SDPA; (7c) the
    same at phase 6c's shape (q/k 192, v 128), naming SDPA's backend;
+   (7d) ``flash_attention`` at seamless-m4t's cross-attention shapes
+   (decode, prefill chunk) and its encoder's (forward and backward),
+   beside the plain version, SDPA and the bound;
 8. Mamba-2 serving.  (a) the SSD scan kernel against its plain versions
    (the chunked oracle and the literal recurrence) in bfloat16 and float32
    at the mamba2-780m serving shape (B 8, T 256, H 48, P 64, N 128) with a
@@ -280,6 +314,15 @@ OLMO_TRAIN = dict(B=4, Hq=16, Hkv=16, S=2048, D=128, steps=4)
 #: + a 12288-wide MLP), batch 4 x 2048 tokens: the attention kernels at
 #: 128 heads, q/k head dim 192 (128 no-rope + 64 rope), v head dim 128
 MLA_TRAIN = dict(B=4, H=128, S=2048, D=192, Dv=128, depth=1, steps=4)
+
+#: seamless-m4t-medium (ROADMAP A7): 16/16 heads of 64, 1024 frame
+#: positions; serving 8 slots x 2048, prefill chunk 256; training batch 4 x
+#: 2048 decoder tokens over 1024 frames a row.  internvl2-1b: 256 patch
+#: embeddings ahead of the text (1792 tokens a row in training)
+SEAMLESS = dict(B=8, H=16, D=64, frames=1024, Smax=2048, chunk=256, train_B=4,
+                train_S=2048, steps=4)
+INTERNVL = dict(B=8, Smax=2048, chunk=256, patches=256, train_B=4, train_S=2048,
+                steps=4)
 
 #: Mamba-2 serving path (mamba2-780m: ServeConfig(8, 2048, 256), 48 SSD
 #: heads of P 64, state N 128) and zamba2-1.2b's SSD widths
@@ -794,7 +837,7 @@ def phase_granite_full():
     st, L = server.stats(), cfg.n_layers
     want = {"decode_attention": L * st["decode_steps"],
             "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0,
-            "kv_stream": 0}
+            "flash_attention": 0, "kv_stream": 0}
     if launches != want:
         raise AssertionError(f"granite-8b launches {launches} != {want}")
     check_logits(bundle, params, server, YI["B"])
@@ -991,7 +1034,8 @@ def phase_gemma_full():
     if per != {"decode": {"decode_attention": L}, "prefill": {"prefill_attention": L}}:
         raise AssertionError(f"4c: launches per replay {per}")
     want = {"decode_attention": L * st["decode_steps"],
-            "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0, "kv_stream": 0}
+            "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0,
+            "flash_attention": 0, "kv_stream": 0}
     if launches != want:
         raise AssertionError(f"4c: launches {launches} != {want}")
     if eng.slot_bytes() != slot:
@@ -1030,6 +1074,7 @@ def phase_gemma_full():
         raise AssertionError(f"4c kv_host: launches per replay {hper}")
     want = {"decode_attention": L * st["decode_steps"],
             "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0,
+            "flash_attention": 0,
             "kv_stream": L * (st["decode_steps"] + st["prefill_dispatches"])}
     if hl != want:
         raise AssertionError(f"4c kv_host: launches {hl} != {want}")
@@ -1256,7 +1301,7 @@ def phase_llama4_full(plens):
         raise AssertionError(f"4d: launches per replay {per} under {server.policy.name}")
     want = {"decode_attention": st["decode_steps"],
             "prefill_attention": 3 * st["decode_steps"] + 4 * st["prefill_dispatches"],
-            "ssd_scan": 0, "kv_stream": 0}
+            "ssd_scan": 0, "flash_attention": 0, "kv_stream": 0}
     if launches != want:
         raise AssertionError(f"4d: launches {launches} != {want}")
     if eng.slot_bytes() != slot:
@@ -1738,7 +1783,8 @@ def phase_mla_train_times(launches, errs):
 
 #: the serving kernels' names in a profiler trace, by wrapper name
 TRACE_NAMES = {"decode_attention": "decode_mma_kernel",
-               "prefill_attention": "prefill_mma_kernel", "ssd_scan": "ssd_mma_kernel"}
+               "prefill_attention": "prefill_mma_kernel", "ssd_scan": "ssd_mma_kernel",
+               "flash_attention": "fa_fwd_mma_kernel"}
 
 
 def expected_trace(server, graph):
@@ -1980,6 +2026,19 @@ def phase_train_kernels():
         ("smoke", 2, 8, 1, 64, 64, 16, 0, "causal", {}),
         ("ragged", 2, 16, 16, 1000, 1000, 128, 0, "causal", {}),
     ]
+    # seamless-m4t's cross-attention (bidirectional, Sq != Sk, head dim 64)
+    # at its decode (one query), prefill-chunk and training shapes against
+    # 1024 frames, its encoder (Sq = Sk = 1024), and a ragged pair
+    sm = SEAMLESS
+    B2, H2, F2 = sm["B"], sm["H"], sm["frames"]
+    cases += [
+        ("cross-decode", B2, H2, H2, 1, F2, sm["D"], 0, "bidirectional", {}),
+        ("cross-chunk", B2, H2, H2, sm["chunk"], F2, sm["D"], 0, "bidirectional", {}),
+        ("cross-train", sm["train_B"], H2, H2, sm["train_S"], F2, sm["D"], 0,
+         "bidirectional", {}),
+        ("encoder", sm["train_B"], H2, H2, F2, F2, sm["D"], 0, "bidirectional", {}),
+        ("cross-ragged", 2, H2, H2, 37, 1000, sm["D"], 0, "bidirectional", {}),
+    ]
     # MLA's head dims (q/k 192, v 128: bf16 kernels only): phase 6c's shape
     # and a ragged one, off every tile
     mla = [("mla-train", m["B"], m["H"], m["H"], m["S"], m["S"], m["D"], 0, "causal", {}),
@@ -2012,6 +2071,9 @@ def phase_train_kernels():
                 suffix = "_mla" if tag == "mla-train" else ""
                 errs[("attention_fwd" + suffix, dn)] = e_out
                 errs[("attention_bwd" + suffix, dn)] = e_grad
+            if tag in ("cross-decode", "cross-chunk", "encoder"):
+                errs[("attention_fwd_" + tag, dn)] = e_out
+                errs[("attention_bwd_" + tag, dn)] = e_grad
             del q, k, v, dout, out, lse, grads, qkv, want, want_g
         torch.cuda.empty_cache()
     x = torch.zeros(1, 2, 64, m["D"], device="cuda")
@@ -2749,7 +2811,8 @@ def phase_mamba_full():
     L = cfg.n_layers
     for label, srv, ln in (("graphs", server, launches), ("eager", eager, elaunches)):
         want = {"ssd_scan": L * srv.stats()["prefill_dispatches"],
-                "decode_attention": 0, "prefill_attention": 0, "kv_stream": 0}
+                "decode_attention": 0, "prefill_attention": 0, "flash_attention": 0,
+                "kv_stream": 0}
         if ln != want:
             raise AssertionError(f"{label}: launches {ln} != {want}")
     return server, eager, params, launches, tokens
@@ -2771,7 +2834,8 @@ def phase_zamba_full():
         st = srv.stats()
         want = {"ssd_scan": n_m * st["prefill_dispatches"],
                 "prefill_attention": n_s * st["prefill_dispatches"],
-                "decode_attention": n_s * st["decode_steps"], "kv_stream": 0}
+                "decode_attention": n_s * st["decode_steps"], "flash_attention": 0,
+                "kv_stream": 0}
         if ln != want:
             raise AssertionError(f"zamba2 {label} launches {ln} != {want}")
     del server, eager, params
@@ -3559,6 +3623,7 @@ def phase_placed_serving():
                 "read and write in place (mapped)")
         want = {"decode_attention": L * st["decode_steps"],
                 "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0,
+                "flash_attention": 0,
                 "kv_stream": L * (st["decode_steps"] + st["prefill_dispatches"])
                 if stream_kv else 0}
         if launches != want:
@@ -3824,7 +3889,7 @@ def phase_ssm_placed_serving():
             stream_kv = eng.runtime.streamed(Role.KV_CACHE)
             want = {"ssd_scan": n_m * st["prefill_dispatches"],
                     "prefill_attention": n_s * st["prefill_dispatches"],
-                    "decode_attention": n_s * st["decode_steps"],
+                    "decode_attention": n_s * st["decode_steps"], "flash_attention": 0,
                     "kv_stream": n_s * (st["decode_steps"] + st["prefill_dispatches"])
                     if stream_kv else 0}
             if launches != want:
@@ -4366,6 +4431,641 @@ def phase_preemption(yi_tokens, mamba_tokens, counts):
     free()
 
 
+# ---------------------------------------------------------------------------
+# encoder-decoder and VLM (ROADMAP A7): seamless-m4t-medium, internvl2-1b
+# ---------------------------------------------------------------------------
+
+class NoChunkBundle:
+    """A bundle whose ``prefill_at`` raises ``NotImplementedError``: the
+    ``Executor`` admits its requests by decode-step replay."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def prefill_at(self, *args, **kwargs):
+        raise NotImplementedError
+
+
+def scale_attention(params):
+    """An encoder-decoder's attention projections (encoder, decoder self
+    and cross) scaled by 1/sqrt(their fan-in), in place.  seamless-smoke's
+    init draws them at 1/sqrt(2), so its scores reach ~140 and every
+    softmax is nearly one-hot: f32 rounding is amplified so far that the
+    model's own float32 and float64 runs of 3 AdamW steps part by 3 % in
+    grad norm at step 2 and 46 % at step 3 (on the CPU); scaled, by 1e-6.
+    The CPU parity tests condition it the same way."""
+    for stack in ("encoder", "decoder"):
+        for block in params[stack].values():
+            if "w_o" in block:
+                for w in ("w_q", "w_k", "w_v", "w_o"):
+                    t = block[w]
+                    fan_in = t.shape[1] * t.shape[2] if w == "w_o" else t.shape[1]
+                    t.mul_(fan_in ** -0.5)
+    return params
+
+
+def frontend_key(bundle):
+    """The batch key of a frontend model's stub embeddings."""
+    from repro_torch.models.multimodal import FRONTEND_KEYS
+
+    return FRONTEND_KEYS[bundle.cfg.frontend]
+
+
+def a7_serve_smoke(bundle, params, dev, prompts):
+    """Greedy tokens of ``prompts`` (6 new each) through ``Server`` (2
+    slots x 64, chunk 4) on ``dev``; returns (server, tokens per rid)."""
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    server = Server(bundle, ServeConfig(batch_slots=2, max_len=64, prefill_chunk=4),
+                    params, device=dev)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+    server.add_requests(reqs)
+    server.run_until_done(max_steps=1000)
+    if not all(r.done and len(r.out_tokens) == 6 for r in reqs):
+        raise AssertionError(f"{bundle.cfg.name} on {dev}: requests unfinished")
+    return server, {r.rid: r.out_tokens for r in reqs}
+
+
+def phase_a7_parity():
+    """3d: seamless-smoke and internvl2-smoke in float32, card against CPU
+    from the same weights (seamless-smoke's attention projections at
+    1/sqrt(fan-in): :func:`scale_attention`): ``Server`` tokens (the
+    card's through its graphs), ``bundle.prefill`` over nonzero frame /
+    patch embeddings then 6 ``decode_step``s, 3 AdamW steps at phase 3b's
+    limits; and seamless-smoke admitted by decode-step replay on the
+    card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_map
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    log("== phase 3d: seamless-m4t-smoke (encoder-decoder) and internvl2-smoke (patch "
+        "embeddings) float32, card against CPU")
+    t_phase = time.perf_counter()
+    tcfg = TrainConfig(remat="full", optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    for arch in ("seamless-m4t-medium", "internvl2-1b"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        bundle = ModelBundle(cfg)
+        key = frontend_key(bundle)
+        params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
+        if bundle.encdec:
+            scale_attention(params_cpu)
+        params = {"cpu": params_cpu,
+                  "cuda": tree_map(lambda t: t.to("cuda", copy=True), params_cpu)}
+        L, F = cfg.n_layers, cfg.frontend_tokens
+
+        # served greedy tokens, the card's through its graphs
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (9, 14, 3, 6, 11)]
+        tokens = {}
+        for dev in ("cuda", "cpu"):
+            server, tokens[dev] = a7_serve_smoke(bundle, params[dev], dev, prompts)
+            if dev == "cuda":
+                cross = {"flash_attention": L} if bundle.encdec else {}
+                want = {"decode": {"decode_attention": L, **cross},
+                        "prefill": {"prefill_attention": L, **cross}}
+                if server.engine.graph_launches != want:
+                    raise AssertionError(f"{arch}: launches per replay "
+                                         f"{server.engine.graph_launches} != {want}")
+                if not server.engine.counters["decode_replays"]:
+                    raise AssertionError("the card's server replayed no decode graph")
+        if tokens["cuda"] != tokens["cpu"]:
+            raise AssertionError(f"{arch}: card/CPU served tokens differ: {tokens}")
+        log(f"  {cfg.name}: served greedy tokens identical for {len(prompts)} requests "
+            f"(per replay {server.engine.graph_launches})")
+
+        # prefill over nonzero embeddings, then greedy decode steps
+        g = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (3, 10), generator=g,
+                                         dtype=torch.int32),
+                 key: torch.randn(3, F, cfg.d_model, generator=g)}
+        start = 10 if bundle.encdec else 10 + F
+        seqs, logits_of = {}, {}
+        for dev in ("cuda", "cpu"):
+            cache = bundle.init_cache(3, 64, device=dev)
+            with torch.no_grad():
+                logits, _ = bundle.prefill(params[dev], {k: v.to(dev) for k, v in
+                                                         batch.items()}, cache)
+                toks, seq, lg = torch.argmax(logits, -1), [], [logits.cpu()]
+                for i in range(6):
+                    seq.append(toks.cpu())
+                    lengths = torch.full((3,), start + i, dtype=torch.int32, device=dev)
+                    logits, _ = bundle.decode_step(
+                        params[dev], {"tokens": toks[:, None].to(torch.int32),
+                                      "lengths": lengths}, cache)
+                    toks = torch.argmax(logits, -1)
+                    lg.append(logits.cpu())
+            if bundle.encdec and not cache["decoder"]["cross"]["k"].abs().amax() > 0:
+                raise AssertionError(f"{arch}: prefill left the cross cache zero")
+            seqs[dev], logits_of[dev] = torch.stack(seq), torch.stack(lg)
+        if not torch.equal(seqs["cuda"], seqs["cpu"]):
+            raise AssertionError(f"{arch}: card/CPU prefill + decode tokens differ: {seqs}")
+        gap = float((logits_of["cuda"] - logits_of["cpu"]).abs().max())
+        log(f"  {cfg.name}: prefill over {F} nonzero {key} + 6 decode steps: greedy tokens "
+            f"identical {seqs['cuda'].T.tolist()}; logits at most {gap:.3e} apart "
+            f"(largest |logit| {float(logits_of['cpu'].abs().max()):.3e})")
+
+        # 3 AdamW steps
+        text = 64 if bundle.encdec else 64 - F
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=text, global_batch=4))
+        frng = np.random.default_rng(3)
+        batches = [dict(next(data), **{key: frng.normal(size=(4, F, cfg.d_model)).astype(
+            np.float32)}) for _ in range(3)]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(dev, copy=True), params_cpu)
+            opt, step = init_opt_state(p), make_train_step(bundle, tcfg)
+            before = (flash_attention.launches, flash_attention_bwd.launches)
+            out = []
+            for b in batches:
+                p, opt, _, m = step(p, opt, None, {k: torch.from_numpy(v).to(dev)
+                                                   for k, v in b.items()})
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            res[dev] = out
+            if dev == "cuda":
+                n = (flash_attention.launches - before[0],
+                     flash_attention_bwd.launches - before[1])
+                # no remat in the encoder-decoder (as in the reference):
+                # encoder, self and cross once each; the LM under "full" twice
+                per = cfg.n_encoder_layers + 2 * L if bundle.encdec else 2 * L
+                want = (3 * per, 3 * (per if bundle.encdec else L))
+                if n != want:
+                    raise AssertionError(f"{arch}: attention launches {n} != {want}")
+        for i, ((lc, gc), (lp, gp)) in enumerate(zip(res["cuda"], res["cpu"])):
+            lim = 1e-5 if i == 0 else 1e-3
+            if abs(lc - lp) > lim * abs(lp) or abs(gc - gp) > 1e-2 * abs(gp):
+                raise AssertionError(f"{arch} step {i + 1}: card loss {lc} grad norm {gc} "
+                                     f"vs CPU {lp} {gp}")
+        log(f"  {cfg.name}: 3 AdamW steps, (loss, grad norm) card {res['cuda']} cpu "
+            f"{res['cpu']}")
+
+    # decode-step replay admission on the card: no prefill graph
+    cfg = dataclasses.replace(smoke_config("seamless-m4t-medium"), dtype="float32")
+    bundle = ModelBundle(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (9, 14, 3, 6, 11)]
+    _, want = a7_serve_smoke(bundle, params, "cuda", prompts)
+    server, got = a7_serve_smoke(NoChunkBundle(bundle), params, "cuda", prompts)
+    st = server.stats()
+    if got != want:
+        raise AssertionError(f"replay admission tokens {got} != chunked admission's {want}")
+    if (server.engine.supports_chunked_prefill or set(server.engine.graph_launches) != {"decode"}
+            or st["decode_replay_prefills"] != len(prompts) or st["prefill_replays"]):
+        raise AssertionError(f"replay admission: {st}, graphs "
+                             f"{server.engine.graph_launches}")
+    log(f"  {cfg.name} admitted by decode-step replay: tokens those of chunked admission, "
+        f"decode_replay_prefills {st['decode_replay_prefills']}, "
+        f"{st['decode_replays'] - st['decode_steps']} admission replays of the decode "
+        f"graph, no prefill graph")
+    log(f"== phase 3d took {time.perf_counter() - t_phase:.1f} s")
+
+
+def seamless_slot_bytes(cfg, S):
+    """One slot's cache bytes in bf16: each decoder layer's self KV over
+    ``S`` positions and its cross KV over the frames."""
+    a = cfg.attention
+    return cfg.n_layers * 2 * a.n_kv_heads * a.d_head * (S + cfg.frontend_tokens) * 2
+
+
+def phase_seamless_full():
+    """4f: seamless-m4t-medium at full width and depth (12 + 12 layers) in
+    bf16, weights drawn on the card from seed 0, 8 slots x 2048, chunk
+    256.  (a) phase 4's 16 requests through the graphs: per decode replay
+    12 decode_attention (self) and 12 flash_attention (cross, one query
+    against 1024 frames), per prefill dispatch 12 prefill_attention and 12
+    flash_attention; a slot's bytes; finite logits; the decode EWMA
+    beside the planner's price; (c) ``bundle.prefill`` of 8 rows with 1024
+    frame embeddings and 256-token prompts into the graphed server's
+    caches, then 32 decode steps through its decode graph, and again with a
+    preemption round trip of slot 3 (nonzero cross KV) at step 16: tokens
+    unchanged; (b) the 16 requests eagerly, tokens identical to (a).
+    Returns the flash_attention launches of (a) by use."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.core.placement import parse_policy
+    from repro_torch.core.planner import predict
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_leaves
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.state import SlotTable
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    c = SEAMLESS
+    cfg = get_config("seamless-m4t-medium")
+    a = cfg.attention
+    log(f"== phase 4f: {cfg.name} bfloat16 at full width and depth ({cfg.n_encoder_layers} "
+        f"encoder + {cfg.n_layers} decoder layers, d_model {cfg.d_model}, {a.n_heads}/"
+        f"{a.n_kv_heads} heads of {a.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.frontend_tokens} frames; {cfg.num_params() / 1e9:.3f} B params), through "
+        "the CUDA graphs")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    B, S, L = c["B"], c["Smax"], cfg.n_layers
+    scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=c["chunk"])
+    slot = seamless_slot_bytes(cfg, S)
+    price = predict(bundle.decode_workload(ShapeSpec("serve", S, B, "decode")),
+                    parse_policy("hbm_resident"), SPEC_SYSTEM).step_s
+    prompts, _ = dense_prompts(cfg.vocab)
+
+    # (a) through the graphs
+    t0 = time.perf_counter()
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64)
+    st, eng = server.stats(), server.engine
+    per = {"decode": {"decode_attention": L, "flash_attention": L},
+           "prefill": {"prefill_attention": L, "flash_attention": L}}
+    if eng.graph_launches != per:
+        raise AssertionError(f"4f: launches per replay {eng.graph_launches} != {per}")
+    want = {"decode_attention": L * st["decode_steps"],
+            "prefill_attention": L * st["prefill_dispatches"],
+            "flash_attention": L * (st["decode_steps"] + st["prefill_dispatches"]),
+            "ssd_scan": 0, "kv_stream": 0}
+    if launches != want:
+        raise AssertionError(f"4f: launches {launches} != {want}")
+    if server.policy.name != "hbm_resident":
+        raise AssertionError(f"4f: the planner picked {server.policy.name}")
+    if eng.slot_bytes() != slot or bundle.cache_bytes_for(1, S) != slot:
+        raise AssertionError(f"4f: a slot is {eng.slot_bytes()} bytes, want {slot}")
+    check_logits(bundle, params, server, B)
+    ewma = eng.measured_step_s
+    tp = server.throughput()
+    self_b = 2 * a.n_kv_heads * S * a.d_head * 2
+    cross_b = 2 * a.n_kv_heads * cfg.frontend_tokens * a.d_head * 2
+    log(f"  (a) graphs: a slot is {slot} bytes ({L} x {self_b} self KV + {L} x {cross_b} "
+        f"cross KV); decode {tp['decode_tps']:.1f} tok/s, prefill {tp['prefill_tps']:.1f} "
+        f"tok/s; decode step EWMA {ewma * 1e3:.2f} ms against the planner's hbm_resident "
+        f"price {price * 1e3:.3f} ms ({ewma / price:.2f}x); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (weights "
+        f"{weights / 2**30:.2f}); finite logits; took {time.perf_counter() - t0:.1f} s")
+    # the cross-attention's launches: per replay (counted at capture) x replays
+    cross_launches = {ph: eng.graph_launches[ph]["flash_attention"] * st[f"{ph}_replays"]
+                      for ph in ("decode", "prefill")}
+
+    # (d) where a decode step's and a prefill dispatch's device time goes
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    for i in range(B):
+        server.submit(rng.integers(0, cfg.vocab, 1024),
+                      max_new_tokens=4 * TRACE_ATTEMPTS + 5, rid=100 + i)
+    server.step()
+    server.step()
+    dec = profile_window("4f (d) graphs: decode step at 8 x ~1030 cached tokens",
+                         server.step, 4, expected_trace(server, "decode"))
+    server.run_until_done()
+    ptoks = rng.integers(0, cfg.vocab, (B, c["chunk"])).astype(np.int32)
+    offs = np.arange(0, B * c["chunk"], c["chunk"], dtype=np.int32)
+    pre = profile_window("4f (d) graphs: prefill dispatch (8 x 256 tokens at fills "
+                         "0..1792)", lambda: eng.dispatch_prefill(
+                             ptoks, np.full(B, c["chunk"], np.int32), offs),
+                         steps=2, expect=expected_trace(server, "prefill"))
+    log(f"  (d) a decode step {dec['busy_ms']:.2f} ms of device time, a prefill dispatch "
+        f"{pre['busy_ms']:.2f} ms; took {time.perf_counter() - t0:.1f} s")
+
+    # (c) frames encoded into the graphed server's caches, decoded through
+    # its decode graph, with and without a preemption round trip
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, c["chunk"])).astype(np.int32))
+    frames = torch.randn(B, cfg.frontend_tokens, cfg.d_model, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4)
+                         ).to(torch.bfloat16)
+    spill = eng.runtime.spill_placement()
+
+    def decode_from_frames(round_trip):
+        flash_attention.launches = 0
+        with torch.no_grad():
+            logits, _ = bundle.prefill(params, {"tokens": toks.cuda(), "frame_embeds": frames},
+                                       eng.caches)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("4f (c): non-finite prefill logits")
+        n_pre = flash_attention.launches
+        cross = eng.caches["decoder"]["cross"]["k"]
+        if not cross[:, 3].abs().amax() > 0:
+            raise AssertionError("4f (c): slot 3's cross KV is zero after prefill")
+        first = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        state = SlotTable(B).mirrors()
+        state.update(tokens=first[:, None], lengths=np.full(B, c["chunk"], np.int32),
+                     active=np.ones(B, bool))
+        eng.state.put(state)
+        out, moved = [first], None
+        for i in range(32):
+            if round_trip and i == 16:
+                rows = eng.extract_slot(3, spill)
+                for leaf in tree_leaves(eng.caches):
+                    leaf[:, 3].zero_()
+                eng.insert_slot(3, rows)
+                moved = (spill.to_str(), eng.moves[-2], eng.moves[-1])
+            out.append(eng.decode()[0])
+        return np.stack(out), n_pre, moved
+
+    plain, n_pre, _ = decode_from_frames(False)
+    moved_tokens, _, moved = decode_from_frames(True)
+    if n_pre != cfg.n_encoder_layers + 2 * L:
+        raise AssertionError(f"4f (c): prefill launched {n_pre} flash_attention, want "
+                             f"{cfg.n_encoder_layers} encoder + {L} self + {L} cross")
+    if not np.array_equal(plain, moved_tokens):
+        raise AssertionError("4f (c): tokens changed across the round trip of slot 3")
+    log(f"  (c) bundle.prefill of {B} rows x {cfg.frontend_tokens} frames + {c['chunk']} "
+        f"tokens into the server's caches ({n_pre} flash_attention launches: "
+        f"{cfg.n_encoder_layers} encoder, {L} decoder self, {L} cross; finite logits), then "
+        f"32 decode replays; slot 3 (nonzero cross KV) spilled to {moved[0]} and back at "
+        f"step 16 ({moved[1][2]} bytes, {moved[1][3] * 1e3:.2f} + {moved[2][3] * 1e3:.2f} ms):"
+        f" all {B} rows' tokens unchanged; took {time.perf_counter() - t0:.1f} s")
+    del server, eng
+    free()
+
+    # (b) eagerly
+    eager, ereqs, _, elaunches = serve_requests(bundle, params, scfg, prompts, 64,
+                                                eager=True)
+    est = eager.stats()
+    if elaunches["flash_attention"] != L * (est["decode_steps"] + est["prefill_dispatches"]):
+        raise AssertionError(f"4f (b): eager launches {elaunches}")
+    same_tokens(cfg.name, reqs, ereqs)
+    del eager, params, bundle
+    free()
+    log(f"== phase 4f took {time.perf_counter() - t_phase:.1f} s")
+    return cross_launches
+
+
+def phase_internvl_full():
+    """4g: internvl2-1b at full width and depth (24 layers, 14/2 heads) in
+    bf16, 8 slots x 2048, chunk 256: phase 4's 16 requests through the
+    graphs (24 decode_attention a decode replay, 24 prefill_attention a
+    dispatch; finite logits) and eagerly, tokens identical; then
+    ``bundle.prefill`` of 8 rows of 256 patch embeddings + 256 tokens
+    (finite logits, one flash_attention a layer) and 8 decode steps."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig
+
+    c = INTERNVL
+    cfg = get_config("internvl2-1b")
+    a = cfg.attention
+    log(f"== phase 4g: {cfg.name} bfloat16 at full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {a.n_heads}/{a.n_kv_heads} heads, "
+        f"{cfg.num_params() / 1e9:.3f} B params), through the CUDA graphs, then eager")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    B, S, L = c["B"], c["Smax"], cfg.n_layers
+    scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=c["chunk"])
+    prompts, _ = dense_prompts(cfg.vocab)
+    server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64)
+    st = server.stats()
+    want = {"decode_attention": L * st["decode_steps"],
+            "prefill_attention": L * st["prefill_dispatches"], "flash_attention": 0,
+            "ssd_scan": 0, "kv_stream": 0}
+    if launches != want:
+        raise AssertionError(f"4g: launches {launches} != {want}")
+    check_logits(bundle, params, server, B)
+    ewma = server.engine.measured_step_s
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager, ereqs, _, _ = serve_requests(bundle, params, scfg, prompts, 64, eager=True)
+    same_tokens(cfg.name, reqs, ereqs)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    n_text = c["chunk"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, n_text)).astype(np.int32)).cuda()
+    patches = torch.randn(B, c["patches"], cfg.d_model, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(4)
+                          ).to(torch.bfloat16)
+    cache = bundle.init_cache(B, S, device="cuda")
+    flash_attention.launches = 0
+    with torch.no_grad():
+        logits, _ = bundle.prefill(params, {"tokens": toks, "patch_embeds": patches}, cache)
+        n_pre = flash_attention.launches
+        seq = []
+        for i in range(8):
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            seq.append(tok)
+            lengths = torch.full((B,), c["patches"] + n_text + i, dtype=torch.int32,
+                                 device="cuda")
+            logits, _ = bundle.decode_step(params, {"tokens": tok[:, None],
+                                                    "lengths": lengths}, cache)
+            if not torch.isfinite(logits).all():
+                raise AssertionError("4g: non-finite logits after the patch prefill")
+    if n_pre != L:
+        raise AssertionError(f"4g: the patch prefill launched {n_pre} flash_attention, want {L}")
+    log(f"  prefill of {B} rows x ({c['patches']} patch embeddings + {n_text} tokens): "
+        f"{n_pre} flash_attention launches, finite logits; 8 decode steps after it, tokens "
+        f"of row 0 {[int(t[0]) for t in seq]}; graphs' decode step EWMA {ewma * 1e3:.2f} ms; "
+        f"took {time.perf_counter() - t0:.1f} s")
+    del cache, params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== phase 4g took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_a7_train_full():
+    """6d: training at full width and depth in bf16 through
+    ``make_train_step``, 4 AdamW steps of 4 x 2048 tokens each:
+    seamless-m4t-medium over 1024 frame embeddings a row (no remat, as the
+    reference's encoder-decoder loss: a step launches 12 encoder + 12
+    decoder self + 12 cross attention forwards and as many backwards) and
+    internvl2-1b with 256 patch embeddings and 1792 text tokens a row
+    (remat ``full``: 2 x 24 forwards, 24 backwards); finite losses, tokens/s,
+    peak memory.  Returns, by model, the attention launches (forward,
+    backward) by use, read from the wrappers' counts by shape."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import torch_dtype
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    out = {}
+    for arch, c in (("seamless-m4t-medium", SEAMLESS), ("internvl2-1b", INTERNVL)):
+        cfg = get_config(arch)
+        bundle = ModelBundle(cfg)
+        key, F = frontend_key(bundle), cfg.frontend_tokens
+        B, S, steps = c["train_B"], c["train_S"], c["steps"]
+        text = S if bundle.encdec else S - F
+        log(f"== phase 6d: training {cfg.name} bfloat16 at full width and depth, "
+            f"{cfg.num_params() / 1e9:.3f} B params, batch {B} x ({F} {key} + {text} tokens), "
+            f"{steps} AdamW steps")
+        t_phase = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+        opt = init_opt_state(params)
+        step = make_train_step(bundle, TrainConfig(
+            remat="full", optimizer=AdamWConfig(lr=3e-4, warmup_steps=2)))
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=text, global_batch=B))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        flash_attention.by_shape.clear()
+        flash_attention_bwd.by_shape.clear()
+        losses, norms, times = [], [], []
+        for _ in range(steps):
+            batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+            batch[key] = torch.randn(B, F, cfg.d_model, generator=gen, device="cuda").to(
+                torch_dtype(cfg.dtype))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, _, metrics = step(params, opt, None, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        launches = (flash_attention.launches, flash_attention_bwd.launches)
+        L = cfg.n_layers
+        if bundle.encdec:
+            want = (steps * (cfg.n_encoder_layers + 2 * L),) * 2
+        else:
+            want = (steps * 2 * L, steps * L)
+        if launches != want:
+            raise AssertionError(f"6d {arch}: attention launches {launches} != {want}")
+        # each use by its (mask, Sq, Sk): the decoder's (or the LM's) own
+        # causal attention, the encoder's and the cross-attention
+        uses = {"self": ("causal", S, S)}
+        if bundle.encdec:
+            uses.update(encoder=("bidirectional", F, F), cross=("bidirectional", S, F))
+        by_use = {u: (flash_attention.by_shape[k], flash_attention_bwd.by_shape[k])
+                  for u, k in uses.items()}
+        if bundle.encdec:
+            want_use = {u: (steps * n,) * 2 for u, n in (
+                ("self", L), ("encoder", cfg.n_encoder_layers), ("cross", L))}
+        else:
+            want_use = {"self": want}
+        if by_use != want_use:
+            raise AssertionError(f"6d {arch}: attention launches by use {by_use} != "
+                                 f"{want_use}")
+        bad = [x for x in losses + norms if not x == x or abs(x) == float("inf")]
+        if bad:
+            raise AssertionError(f"6d {arch}: non-finite losses / grad norms {bad}")
+        steady = statistics.median(times[1:])
+        log(f"  losses {losses}; grad norms {norms}; step times "
+            f"{[round(t, 4) for t in times]} s; steady step {steady:.4f} s -> "
+            f"{B * text / steady:.1f} text tokens/s ({B * F / steady:.1f} {key} "
+            f"positions/s); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; attention launches "
+            f"forward {launches[0]}, backward {launches[1]}, by use (forward, backward) "
+            f"{by_use}; took {time.perf_counter() - t_phase:.1f} s")
+        out[arch] = by_use
+        state = [params, opt]
+
+        def one_step():
+            state[:2] = step(state[0], state[1], None, batch)[:2]
+
+        profile_window(f"6d {arch}: a training step", one_step, 1)
+        del params, opt, step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_a7_times(serve_launches, train_launches, errs):
+    """7d: ``flash_attention`` at seamless-m4t's cross-attention shapes —
+    decode (8 x 16 heads, one query against 1024 frames) and a prefill
+    chunk (256 queries) — and its encoder's (4 x 16 x 1024 x 1024,
+    forward and backward), bidirectional, bf16, past L2, beside the plain
+    version, SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    c = SEAMLESS
+    log("== phase 7d: flash_attention at seamless-m4t's cross-attention and encoder "
+        "shapes (bidirectional, head dim 64, bfloat16)")
+    dt, isz = torch.bfloat16, 2
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    H, D, Fr = c["H"], c["D"], c["frames"]
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    bidir = dict(kind="bidirectional")
+    recs = {}
+    for tag, B, Sq in (("cross-decode", c["B"], 1), ("cross-chunk", c["B"], c["chunk"]),
+                       ("encoder", c["train_B"], Fr)):
+        sets = [fa_inputs(B, H, H, Sq, Fr, D, dt, gen) for _ in range(4)]
+        fwd_in = [(q, k, v) for q, k, v, _ in sets]
+        rows_, pairs = B * H * Sq, B * H * Sq * Fr
+        rec = dict(
+            ms=time_ms(lambda q, k, v: flash_attention(q, k, v, **bidir), fwd_in),
+            plain_ms=time_ms(lambda q, k, v: ref.attention(q, k, v, **bidir), fwd_in,
+                             reps=2, iters=2),
+            library_ms=time_ms(sdpa, fwd_in),
+            bytes=rows_ * 2 * D * isz + 2 * B * H * Fr * D * isz + rows_ * 4,
+            flops=4 * pairs * D)
+        recs[("attention_fwd", tag)] = rec
+        if tag == "encoder":
+            bwd_in = []
+            for q, k, v, dout in sets[:2]:
+                o, lse = flash_attention(q, k, v, **bidir)
+                bwd_in.append((q, k, v, o, lse, dout))
+            q, k, v, dout = sets[0]
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            graph = ref.attention(*qkv, **bidir)
+            plain_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout,
+                                                            retain_graph=True),
+                                [()], reps=2, iters=1)
+            graph = sdpa(*qkv)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout,
+                                                          retain_graph=True), [()])
+            del graph, qkv
+            recs[("attention_bwd", tag)] = dict(
+                ms=time_ms(lambda *a: flash_attention_bwd(*a, **bidir), bwd_in),
+                plain_ms=plain_bwd, library_ms=lib_bwd,
+                bytes=rows_ * 4 * D * isz + 4 * B * H * Fr * D * isz + rows_ * 4,
+                flops=10 * pairs * D)
+            del bwd_in
+        del sets, fwd_in
+        torch.cuda.empty_cache()
+    _, bf16_flops_per_s, _ = peaks()
+    for (name, tag), rec in recs.items():
+        log(f"  {name} {tag}: {rec['flops'] / rec['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{rec['bytes'] / rec['ms'] / 1e6:.1f} GB/s, {rec['ms'] / rec['library_ms']:.3f} x "
+            f"SDPA's {rec['library_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms")
+    enc = train_launches["seamless-m4t-medium"]["encoder"]    # measured in 6d
+    launches = {("attention_fwd", "cross-decode"): serve_launches["decode"],
+                ("attention_fwd", "cross-chunk"): serve_launches["prefill"],
+                ("attention_fwd", "encoder"): enc[0], ("attention_bwd", "encoder"): enc[1]}
+    what = {"cross-decode": "cross, decode", "cross-chunk": "cross, prefill chunk",
+            "encoder": "encoder"}
+    return [
+        kernel_row(f"{name} (seamless-m4t {what[tag]})",
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:115" if name == "attention_fwd"
+                   else "src/repro/kernels/ops.py:66", rec, launches[(name, tag)],
+                   errs[(f"{name}_{tag}", "bfloat16")])
+        for (name, tag), rec in recs.items()
+    ]
+
+
 def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     """One entry of the ``kernels`` JSON line; logs it."""
     from repro_torch.core.hardware import SPEC_SYSTEM
@@ -4417,6 +5117,7 @@ def main() -> int:
     phase_train_parity()
     phase_ssm_train_parity()
     phase_ssm_parity()
+    phase_a7_parity()
     launches, stats, plens, server, eager, yi_tokens = phase_full()
     per_replay = {"yi-6b": copy.deepcopy(server.engine.graph_launches)}
     measured = {"graphs": server.engine.measured_step_s,
@@ -4455,6 +5156,8 @@ def main() -> int:
         )
     ]
     phase_deepseek_full()
+    cross_launches = phase_seamless_full()
+    phase_internvl_full()
     server, eager, params, ssm_launches, mamba_tokens = phase_mamba_full()
     per_replay["mamba2-780m"] = copy.deepcopy(server.engine.graph_launches)
     rows.append(phase_ssd_times({"graphs": server, "eager": eager}, ssm_launches, errs))
@@ -4467,6 +5170,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_train_times(train_launches, errs)
     rows += phase_mla_train_times(phase_mla_train_full(), errs)
+    rows += phase_a7_times(cross_launches, phase_a7_train_full(), errs)
     ssm_train_launches = phase_ssm_train_full()
     rows.append(kernel_row("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
                            "src/repro/kernels/ops.py:162", bwd_rec,

@@ -24,6 +24,7 @@ Each kernel is built with ``nvcc`` on first use.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -147,6 +148,7 @@ def flash_attention(
         )
     _build.check(status, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.by_shape[kind, Sq, Sk] += 1
     return out, lse
 
 
@@ -191,12 +193,16 @@ def flash_attention_bwd(
         )
     _build.check(status, "flash_attention")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.by_shape[kind, Sq, Sk] += 1
     return dq, dk, dv
 
 
 #: launches of the forward / backward kernels since the last reset
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+#: the same launches by (mask kind, Sq, Sk), since the last ``clear()``
+flash_attention.by_shape = collections.Counter()
+flash_attention_bwd.by_shape = collections.Counter()
 
 
 

@@ -30,6 +30,8 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.models.model_zoo import ModelBundle
+from repro_torch.models.multimodal import frontend_input_defs
+from repro_torch.models.sharding import torch_dtype
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import Supervisor, SupervisorConfig
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
@@ -86,6 +88,10 @@ def train(args: argparse.Namespace) -> dict:
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = ModelBundle(cfg)
+    text_len = args.seq if bundle.encdec else args.seq - cfg.frontend_tokens
+    if text_len <= 0:
+        raise SystemExit(f"--seq {args.seq} leaves no text after {cfg.name}'s "
+                         f"{cfg.frontend_tokens} patch positions")
     if args.calibration:
         from repro_torch.core.calibration import load_or_calibrate
 
@@ -102,7 +108,14 @@ def train(args: argparse.Namespace) -> dict:
     params, opt_state, ef = init_train_state(bundle, gen, tcfg)
     step_fn = make_train_step(bundle, tcfg)
 
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+    # a frontend model's batch also carries its stub embeddings, N(0, 1)
+    # drawn on the device, seeded by the count of steps run; a VLM's text
+    # is shorter by its patches (text_len), so that patches and text fill
+    # --seq: the batch of ModelBundle.input_defs (ROADMAP C: the
+    # reference's launcher passes no stubs)
+    front = frontend_input_defs(cfg, args.batch)
+    stub_gen = torch.Generator(device=device) if front else None
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=text_len,
                                   global_batch=args.batch))
     it = Prefetcher(data)
     ckpt = Checkpointer(args.ckpt_dir)
@@ -116,6 +129,10 @@ def train(args: argparse.Namespace) -> dict:
         # batches arrive as numpy on the prefetch thread; they move to the
         # device here, on the training thread
         batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        if front:
+            stub_gen.manual_seed(len(out["losses"]))
+            batch.update({k: torch.randn(p.shape, generator=stub_gen, device=device).to(
+                torch_dtype(cfg.dtype)) for k, p in front.items()})
         p, o, e, metrics = step_fn(state["params"], state["opt"], state["ef"], batch)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         if not (math.isfinite(loss) and math.isfinite(gnorm)):

@@ -1,20 +1,21 @@
 """Model bundle: one object per architecture, its train and serve entry points.
 
 Counterpart of ``repro/models/model_zoo.py``.  The port trains and serves
-GQA decoders whatever their attention layer codes — full (``F``),
-global (``G``), sliding-window (``L``) and chunk-local (``C``) rings, as
-gemma3 mixes them — and MLA decoders (deepseek-v2), with dense FFNs or
-GShard MoE ones (family ``"moe"``: llama4, deepseek-v2 with its dense
-lead layer), and the SSM and hybrid families whose layers are Mamba-2
-(``M``) and Zamba-style shared GQA attention (``S``): mamba2 and zamba2.
-Vision frontends and encoder-decoders (A7) raise ``NotImplementedError``
-naming the ROADMAP queue A item that ports them.
+all ten of the reference's architectures: GQA decoders whatever their
+attention layer codes — full (``F``), global (``G``), sliding-window
+(``L``) and chunk-local (``C``) rings, as gemma3 mixes them — and MLA
+decoders (deepseek-v2), with dense FFNs or GShard MoE ones (family
+``"moe"``: llama4, deepseek-v2 with its dense lead layer), the SSM and
+hybrid families whose layers are Mamba-2 (``M``) and Zamba-style shared
+GQA attention (``S``): mamba2 and zamba2; the vision-stub VLM (family
+``"vlm"``: internvl2, its patch embeddings prepended to the text), and
+the encoder-decoder (family ``"audio"``: seamless-m4t,
+:mod:`repro_torch.models.encdec`, its frame embeddings encoded).
 
 The sizing half — the bytes, flops and planner profiles of a shape — is
-pure arithmetic over the config and lives in :class:`ModelSizing`, which
-takes every config whose decode cache the port can describe (all but the
-encoder-decoder audio family), so the planner's tables can price models
-the port does not run.  :class:`ModelBundle` adds the model itself.
+pure arithmetic over the config and lives in :class:`ModelSizing`, so the
+planner's tables can price a model without building it.
+:class:`ModelBundle` adds the model itself.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig, ShapeSpec, get_config, smoke_config
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models.multimodal import frontend_embeds, frontend_input_defs
 from repro_torch.models.sharding import (
     Param,
     materialize,
@@ -43,12 +46,14 @@ class ModelSizing:
 
     cfg: ArchConfig
 
+    @property
+    def encdec(self) -> bool:
+        """An encoder-decoder (the audio family with encoder layers)."""
+        return self.cfg.family == "audio" and self.cfg.n_encoder_layers > 0
+
     def cache_defs(self, batch: int, max_len: int):
-        if self.cfg.family == "audio" and self.cfg.n_encoder_layers:
-            raise NotImplementedError(
-                f"{self.cfg.name}: encoder-decoder caches are not ported yet "
-                "(ROADMAP A7)"
-            )
+        if self.encdec:
+            return encdec_mod.encdec_cache_defs(self.cfg, batch, max_len)
         return tf_mod.lm_cache_defs(self.cfg, batch, max_len)
 
     def decode_cache_len(self, shape: ShapeSpec) -> int:
@@ -151,17 +156,11 @@ class ModelSizing:
 @dataclasses.dataclass
 class ModelBundle(ModelSizing):
     """Sizing plus the model: defs, materialization and the compute entry
-    points, for the families the port runs."""
+    points."""
 
     def __post_init__(self):
         cfg = self.cfg
         codes = set(cfg.layer_codes())
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-                "port serves dense and MoE GQA and MLA decoders, mamba2 and "
-                "zamba2 (ROADMAP queue A, A7)"
-            )
         if not codes <= set(tf_mod.LAYER_CODES):
             raise NotImplementedError(
                 f"{cfg.name}: layer pattern {cfg.layer_pattern!r} has codes "
@@ -175,20 +174,27 @@ class ModelBundle(ModelSizing):
 
     # -- defs ----------------------------------------------------------------
     def param_defs(self):
+        if self.encdec:
+            return encdec_mod.encdec_defs(self.cfg)
         return tf_mod.lm_defs(self.cfg)
 
     def input_defs(self, shape: ShapeSpec) -> dict:
-        """Batch-input defs for one (shape) cell.  The port's families
-        are text-only, so there are no frontend embeddings."""
+        """Batch-input defs for one (shape) cell.  A train or prefill batch
+        of a frontend model carries its stub embeddings too; a VLM's text
+        is ``S - frontend_tokens`` long, so that patches and text fill S."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
+        text_len = S if self.encdec else S - cfg.frontend_tokens
         toks = ("batch", "seq")
         if shape.mode == "train":
             return {
-                "tokens": Param((B, S), toks, dtype="int32"),
-                "labels": Param((B, S), toks, dtype="int32"),
+                "tokens": Param((B, text_len), toks, dtype="int32"),
+                "labels": Param((B, text_len), toks, dtype="int32"),
+                **frontend_input_defs(cfg, B),
             }
         if shape.mode == "prefill":
-            return {"tokens": Param((B, S), toks, dtype="int32")}
+            return {"tokens": Param((B, text_len), toks, dtype="int32"),
+                    **frontend_input_defs(cfg, B)}
         # decode: one new token against a cache of S entries
         return {
             "tokens": Param((B, 1), toks, dtype="int32"),
@@ -208,17 +214,31 @@ class ModelBundle(ModelSizing):
 
     # -- compute entry points ---------------------------------------------
     def train_loss(self, params, batch: dict, *, remat: str = "full"):
-        """(loss, {"ce", "aux"}) of ``batch`` (``tokens``, ``labels``)."""
+        """(loss, {"ce", "aux"}) of ``batch`` (``tokens``, ``labels`` and a
+        frontend model's ``frame_embeds`` / ``patch_embeds``).  An
+        encoder-decoder takes no ``remat``, as the reference's does not."""
+        if self.encdec:
+            return encdec_mod.encdec_train_loss(
+                params, batch["frame_embeds"], batch["tokens"],
+                batch["labels"], self.cfg,
+            )
         return tf_mod.lm_loss(
-            params, batch["tokens"], batch["labels"], self.cfg, remat=remat
+            params, batch["tokens"], batch["labels"], self.cfg,
+            extra_embeds=frontend_embeds(batch), remat=remat,
         )
 
     def prefill(self, params, batch: dict, caches, *, feed=None):
-        """Fill ``caches`` (in place) from ``batch["tokens"]`` at position 0;
-        returns (last-token logits, caches).  ``feed``: see
-        :class:`~repro_torch.models.transformer.ResidentFeed`."""
+        """Fill ``caches`` (in place) from ``batch["tokens"]`` at position 0
+        — after a VLM's ``patch_embeds``, or over an encoder-decoder's
+        encoded ``frame_embeds`` — and return (last-token logits, caches).
+        ``feed``: see :class:`~repro_torch.models.transformer.ResidentFeed`."""
+        if self.encdec:
+            return encdec_mod.encdec_prefill(
+                params, batch["frame_embeds"], batch["tokens"], caches,
+                self.cfg, feed=feed,
+            )
         return tf_mod.lm_prefill(params, batch["tokens"], caches, self.cfg,
-                                 feed=feed)
+                                 extra_embeds=frontend_embeds(batch), feed=feed)
 
     def prefill_at(self, params, batch: dict, caches, offsets, *, feed=None):
         """Chunked batched prefill at per-row cache offsets.
@@ -227,14 +247,26 @@ class ModelBundle(ModelSizing):
         ``new_lens`` (B,) — how many of the chunk's positions are real for
         each row (0 = leave the row untouched).  ``offsets`` (B,) is each
         row's current cache fill.  Returns (last-valid-position logits,
-        caches updated in place).
+        caches updated in place).  An encoder-decoder's self cache fills as
+        the LM path's does; its cross KV, read-only while generating, rides
+        through unchanged.  A VLM's chunks are text only.
         """
+        if self.encdec:
+            return encdec_mod.encdec_prefill_at(
+                params, batch["tokens"], caches, offsets, batch["new_lens"],
+                self.cfg, feed=feed,
+            )
         return tf_mod.lm_prefill_at(
             params, batch["tokens"], caches, offsets, batch["new_lens"],
             self.cfg, feed=feed,
         )
 
     def decode_step(self, params, batch: dict, caches, *, feed=None):
+        if self.encdec:
+            return encdec_mod.encdec_decode_step(
+                params, batch["tokens"], caches, batch["lengths"], self.cfg,
+                feed=feed,
+            )
         return tf_mod.lm_decode_step(
             params, batch["tokens"], caches, batch["lengths"], self.cfg,
             feed=feed,

@@ -379,24 +379,40 @@ def param_windows(cfg, params) -> list[dict]:
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def lm_forward(params, tokens, cfg: ArchConfig, *, remat: str = "none"):
-    """Training-mode forward -> (logits (B, S, vocab) f32, aux_loss)."""
-    x = apply_embed(params["embed"], tokens)
+def _embed(embed_params, tokens, extra_embeds):
+    """The token embedding, with a frontend's stub embeddings (B,
+    S_front, d) prepended in its dtype when given."""
+    x = apply_embed(embed_params, tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def lm_forward(params, tokens, cfg: ArchConfig, *, extra_embeds=None,
+               remat: str = "none"):
+    """Training-mode forward -> (logits (B, S, vocab) f32, aux_loss);
+    with ``extra_embeds`` (a VLM's patch embeddings, B x S_front x d)
+    the logits cover S_front + S_text positions."""
+    x = _embed(params["embed"], tokens, extra_embeds)
     x, aux = _run_stages_train(cfg, params, x, remat)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return apply_head(params["head"], params["embed"], x), aux
 
 
-def lm_loss(params, tokens, labels, cfg: ArchConfig, *,
+def lm_loss(params, tokens, labels, cfg: ArchConfig, *, extra_embeds=None,
             remat: str = "full", aux_weight: float = 0.01):
     """Mean next-token CE -> (loss, {"ce", "aux"}).
 
     The forward runs up to the final hidden states; head and CE are fused
     per sequence block, so the full (B, S, V) f32 logits never exist.
+    ``extra_embeds`` (B, S_front, d) go in front of the tokens and their
+    positions are dropped before the head: the labels cover the text.
     """
-    x = apply_embed(params["embed"], tokens)
+    x = _embed(params["embed"], tokens, extra_embeds)
     x, aux = _run_stages_train(cfg, params, x, remat)
     x = apply_norm(params["final_norm"], x, cfg.norm)
+    if extra_embeds is not None:
+        x = x[:, extra_embeds.shape[1]:]
     loss = fused_cross_entropy(params["head"], params["embed"], x, labels)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
@@ -407,16 +423,20 @@ def _tail_logits(cfg, feed, x):
     return apply_head(top["head"], top.get("embed"), x)[:, 0]
 
 
-def lm_prefill(params, tokens, caches, cfg: ArchConfig, *, feed=None):
+def lm_prefill(params, tokens, caches, cfg: ArchConfig, *, extra_embeds=None,
+               feed=None):
     """Fill the caches from a prompt at position 0.
 
     Returns (last-token logits (B, vocab), caches filled in place).
-    ``feed`` (default: views of ``params`` and ``caches``) supplies each
-    layer's params and cache; see :class:`ResidentFeed`.
+    ``extra_embeds`` (B, S_front, d), a VLM's patch embeddings, fill the
+    first S_front positions, the prompt the ones after them.  ``feed``
+    (default: views of ``params`` and ``caches``) supplies each layer's
+    params and cache; see :class:`ResidentFeed`.
     """
     feed = feed or ResidentFeed(params, caches)
-    feed.begin(None, tokens.shape[1])
-    x = apply_embed(feed.top("embed")["embed"], tokens)
+    front = 0 if extra_embeds is None else extra_embeds.shape[1]
+    feed.begin(None, front + tokens.shape[1])
+    x = _embed(feed.top("embed")["embed"], tokens, extra_embeds)
     lengths = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.int32,
                          device=x.device)
     x = _run_stages_step(cfg, feed, x, lengths, "prefill")

@@ -25,7 +25,17 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   straight into ``self.caches``: one cache, never copied or reallocated.
 * **Chunked batched prefill** — admission writes whole prompt chunks for
   all newly claimed slots per dispatch, so a batch of length-L prompts
-  costs O(L / prefill_chunk) dispatches.
+  costs O(L / prefill_chunk) dispatches.  An encoder-decoder bundle
+  chunk-prefills its decoder's self cache the same way; its cross KV,
+  read-only while generating, holds what admission projected (zeros for
+  the token-only prompts the ``Server`` takes).  A bundle whose
+  ``prefill_at`` raises ``NotImplementedError`` (found where the prefill
+  step first runs: its warm-up before capture on a card, its first
+  dispatch eagerly; ``supports_chunked_prefill``) is admitted by
+  **decode-step replay**
+  instead: each prompt token through the full-batch decode step (the
+  decode graph's replay on a card; no prefill graph is captured), O(B·L)
+  steps, warned once and counted in ``counters["decode_replay_prefills"]``.
 * **On-device serve state** — sampling and stop detection run on the
   device; the only per-step device→host traffic is one packed ``(2, B)``
   next-token/stopped vector, fetched once into a pinned buffer.
@@ -48,7 +58,10 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   (``kernels/kv_stream.py``; in a prefill dispatch on a write-back stream
   of its own), an ``M`` layer's state whole, one copy a leaf.  Under
   ``hbm_resident`` the steps take views of the resident trees and launch
-  and copy exactly what they did before placement was realized.
+  and copy exactly what they did before placement was realized.  A
+  streamed placement of an encoder-decoder bundle raises
+  ``NotImplementedError`` (ROADMAP A7b): its cross windows are not cut
+  for ``HostStream``; its RESIDENT host placements serve.
 
 * **Slot extract/insert** — preemption's device half: a victim's rows
   (``leaf[:, i]`` of every cache leaf: an ``F``/``S`` layer's KV, an ``M``
@@ -74,9 +87,8 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   copy (host-side checks; an injected stall sleeps inside the timed
   decode, where the watchdog sees it).
 
-Left out, each named in ROADMAP: the decode-step replay admission of a
-bundle without chunked prefill (``decode_replay_prefills``, A7) and the
-donation audit (``verify_donation``, A12).
+Left out, each named in ROADMAP: host streaming of an encoder-decoder
+bundle (A7b) and the donation audit (``verify_donation``, A12).
 """
 
 from __future__ import annotations
@@ -103,21 +115,24 @@ from repro_torch.core.placement import (
     mapped_tree,
     parse_policy,
 )
+from repro_torch.core.warnings_registry import mark
 from repro_torch.kernels.decode_attention import flash_decode
-from repro_torch.kernels.flash_attention import flash_prefill
+from repro_torch.kernels.flash_attention import flash_attention, flash_prefill
 from repro_torch.kernels.kv_stream import kv_write_back
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.sharding import tree_leaves, tree_map
 from repro_torch.runtime.retry import MIGRATION_RETRY, retry_call
 from repro_torch.serve import sampling as sampling_mod
-from repro_torch.serve.state import DeviceState, Uploader
+from repro_torch.serve.state import DeviceState, SlotTable, Uploader
 
 log = logging.getLogger("repro_torch.serve.engine")
 
 #: the kernel wrappers a serving step may launch, by kernel name
+#: (``flash_attention``: an encoder-decoder's cross-attention)
 KERNELS = {"decode_attention": flash_decode, "prefill_attention": flash_prefill,
-           "ssd_scan": ssd_scan, "kv_stream": kv_write_back}
+           "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+           "kv_stream": kv_write_back}
 #: eager runs on a side stream before a capture (PyTorch's CUDA-graph notes)
 WARMUP_RUNS = 3
 
@@ -305,9 +320,12 @@ class Executor:
             "decode_tokens": 0, "decode_s": 0.0, "decode_steps": 0,
             "decode_replays": 0, "prefill_replays": 0, "captures": 0,
             "replans": 0, "migrations": 0, "spill_s": 0.0, "restore_s": 0.0,
-            "migration_retries": 0, "evacuations": 0,
+            "migration_retries": 0, "evacuations": 0, "decode_replay_prefills": 0,
         }
         self.graphed = self.device.type == "cuda" and not eager
+        #: False once the bundle's ``prefill_at`` raised NotImplementedError
+        #: (admission then replays the decode step)
+        self.supports_chunked_prefill = True
         #: per graph, the kernel launches one replay makes (counted while
         #: capturing: the wrappers' counters tick at capture, not replay)
         self.graph_launches: dict[str, dict[str, int]] = {}
@@ -374,6 +392,11 @@ class Executor:
         fallback to the eager path."""
         stream_params = self.runtime.streamed(Role.PARAMS)
         stream_kv = self.runtime.streamed(Role.KV_CACHE)
+        if (stream_params or stream_kv) and self.bundle.encdec:
+            raise NotImplementedError(
+                f"{self.bundle.cfg.name}: policy {self.policy.name!r} streams a role "
+                "of an encoder-decoder from host memory, which is not ported yet "
+                "(ROADMAP A7b); its RESIDENT host placements serve")
         #: the layer feed of the steps (None: views of resident trees)
         self.feed = (PlacedFeed(self.bundle.cfg, self.params, self.caches,
                                 stream_params=stream_params, stream_kv=stream_kv,
@@ -389,7 +412,13 @@ class Executor:
         self._graphs, self.graph_launches = {}, {}
         restore = self._snapshot() if live else None
         self._graphs["decode"] = self._capture("decode", self._decode_step, restore)
-        self._graphs["prefill"] = self._capture("prefill", self._prefill_step, restore)
+        if self.supports_chunked_prefill:
+            try:
+                self._graphs["prefill"] = self._capture("prefill", self._prefill_step,
+                                                        restore)
+            except NotImplementedError:
+                # raised by the warm-up: the decode graph admits instead
+                self.supports_chunked_prefill = False
 
     def _written(self) -> list[torch.Tensor]:
         """Every tensor a step writes that outlives it."""
@@ -509,7 +538,17 @@ class Executor:
         the prefill/decode split in the counters is honest.
         """
         t0 = time.perf_counter()
-        self._chunked_prefill(new, table)
+        if self.supports_chunked_prefill:
+            try:
+                self._chunked_prefill(new, table)
+            except NotImplementedError:
+                # eagerly the bundle refuses at its first dispatch, before
+                # any row's length advanced
+                if self.counters["prefill_dispatches"]:
+                    raise
+                self.supports_chunked_prefill = False
+        if not self.supports_chunked_prefill:
+            self._replay_prefill(new, table)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.counters["prefill_tokens"] += sum(
@@ -546,6 +585,32 @@ class Executor:
             self.dispatch_prefill(toks, new_lens, table.lengths)
             for i, _ in new:
                 table.lengths[i] += int(new_lens[i])
+
+    def _replay_prefill(self, new, table) -> None:
+        """Admission for a bundle whose ``prefill_at`` raises
+        ``NotImplementedError``: each prompt token (the last withheld, as
+        in :meth:`prefill`) through the full-batch decode step, with every
+        row inactive so no length or token advances on the device; the
+        table's ``lengths`` advance here.  O(B·L) steps, correctness only:
+        warned once, counted per admitted request.  A row the step also
+        writes at its fill position gets that slot rewritten by its own
+        next step, as in the reference."""
+        if mark(f"decode_replay:{self.bundle.cfg.name}"):
+            log.warning(
+                "%s has no chunked prefill (prefill_at raised NotImplementedError): "
+                "admission falls back to O(B*L) decode-step replay, correctness "
+                "only; counted in stats()['decode_replay_prefills']",
+                self.bundle.cfg.name)
+        self.counters["decode_replay_prefills"] += len(new)
+        B = self.cfg.batch_slots
+        idle = SlotTable(B).mirrors()
+        for i, prompt in new:
+            for t in range(len(prompt) - 1):
+                toks = np.zeros((B, 1), np.int32)
+                toks[i, 0] = prompt[t]
+                self.state.put({**idle, "tokens": toks, "lengths": table.lengths})
+                self._run("decode", self._decode_step)
+                table.lengths[i] += 1
 
     # -- preemption: slot spill / restore ---------------------------------
     def slot_bytes(self) -> int:

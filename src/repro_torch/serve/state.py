@@ -94,7 +94,11 @@ class DeviceState:
         """Copy every mirror of ``table`` into the buffers (lifecycle
         events only — steady-state decode advances the buffers on the
         device)."""
-        self._uploader.put(table.mirrors())
+        self.put(table.mirrors())
+
+    def put(self, values: dict[str, np.ndarray]) -> None:
+        """Copy host arrays into the named buffers, in place."""
+        self._uploader.put(values)
 
 
 @dataclasses.dataclass

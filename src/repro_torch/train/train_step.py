@@ -125,7 +125,10 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig):
     """Returns ``step(params, opt_state, ef, batch) -> (params, opt_state,
     ef, metrics)``.
 
-    ``batch`` holds device tensors ``tokens`` and ``labels`` (B, S).  With
+    ``batch`` holds device tensors ``tokens`` and ``labels`` (B, S), and
+    a frontend model's stub embeddings (``frame_embeds`` / ``patch_embeds``,
+    B x ``frontend_tokens`` x d), which reach ``bundle.train_loss`` as
+    they are.  With
     ``n_microbatches = n`` the batch is split into n row blocks whose f32
     grads are summed and divided by n, and the loss is their mean; the
     other metrics are the last microbatch's, as in the reference.  ``ef``

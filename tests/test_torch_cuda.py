@@ -417,6 +417,22 @@ def test_flash_attention_lse_and_dead_rows():
     assert torch.all(out[:, :, :8] == 0)       # positions -8..-1: no live key
 
 
+@requires_cuda
+def test_flash_attention_counts_launches_by_shape():
+    """Each launch adds one to its wrapper's count by (mask kind, Sq, Sk),
+    beside the total: what training reads to tell an encoder-decoder's
+    encoder, cross and self attention apart."""
+    q = _randn(1, 2, 5, 64, dtype=torch.bfloat16, seed=14)
+    k = _randn(1, 2, 7, 64, dtype=torch.bfloat16, seed=15)
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.by_shape.clear()
+    out, lse = flash_attention(q, k, k, kind="bidirectional")
+    flash_attention(q, q, q, kind="causal")
+    flash_attention_bwd(q, k, k, out, lse, torch.ones_like(out), kind="bidirectional")
+    assert flash_attention.by_shape == {("bidirectional", 5, 7): 1, ("causal", 5, 5): 1}
+    assert flash_attention_bwd.by_shape == {("bidirectional", 5, 7): 1}
+
+
 #: lengths on and around the bf16 kernels' tiles (16-row warps, 32- and 64-row
 #: tiles, 64- and 128-row blocks); each Sq meets two other Sk
 _EDGES = (1, 63, 64, 65, 127, 128, 129, 1000)
@@ -2134,3 +2150,145 @@ def test_llama4_smoke_on_card_matches_cpu():
                 "decode": {"decode_attention": 1, "prefill_attention": 3},
                 "prefill": {"prefill_attention": 4}}
     assert tokens["cuda"] == tokens["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder and VLM (ROADMAP A7): cross-attention through the
+# full-sequence kernel, bidirectional, Sq != Sk
+# ---------------------------------------------------------------------------
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk", [
+    (2, 16, 1, 1024),       # seamless decode cross: one live row of the block
+    (2, 16, 256, 1024),     # a prefill chunk's cross
+    (1, 16, 1024, 1024),    # the encoder
+    (1, 16, 37, 1000),      # ragged, off every tile
+    (1, 16, 300, 64),       # Sq > Sk: the backward's row range over every row
+])
+def test_flash_attention_cross_shapes_match_plain(B, H, Sq, Sk, dtype):
+    _attention_matches_plain(B, H, H, Sq, Sk, 64, 0, "bidirectional", {}, dtype, seed=70)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_one_query_replays_in_a_cuda_graph(dtype):
+    """ops.attention with one query against 1024 memory positions (a decode
+    step's cross-attention), captured in a CUDA graph: each replay over new
+    queries equals the eager call bit for bit."""
+    q = _randn(8, 16, 1, 64, dtype=dtype, seed=80)
+    k = _randn(8, 16, 1024, 64, dtype=dtype, seed=81)
+    v = _randn(8, 16, 1024, 64, dtype=dtype, seed=82)
+    with torch.no_grad():
+        out = ops.attention(q, k, v, kind="bidirectional")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.attention(q, k, v, kind="bidirectional")
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ops.attention(q, k, v, kind="bidirectional")
+        for seed in (83, 84):
+            q.copy_(_randn(8, 16, 1, 64, dtype=dtype, seed=seed))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, ops.attention(q, k, v, kind="bidirectional"))
+    torch.testing.assert_close(out.float(), ref.attention(q, k, v, kind="bidirectional").float(),
+                               **TOL[dtype])
+
+
+def _a7_server_tokens(tb, params, device, prompts, bundle=None, new=6):
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    p = params if device == "cpu" else tree_map(lambda t: t.cuda(), params)
+    server = Server(bundle or tb, ServeConfig(batch_slots=2, max_len=64, prefill_chunk=4), p,
+                    device=device)
+    reqs = [Request(rid=i, prompt=pr, max_new_tokens=new) for i, pr in enumerate(prompts)]
+    server.add_requests(reqs)
+    server.run_until_done(max_steps=1000)
+    assert all(r.done for r in reqs)
+    return server, [r.out_tokens for r in reqs]
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_a7_smoke_served_on_card_matches_cpu(arch):
+    """seamless-smoke and internvl2-smoke in float32 through Server on the
+    card (CUDA graphs) and on the CPU, same weights: the same greedy
+    tokens; an encoder-decoder replay launches per decoder layer one
+    self-attention kernel and one cross-attention (flash_attention)."""
+    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, tb.cfg.vocab, n).astype(np.int32) for n in (20, 9, 33, 4, 27)]
+    _, want = _a7_server_tokens(tb, params, "cpu", prompts)
+    server, got = _a7_server_tokens(tb, params, "cuda", prompts)
+    L = tb.cfg.n_layers
+    cross = {"flash_attention": L} if tb.encdec else {}
+    assert server.engine.graph_launches == {
+        "decode": {"decode_attention": L, **cross},
+        "prefill": {"prefill_attention": L, **cross}}
+    assert got == want
+
+
+@requires_cuda
+def test_replay_admission_on_card_replays_the_decode_graph():
+    """A seamless-smoke bundle whose prefill_at raises: no prefill graph is
+    captured, admission replays the decode graph, and the tokens equal
+    chunked admission's on the card."""
+
+    class NoChunk:
+        def __init__(self, inner):
+            self._inner = inner
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+        def prefill_at(self, *args, **kwargs):
+            raise NotImplementedError
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("seamless-m4t-medium"),
+                                         dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, tb.cfg.vocab, n).astype(np.int32) for n in (12, 5, 9)]
+    _, want = _a7_server_tokens(tb, params, "cuda", prompts)
+    server, got = _a7_server_tokens(tb, params, "cuda", prompts, bundle=NoChunk(tb))
+    st = server.stats()
+    assert got == want
+    assert set(server.engine.graph_launches) == {"decode"}
+    assert st["decode_replay_prefills"] == 3 and st["prefill_replays"] == 0
+    assert st["decode_replays"] == st["decode_steps"] + sum(len(p) - 1 for p in prompts)
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_a7_prefill_with_embeddings_on_card_matches_cpu(arch):
+    """bundle.prefill with nonzero frame / patch embeddings, then 6 greedy
+    decode steps, float32, card against CPU: logits close, tokens equal
+    (the cross-attention reads a nonzero memory)."""
+    tb = ModelBundle(dataclasses.replace(smoke_config(arch), dtype="float32"))
+    params = tb.init_params(torch.Generator().manual_seed(0))
+    key = "frame_embeds" if tb.encdec else "patch_embeds"
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, tb.cfg.vocab, (3, 10), generator=g),
+             key: torch.randn(3, tb.cfg.frontend_tokens, tb.cfg.d_model, generator=g)}
+    start = 10 if tb.encdec else 10 + tb.cfg.frontend_tokens
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(d), params)
+        cache = tb.init_cache(3, 64, device=d)
+        with torch.no_grad():
+            logits, _ = tb.prefill(p, {k: v.to(d) for k, v in batch.items()}, cache)
+            toks, seq = torch.argmax(logits, -1), [logits.cpu()]
+            for i in range(6):
+                lengths = torch.full((3,), start + i, dtype=torch.int32, device=d)
+                logits, _ = tb.decode_step(p, {"tokens": toks[:, None].to(torch.int32),
+                                               "lengths": lengths}, cache)
+                toks = torch.argmax(logits, -1)
+                seq.append(logits.cpu())
+        out[d] = seq
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        assert torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))

@@ -9,8 +9,7 @@ the JAX reference's, on the CPU.
   olmo-1b, granite-8b, mamba2-780m and gemma3-27b, both planners fed the
   same ``SystemSpec`` values (``port_system``), spec and calibrated;
 * the sizing half of ``ModelBundle`` equals the reference's for every
-  config the port's ``ModelBundle`` accepts (smoke and full), and
-  ``ModelSizing``'s for every config whose cache the port describes;
+  config (smoke and full), the encoder-decoder's cache bytes included;
 * ``bench_llm_inference``: the serve leg's JSON has the reference's keys,
   the analytic leg's rows equal the reference's on the reference's spec;
   ``bench_datapath_bounds``' bound rows and policy table equal the
@@ -312,23 +311,9 @@ def test_oom_report_equals_reference():
     assert pool_capacities(psys) == rPl.pool_capacities(rsys)
 
 
-def _port_accepts(cfg) -> bool:
-    try:
-        ModelBundle(cfg)
-    except NotImplementedError:
-        return False
-    return True
-
-
 def _sizing_cases():
-    cases = []
-    for arch in list_archs():
-        for smoke in (False, True):
-            cfg = smoke_config(arch) if smoke else get_config(arch)
-            if cfg.family == "audio":
-                continue
-            cases.append(pytest.param(arch, smoke, id=f"{arch}-{'smoke' if smoke else 'full'}"))
-    return cases
+    return [pytest.param(arch, smoke, id=f"{arch}-{'smoke' if smoke else 'full'}")
+            for arch in list_archs() for smoke in (False, True)]
 
 
 @pytest.mark.parametrize("arch,smoke", _sizing_cases())
@@ -336,7 +321,7 @@ def test_sizing_equals_reference(arch, smoke):
     rcfg = ref_smoke_config(arch) if smoke else ref_get_config(arch)
     pcfg = smoke_config(arch) if smoke else get_config(arch)
     rb = RefBundle(rcfg)
-    pb = ModelBundle(pcfg) if _port_accepts(pcfg) else ModelSizing(pcfg)
+    pb = ModelBundle(pcfg)
     for rshape, pshape in [(REF_SHAPES[k], SHAPES[k]) for k in REF_SHAPES] + [
             (RefShape("serve", 96, 4, "decode"), ShapeSpec("serve", 96, 4, "decode"))]:
         assert pb.decode_cache_len(pshape) == rb.decode_cache_len(rshape)
@@ -357,12 +342,19 @@ def test_sizing_equals_reference(arch, smoke):
 
 
 def test_sizing_takes_what_the_bundle_refuses():
-    cfg = get_config("internvl2-1b")          # vision frontend: refused until A7
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        ModelBundle(cfg)
-    assert ModelSizing(cfg).cache_bytes(SHAPES["decode_32k"]) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ModelSizing(get_config("seamless-m4t-medium")).cache_bytes_for(1, 8)
+    """The encoder-decoder's cache (self KV over ``max_len`` and cross KV
+    over its frames, each decoder layer) is sized as the reference sizes
+    it, by ``ModelSizing`` and by the bundle alike, at full width and at
+    the serving shape of a slot (1 x 2048: 150,994,944 bytes).  The name
+    is kept from when the bundle refused this family (before ROADMAP A7),
+    so that the test's record runs on; nothing is refused now."""
+    rb = RefBundle(ref_get_config("seamless-m4t-medium"))
+    for pb in (ModelSizing(get_config("seamless-m4t-medium")),
+               ModelBundle(get_config("seamless-m4t-medium"))):
+        for batch, max_len in ((1, 8), (3, 17), (8, 2048)):
+            assert pb.cache_bytes_for(batch, max_len) == rb.cache_bytes_for(batch, max_len)
+        assert pb.cache_bytes(SHAPES["decode_32k"]) == rb.cache_bytes(REF_SHAPES["decode_32k"])
+        assert pb.cache_bytes_for(1, 2048) == 150_994_944
 
 
 # ---------------------------------------------------------------------------

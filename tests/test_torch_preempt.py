@@ -282,15 +282,15 @@ def test_exhausted_steps_raise_serve_hang_error(olmo):
 
 
 def test_stats_keys_are_the_references(pair):
-    """Every key of the reference's ``stats()`` but the decode-step replay
-    admission's (ROADMAP A7)."""
+    """Every key of the reference's ``stats()``, the decode-step replay
+    admission's ``decode_replay_prefills`` included."""
     jb, jparams, tb, tparams = pair
     jserver = JaxServer(jb, JaxServeConfig(batch_slots=1, max_len=32), jparams)
     server = _port(tb, tparams, batch_slots=1, max_len=32)
     for s, cls in ((jserver, JaxRequest), (server, Request)):
         s.add_request(cls(rid=0, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=6))
         s.run_until_done(100)
-    want = set(jserver.stats()) - {"decode_replay_prefills"}
+    want = set(jserver.stats())
     got = server.stats()
     assert want <= set(got), want - set(got)
     assert got["decode_tokens"] == jserver.stats()["decode_tokens"] == 6
