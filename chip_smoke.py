@@ -247,7 +247,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    4, the firing record printed; (e) (a)'s workload through the asyncio
    ``Scheduler``, tokens identical; (f) ``bench_llm_inference``'s queued
    leg at smoke scale, its p50/p99.  Every serving phase's step watchdog
-   runs at its default and must take no action but ``ok``.
+   runs at its default and must take no action but ``ok``;
+12. the data-movement audit (ROADMAP A12).  (a) ``Runtime.audit`` with the
+   profiler over one decode replay and one prefill replay of phase 4's
+   yi-6b server (``hbm_resident``, 8 slots x 2048) and of phase 10b's
+   ``kv_host`` and ``weights_stream`` servers, run where those servers are
+   alive (after 4's profiles, inside 10b's loop): each report's in-place
+   leaves, H2D and D2H bytes from the card's copy records against the
+   allowance, and violations, every report ``ok``; ``kv_host``'s H2D
+   bytes those of its windows, as 10b checks them; the build's own
+   audits (decode and prefill, on its last warm-ups) ``ok``; (b) the
+   gate, ``python -m repro_torch.tools.audit --lint --selftest
+   --transfer-audit --out build/audit_report.json``, exit 0, its decode
+   and prefill replays and its restore profiled and ``ok``; (c) the
+   roofline of yi-6b's decode step at full width and depth counted on
+   ``meta`` at phase 4's shape (8 x 2048): FLOPs, counted bytes (a
+   diagnostic), ``model_bytes``, the bound (its memory term priced on
+   ``model_bytes``, the must-move floor) beside phase 4's measured step
+   EWMA (information only); (d) the dry run, host only on ``meta``, of
+   yi-6b's cells (the whole ``--all`` sweep takes minutes of host time),
+   its wall time and its ok / skipped / failed counts.
 
 The last three lines are the ``kernels`` JSON record, ``nvidia-smi``'s
 name and power limit, and the device JSON.
@@ -685,7 +704,8 @@ def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False):
     counts are reset just before the server is built, so its warm-up and
     capture belong to the run.  Returns (server, requests, wall seconds,
     launches): for a graphed server each kernel's launches per replay x
-    the replays of its graph, for an eager one the wrappers' counts."""
+    the replays of its graph, for an eager one the wrappers' counts; the
+    build's audits of its decode and prefill steps must be ``ok``."""
     import torch
     from repro_torch.serve import Request, Server
     from repro_torch.serve.engine import KERNELS
@@ -705,6 +725,11 @@ def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     eng, c = server.engine, server.engine.counters
+    bad = {k: [str(v) for v in r.violations] for k, r in eng.audit_reports.items()
+           if not r.ok}
+    steps = {"decode", "prefill"} if eng.supports_chunked_prefill else {"decode"}
+    if bad or not steps <= set(eng.audit_reports):
+        raise AssertionError(f"the build's movement audit: {bad or eng.audit_reports}")
     vocab = bundle.cfg.vocab
     for r in reqs:
         if not r.done or len(r.out_tokens) != new_tokens:
@@ -1327,7 +1352,7 @@ def phase_llama4_full(plens):
     for i in range(B):
         # room for every retake of the profiler window (4 steps each)
         server.submit(rng.integers(0, cfg.vocab, 1024),
-                      max_new_tokens=4 * TRACE_ATTEMPTS + 5, rid=100 + i)
+                      max_new_tokens=4 * trace_attempts() + 5, rid=100 + i)
     server.step()
     server.step()
     dec = profile_window("4d (d) graphs: decode step at 8 x ~1030 cached tokens",
@@ -1584,7 +1609,7 @@ def phase_deepseek_full():
     rng = np.random.default_rng(1)
     for i in range(B):
         server.submit(rng.integers(0, cfg.vocab, 1024),
-                      max_new_tokens=4 * TRACE_ATTEMPTS + 5, rid=100 + i)
+                      max_new_tokens=4 * trace_attempts() + 5, rid=100 + i)
     server.step()
     server.step()
     dec = profile_window("4e (d) graphs: decode step at 8 x ~1030 cached tokens",
@@ -1806,7 +1831,7 @@ def profile_decode(servers, steps=4):
         rng = np.random.default_rng(1)
         for i in range(server.cfg.batch_slots):
             server.submit(rng.integers(0, server.bundle.cfg.vocab, 1024),
-                          max_new_tokens=steps * TRACE_ATTEMPTS + 5, rid=100 + i)
+                          max_new_tokens=steps * trace_attempts() + 5, rid=100 + i)
         server.step()                       # admission + first decode
         server.step()
         profile_window(f"{label}: decode step at 8 x ~1030 cached tokens", server.step,
@@ -3376,79 +3401,24 @@ def phase_kv_stream_kernel():
     return rec, err
 
 
-#: spin kernels a traced window runs before the call it measures: a
-#: retake after a window that lost them all runs 8 times as many, up to
-#: TRACE_MAX_SPINS, and the count that worked stays for the later windows
-#: of the process (late in a long process the tracer dropped the first ~83
-#: kernel records of every window on the H100: without it each window
-#: would be taken twice)
-TRACE_LEAD_SPINS = 20
-#: the most leading spins a window runs (1280: ~6 ms of spins)
-TRACE_MAX_SPINS = 1280
-#: profiler windows traced_window takes before it gives up
-TRACE_ATTEMPTS = 5
+def trace_attempts():
+    """Profiler windows a traced window takes before it gives up."""
+    from repro_torch.analysis import transfer_audit
+
+    return transfer_audit.TRACE_ATTEMPTS
 
 
 def traced_window(label, fn):
-    """The card's own records of one call of ``fn`` (``torch.profiler``,
-    CUDA activity only: kernels and copies as chrome-trace events, times
-    in us) and its wall seconds.
+    """The card's own records of one call of ``fn`` and its wall seconds:
+    :func:`repro_torch.analysis.transfer_audit.traced_window`, the one
+    implementation the package's transfer audit reads too (spin kernels
+    lead the window and only what follows the last of them counts; a
+    window that lost them, or the call's kernels, is taken again with 8x
+    the spins, up to ``trace_attempts()`` times), its retakes logged
+    here."""
+    from repro_torch.analysis.transfer_audit import traced_window as window
 
-    The tracer loses the first records of a window (on the card: the
-    first two or three copies of a step, whatever precedes them in the
-    process; late in a long process, the first ~83 kernel records).  So
-    the window opens with ``TRACE_LEAD_SPINS`` spin kernels (8 times as
-    many on each retake after a window that kept fewer than two, at most
-    ``TRACE_MAX_SPINS``; a count that worked is kept from then on in the
-    process), then the call, then one more spin, and
-    only the records between the last leading spin and the closing one
-    are returned.  A window with fewer spins than that, or with no
-    kernel between them (the tracer dropped the call's records: every
-    call measured here launches kernels), is taken again, up to
-    TRACE_ATTEMPTS times, each retake after an empty profiler window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    global TRACE_LEAD_SPINS
-    path = ROOT / "build" / "trace-window.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    lead = TRACE_LEAD_SPINS
-    for attempt in range(TRACE_ATTEMPTS):
-        if attempt:
-            with profile(activities=[ProfilerActivity.CUDA]):
-                torch.cuda._sleep(1000)
-                torch.cuda.synchronize()
-            time.sleep(0.5)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(lead):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-        path.unlink()
-        spins = sorted(e["ts"] for e in events
-                       if e.get("cat") == "kernel" and "spin" in e.get("name", ""))
-        if len(spins) >= 2:
-            lo, hi = spins[-2], spins[-1]
-            inside = [e for e in events if lo < e.get("ts", lo) < hi]
-            if any(e.get("cat") == "kernel" for e in inside):
-                TRACE_LEAD_SPINS = lead
-                return inside, wall
-            log(f"  ({label}: the profiler kept its markers but no kernel of the call; "
-                "taken again)")
-        else:
-            n_kernels = sum(e.get("cat") == "kernel" for e in events)
-            lead = min(8 * lead, TRACE_MAX_SPINS)
-            log(f"  ({label}: the profiler kept {len(spins)} of its spin markers and "
-                f"{n_kernels} kernel records; taken again with {lead} leading)")
-    raise AssertionError(f"{label}: {TRACE_ATTEMPTS} profiler windows without the "
-                         "call's records")
+    return window(label, fn, log=log)
 
 
 def replay_traffic(label, fn):
@@ -3532,6 +3502,42 @@ def mapped_read_rate():
     from repro_torch.core.hardware import MemoryTier
 
     return read_bound(MemoryTier.HOST, cal_system()).bandwidth
+
+
+def audit_replays(label, server):
+    """12a: ``Runtime.audit`` with the profiler over one decode replay (the
+    packed fetch included) and one prefill replay (8 rows x 256 new tokens
+    at fills 0..1792, staged before the window) of a graphed server: the
+    card's copy records held to the placement's allowance.  Logs each
+    report, with the build's own audits; every report must be ``ok`` and
+    read from the card's trace.  Returns the replays' reports."""
+    import numpy as np
+    import torch
+
+    eng = server.engine
+    B, C = eng.cfg.batch_slots, eng.cfg.prefill_chunk
+    reports = {"decode": eng.audit_dispatch("decode")}
+    eng.stage_prefill(np.ones((B, C), np.int32), np.full(B, C, np.int32),
+                      np.arange(0, B * 256, 256, dtype=np.int32))
+    torch.cuda.synchronize()
+    reports["prefill"] = eng.audit_dispatch("prefill")
+    build = ", ".join(f"{k} {r.donation_materialized}/{r.donation_expected} in place "
+                      f"{'ok' if r.ok else 'FAILED'}" for k, r in eng.audit_reports.items())
+    log(f"  12a {label}: the build's audits: {build}")
+    failed = []
+    for name, rep in reports.items():
+        allow = eng.audit_allowance(name)
+        by_dir = rep.bytes_by_direction()
+        log(f"  12a {label} {name} replay: in place {rep.donation_materialized}/"
+            f"{rep.donation_expected} cache leaves; H2D {by_dir.get('HtoD', 0):.0f} + D2H "
+            f"{by_dir.get('DtoH', 0):.0f} bytes in {len(rep.transfers)} copy records, "
+            f"allowance {allow:.0f}; violations "
+            f"{[f'{v.kind} {v.op} {v.nbytes:.0f}' for v in rep.violations] or 'none'}")
+        if not rep.ok or not rep.profiled:
+            failed.append(f"{name}: {json.dumps(rep.to_json())[:2000]}")
+    if failed:
+        raise AssertionError(f"12a {label}:\n" + "\n".join(failed))
+    return reports
 
 
 def in_place_bytes(eng):
@@ -3639,9 +3645,8 @@ def phase_placed_serving():
         eng.state["lengths"].zero_()[:len(ends)].copy_(torch.tensor(ends))
         reads = in_place_bytes(eng)
         dec = replay_traffic(f"{name} decode", eng.decode)
-        eng._prefill_up.put({"tokens": np.ones((B, y["chunk"]), np.int32),
-                             "new_lens": np.full(B, y["chunk"], np.int32),
-                             "offsets": np.arange(0, B * 256, 256, dtype=np.int32)})
+        eng.stage_prefill(np.ones((B, y["chunk"]), np.int32), np.full(B, y["chunk"], np.int32),
+                          np.arange(0, B * 256, 256, dtype=np.int32))
         torch.cuda.synchronize()
         pre = replay_traffic(f"{name} prefill", eng._graphs["prefill"].replay)
         expect = eng.feed.h2d_bytes() if eng.feed is not None else 0
@@ -3698,6 +3703,16 @@ def phase_placed_serving():
         log(f"  {name}: prefill replay {pre['wall_ms']:.2f} ms wall; H2D {pre['h2d']} bytes, "
             f"D2H memcpy {pre['d2h']}, write-back {wb_pre} bytes; {pre['kernels']} kernels, "
             f"{pre['copies']} copies; launches per replay {eng.graph_launches}")
+        if pol in ("kv_host", "weights_stream"):
+            # 12a, where this server is alive: the audit's own windows
+            for label, rep in audit_replays(f"yi-6b {name} (phase 10b)", server).items():
+                h2d = rep.bytes_by_direction().get("HtoD", 0.0)
+                tr = dec if label == "decode" else pre
+                log(f"  12a {name} {label}: H2D {h2d:.0f} bytes, the windows hold {expect}, "
+                    f"10b's window read {tr['h2d']}")
+                if pol == "kv_host" and abs(h2d - expect) > 0.02 * max(expect, 1):
+                    failed.append(f"12a {name} {label}: H2D {h2d} bytes, expected the "
+                                  f"windows' {expect}")
         if pol == "kv_host":
             eager, ereqs, _, _ = serve_requests(bundle, params, scfg, prompts[:2], new,
                                                 eager=True)
@@ -3901,9 +3916,8 @@ def phase_ssm_placed_serving():
             dec = None        # hbm_resident has no host role and no window: not traced
             if pol != "hbm_resident":
                 dec = replay_traffic(f"{cfg.name} {name} decode", eng.decode)
-                eng._prefill_up.put({"tokens": np.ones((B, C), np.int32),
-                                     "new_lens": np.full(B, C, np.int32),
-                                     "offsets": np.arange(0, B * C, C, dtype=np.int32)})
+                eng.stage_prefill(np.ones((B, C), np.int32), np.full(B, C, np.int32),
+                                  np.arange(0, B * C, C, dtype=np.int32))
                 torch.cuda.synchronize()
                 pre = replay_traffic(f"{cfg.name} {name} prefill",
                                      eng._graphs["prefill"].replay)
@@ -4728,7 +4742,7 @@ def phase_seamless_full():
     rng = np.random.default_rng(1)
     for i in range(B):
         server.submit(rng.integers(0, cfg.vocab, 1024),
-                      max_new_tokens=4 * TRACE_ATTEMPTS + 5, rid=100 + i)
+                      max_new_tokens=4 * trace_attempts() + 5, rid=100 + i)
     server.step()
     server.step()
     dec = profile_window("4f (d) graphs: decode step at 8 x ~1030 cached tokens",
@@ -5066,6 +5080,83 @@ def phase_a7_times(serve_launches, train_launches, errs):
     ]
 
 
+def phase_audit(yi_ewma_s):
+    """12 (b)-(d): the gate in a process of its own (exit 0), the roofline
+    of yi-6b's served decode step counted on ``meta`` beside phase 4's
+    measured step EWMA, and the dry run of yi-6b's cells (host only)."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.core.roofline import report_from_step
+    from repro_torch.launch.dryrun import input_specs
+
+    log("== phase 12: the audit gate, the served step's roofline, the dry run")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = ROOT / "build" / "audit_report.json"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.tools.audit", "--lint", "--selftest",
+         "--transfer-audit", "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    for line in res.stdout.splitlines():
+        log(f"  12b | {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"12b: the gate exited {res.returncode}:\n{res.stderr[-4000:]}")
+    report = json.loads(out.read_text())
+    execs = report["transfer_audit"]["executables"]
+    if not report["transfer_audit"]["device"].startswith("cuda"):
+        raise AssertionError(f"12b: the gate audited on {report['transfer_audit']['device']}")
+    for name in ("replay:decode", "replay:prefill", "restore:insert"):
+        if not (execs[name]["ok"] and execs[name]["profiled"]):
+            raise AssertionError(f"12b: {name} {execs[name]}")
+    checks = report["selftest"]["checks"]
+    log(f"  12b: the gate exited 0 in {time.perf_counter() - t0:.1f} s: lint "
+        f"{report['lint']['files']} files, {len(report['lint']['violations'])} violations; "
+        f"selftest {sum(checks.values())}/{len(checks)} injected cases caught; "
+        f"{len(execs)} transfer reports ok (D2H of the decode replay "
+        f"{execs['replay:decode']['bytes_by_direction'].get('DtoH', 0):.0f} bytes)")
+
+    shape = ShapeSpec("serve", YI["Smax"], YI["B"], "decode")
+    t0 = time.perf_counter()
+    bundle, specs = input_specs("yi-6b", shape)
+
+    def step(params, batch, caches):
+        with torch.no_grad():
+            return bundle.decode_step(params, batch, caches)
+
+    rep, cost = report_from_step(step, specs["params"], specs["batch"], specs["caches"],
+                                 arch="yi-6b", shape="decode 8 x 2048",
+                                 model_flops=bundle.model_flops(shape),
+                                 model_bytes=bundle.model_bytes(shape), system=SPEC_SYSTEM)
+    log(f"  12c yi-6b decode step at full width and depth, 8 x 2048, counted on meta in "
+        f"{time.perf_counter() - t0:.1f} s ({cost.instruction_count:.0f} ops): "
+        f"{cost.flops:.6g} FLOPs, {cost.hbm_bytes:.6g} bytes counted (per aten op, unfused: "
+        f"a diagnostic), model_bytes {rep.model_bytes:.6g} (the must-move floor); "
+        f"bound_step_s {rep.bound_step_s * 1e3:.4f} ms ({rep.dominant}: memory "
+        f"{rep.memory_s * 1e3:.4f} ms at the spec sheet's "
+        f"{SPEC_SYSTEM.chip.hbm_bandwidth / 1e12:.2f} TB/s, compute "
+        f"{rep.compute_s * 1e3:.4f} ms), bw_fraction {rep.bw_fraction:.4f}; phase 4's "
+        f"measured step EWMA {yi_ewma_s * 1e3:.4f} ms = {yi_ewma_s / rep.bound_step_s:.3f} "
+        f"x the bound")
+
+    out = ROOT / "build" / "dryrun.json"
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "yi-6b", "--out",
+         str(out)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"  12d | {line}")
+    recs = json.loads(out.read_text()) if out.exists() else []
+    counts = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "failed")}
+    log(f"  12d dry run of yi-6b's cells (the whole --all sweep takes minutes of host "
+        f"time, so only yi-6b's here): {wall:.1f} s wall, {counts['ok']} ok, "
+        f"{counts['skipped']} skipped, {counts['failed']} failed")
+    if res.returncode != 0 or counts["failed"] or not counts["ok"]:
+        raise AssertionError(f"12d: the dry run exited {res.returncode}, {counts}:\n"
+                             f"{res.stderr[-4000:]}")
+
+
 def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     """One entry of the ``kernels`` JSON line; logs it."""
     from repro_torch.core.hardware import SPEC_SYSTEM
@@ -5126,6 +5217,7 @@ def main() -> int:
     servers = {"graphs": server, "eager": eager}
     profile_decode(servers)
     profile_prefill(servers)
+    audit_replays("yi-6b hbm_resident (phase 4)", server)
     del server, eager, servers
     torch.cuda.empty_cache()
     phase_granite_full()
@@ -5197,6 +5289,9 @@ def main() -> int:
     t11 = time.perf_counter()
     phase_preemption(yi_tokens, mamba_tokens, per_replay)
     log(f"== phase 11 took {time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    phase_audit(measured["graphs"])
+    log(f"== phase 12 (b)-(d) took {time.perf_counter() - t12:.1f} s")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())

@@ -34,7 +34,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless told otherwise.
 
     Raises when CUDA is asked for and no card is visible — the port never
-    falls back to the CPU in silence.
+    falls back to the CPU in silence.  ``meta`` (shapes and dtypes only,
+    nothing computed) is the dry run's device
+    (:mod:`repro_torch.launch.dryrun`).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -42,6 +44,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -27,9 +27,16 @@ check, and :meth:`Runtime.evacuate` abandons a lost tier.  On one card it
 really moves a role off a lost ``host`` tier into the card's memory,
 where the reference's ``mesh=None`` returns ``[]``.
 
-Not ported, each named in ROADMAP: ``audit`` (it reads XLA HLO; its
-counterpart is a profiler transfer audit, A12), ``rules`` (A10),
-``specs`` (shardings need a mesh, A10).
+Data-movement audit (ported with ROADMAP A12): :meth:`Runtime.audit`
+runs a step once and holds what it did against this policy — caches
+written in place, read-only and streamed roles left alone, and, with the
+profiler on a card, its host<->device copy records within the allowance
+(:mod:`repro_torch.analysis.transfer_audit`).  Where the reference reads
+a compiled module's text, its ``target`` is a step callable with its role
+trees.
+
+Not ported, each named in ROADMAP: ``rules`` (A10), ``specs`` (shardings
+need a mesh, A10).
 """
 
 from __future__ import annotations
@@ -406,6 +413,71 @@ class Runtime:
         """May a step update ``role``'s buffers in place under the current
         policy?  (A STREAM placement keeps its host copy as the source.)"""
         return donation_compatible(self.policy, parse_role(role))
+
+    # -- data-movement audit -----------------------------------------------
+    def audit(
+        self,
+        target,
+        arg_roles: Mapping[str, "Role | str"],
+        *,
+        donated: Iterable[str] = (),
+        host_bytes_allowed: float = 0.0,
+        workload=None,
+        tolerance: float = 0.5,
+        label: str = "",
+    ):
+        """Run a step once and diff its data movement against this policy.
+
+        ``target`` is a :class:`~repro_torch.analysis.transfer_audit.
+        StepTarget`: ``step()`` runs the step and returns the role trees it
+        hands back, ``trees`` maps each tree's name to the tree.  ``arg_roles`` maps those names to planner roles
+        (``{"caches": Role.KV_CACHE, "p": Role.PARAMS}``); ``donated`` names
+        the trees the step writes.  A written tree whose placement allows
+        it must come back in its own storage (else ``missed-donation``); a
+        tree whose placement streams it keeps its storage, and one the step
+        does not write stays unwritten (else ``forbidden-donation``); the
+        KV write-back into a streamed cache is the placement's own write.
+        With ``target.profile`` on a card the step runs inside a traced
+        window and its host<->device copy records beyond
+        ``host_bytes_allowed`` are ``stray-host-transfer``.  With a planner
+        ``workload``, each role's bytes are also held to its
+        ``bytes_per_role`` within ``tolerance`` (a warning).
+
+        Returns a :class:`~repro_torch.analysis.transfer_audit.AuditReport`.
+        """
+        from repro_torch.analysis.transfer_audit import (
+            ExpectedMovement,
+            RoleExpectation,
+            audit_step,
+        )
+
+        donated = set(donated)
+        plan_bytes = dict(getattr(workload, "bytes_per_role", None) or {})
+        term_by_tier = {
+            MemoryTier.HBM: "hbm",
+            MemoryTier.HOST: "pcie",
+            MemoryTier.PEER_HBM: "ici",
+            MemoryTier.PEER_HOST: "ici",
+            MemoryTier.REMOTE_HBM: "dcn",
+        }
+        roles = []
+        for root, role in arg_roles.items():
+            role = parse_role(role)
+            roles.append(RoleExpectation(
+                role=role.value,
+                arg_root=root,
+                donate=root in donated and self.donate_ok(role),
+                planner_term=term_by_tier.get(self.policy.placement(role).tier, "hbm"),
+                plan_bytes=float(plan_bytes[role]) if role in plan_bytes else None,
+                tolerance=tolerance,
+                placement_writes=root in donated and not self.donate_ok(role),
+            ))
+        expected = ExpectedMovement(
+            roles=tuple(roles),
+            host_bytes_allowed=float(host_bytes_allowed),
+            label=label or f"{self.bundle.cfg.name}:{self.policy.name}",
+        )
+        return audit_step(target, expected, self.device)
 
     # -- eviction pricing --------------------------------------------------
     def price_copy(self, nbytes: float, dst: "Placement | MemoryTier | str",

@@ -10,10 +10,12 @@ Counterpart of ``repro/core``:
 * :mod:`repro_torch.core.placement`   — per-role memory placement policies,
   and their realization on one device (pinned host arenas, ``HostStream``).
 * :mod:`repro_torch.core.planner`     — policy selection from predicted step time.
+* :mod:`repro_torch.core.op_analysis` — a step's FLOPs and bytes counted op by
+  op on ``meta`` (the reference's HLO analyzer).
+* :mod:`repro_torch.core.roofline`    — the three-term roofline of a counted step.
 
 The ``Runtime`` that owns them is :mod:`repro_torch.api`.  The donor
-tiers' realization needs a mesh (ROADMAP A10); the roofline reports read
-XLA HLO (ROADMAP A12).
+tiers' realization needs a mesh (ROADMAP A10).
 """
 
 from repro_torch.core.hardware import (  # noqa: F401

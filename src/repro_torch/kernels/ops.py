@@ -8,7 +8,10 @@ reads: the card reads pinned host memory in place.  There is no ``backend``
 knob: a CPU tensor takes the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`, a CUDA tensor takes the hand-written CUDA
 kernel, and anything else raises.  There is no fallback from the kernel
-to the plain version.
+to the plain version.  A ``meta`` tensor (the dry run's, which
+:mod:`repro_torch.core.op_analysis` counts) takes the plain version too:
+it computes nothing, so this hides no device, and a CUDA tensor still
+never takes the plain version.
 
 Gradients: on the CPU autograd differentiates the plain version, as the
 reference's ``jax.vjp`` differentiates its oracle.  On the card
@@ -42,7 +45,9 @@ from repro_torch.kernels.ssd_scan import ssd_scan_bwd as ssd_scan_bwd_kernel
 
 
 def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cpu", "cuda"):
+    """``"cuda"`` for the kernels, ``"cpu"`` or ``"meta"`` for the plain
+    version; any other device raises."""
+    if t.device.type in ("cpu", "cuda", "meta"):
         return t.device.type
     raise ValueError(f"no attention path for device {t.device}")
 

@@ -86,9 +86,24 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   runtime's :attr:`~repro_torch.api.Runtime.faults` before a replay or a
   copy (host-side checks; an injected stall sleeps inside the timed
   decode, where the watchdog sees it).
+* **Build-time movement audit** (:meth:`Executor._audit_builds`, the
+  reference's) — every build audits ``decode``, ``prefill`` and
+  ``insert`` through :meth:`~repro_torch.api.Runtime.audit`: the cache
+  comes back in its own storage, the params and a streamed source are
+  left alone.  No step runs for the audit alone: on a card the decode and
+  prefill audits run on the last warm-up before each capture; eagerly
+  (the CPU, ``eager=True``) each step's first dispatch after a build is
+  its audit, and the first restore after a build (:meth:`insert_slot`)
+  audits the insert.  The reports land in :attr:`Executor.audit_reports`;
+  under ``cfg.verify_donation`` an error raises
+  :class:`~repro_torch.analysis.transfer_audit.DonationAliasError` there.
+  The profiler's copy records are not read at a build (each replan would
+  pay a profiler start): :meth:`Executor.audit_dispatch` does that for one
+  replay or restore, for ``tools/audit.py --transfer-audit`` and
+  ``chip_smoke.py``.
 
-Left out, each named in ROADMAP: host streaming of an encoder-decoder
-bundle (A7b) and the donation audit (``verify_donation``, A12).
+Left out, named in ROADMAP: host streaming of an encoder-decoder bundle
+(A7b).
 """
 
 from __future__ import annotations
@@ -103,6 +118,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis.transfer_audit import StepTarget
 from repro_torch.api import Runtime
 from repro_torch.core.faults import TransientFault
 from repro_torch.core.hardware import MemoryTier
@@ -208,6 +224,16 @@ class PlacedFeed(tf_mod.ResidentFeed):
     def h2d_bytes(self) -> int:
         """Bytes one step copies from host memory (every window once)."""
         return sum(sum(st.window_bytes) for st in self.streams().values())
+
+    def d2h_bytes(self) -> int:
+        """Bytes one step copies back to host memory: each ``M`` layer's
+        state whole (an attention layer's rows go back through the
+        write-back kernel, which stores in place and makes no copy)."""
+        if self.kv is None:
+            return 0
+        return sum(t.numel() * t.element_size() for window in self.kv.windows
+                   for entry in window.values() if "k" not in entry
+                   for t in tree_leaves(entry))
 
     def begin(self, pos, counts) -> None:
         self._pos = self._const(0) if pos is None else pos
@@ -333,6 +359,12 @@ class Executor:
         #: every build (each replay adds its graph's ``graph_launches``)
         self.replay_launches: collections.Counter = collections.Counter()
         self._graphs: dict[str, torch.cuda.CUDAGraph] = {}
+        #: the newest build's movement audits of the steps, by step name
+        #: ("decode", "prefill", "insert"; a step's appears once it ran)
+        self.audit_reports: dict = {}
+        #: True while a movement audit runs a step (a step it runs is not
+        #: audited again inside it)
+        self._auditing = False
         #: free spill-row trees in host memory: a preemption reuses one
         #: instead of allocating (pinning) anew; emptied when the host tier
         #: is lost
@@ -352,11 +384,12 @@ class Executor:
 
     # -- the steps the graphs capture ---------------------------------------
     @torch.no_grad()
-    def _decode_step(self) -> None:
+    def _decode_step(self, handed_back: dict | None = None) -> None:
         """One decode step over every slot, reading and writing only the
-        fixed buffers and the caches."""
+        fixed buffers and the caches.  ``handed_back`` receives the caches
+        the model returned (the movement audit's in-place check)."""
         s = self.state
-        logits, _ = self.bundle.decode_step(
+        logits, caches = self.bundle.decode_step(
             self.params, {"tokens": s["tokens"], "lengths": s["lengths"]},
             self.caches, feed=self.feed,
         )
@@ -371,15 +404,20 @@ class Executor:
         s["tokens"].copy_(torch.where(active[:, None], next_tok[:, None],
                                       s["tokens"]))
         s["lengths"].add_(active.to(torch.int32))
+        if handed_back is not None:
+            handed_back["caches"] = caches
 
     @torch.no_grad()
-    def _prefill_step(self) -> None:
-        """One chunked-prefill dispatch over the fixed prefill inputs."""
+    def _prefill_step(self, handed_back: dict | None = None) -> None:
+        """One chunked-prefill dispatch over the fixed prefill inputs
+        (``handed_back``: as :meth:`_decode_step`)."""
         p = self.prefill_in
-        self.bundle.prefill_at(
+        _, caches = self.bundle.prefill_at(
             self.params, {"tokens": p["tokens"], "new_lens": p["new_lens"]},
             self.caches, p["offsets"], feed=self.feed,
         )
+        if handed_back is not None:
+            handed_back["caches"] = caches
 
     def _build_steps(self, *, live: bool = True) -> None:
         """(Re)build the steps for the trees and policy in force: the
@@ -405,6 +443,7 @@ class Executor:
         # the first decode step after a build pays set-up: the watchdog and
         # the runtime's step EWMA skip it
         self._steps_since_build = 0
+        self.audit_reports = {}
         if not self.graphed:
             return
         for graph in self._graphs.values():
@@ -419,6 +458,88 @@ class Executor:
             except NotImplementedError:
                 # raised by the warm-up: the decode graph admits instead
                 self.supports_chunked_prefill = False
+        self._audit_builds()
+
+    # -- build-time movement audit ----------------------------------------
+    def audit_allowance(self, name: str) -> float:
+        """Host<->device bytes one dispatch of ``name`` may copy: for a
+        decode or prefill step the reference's Fig. 17 budget (one ``(B,
+        1)`` token upload and one packed ``(2, B)`` fetch, ``3 · B · 4``)
+        plus what a streamed placement's windows copy each way; for an
+        insert the restored slot's bytes.  Mapped host memory read or
+        written in place makes no copy and is not counted here."""
+        if name == "insert":
+            return float(self.slot_bytes())
+        allow = 3 * self.cfg.batch_slots * 4
+        if self.feed is not None:
+            allow += self.feed.h2d_bytes() + self.feed.d2h_bytes()
+        return float(allow)
+
+    def _audit(self, name: str, step, *, profile: bool = False):
+        """:meth:`Runtime.audit` of one run of ``step(handed_back)`` (which
+        puts the caches it hands back under ``"caches"``) against the
+        policy: the cache is written, in place where its placement allows;
+        the params are only read; with ``profile`` on a card, the copies
+        within :meth:`audit_allowance`."""
+        def run() -> dict:
+            handed_back: dict = {}
+            step(handed_back)
+            return handed_back
+
+        self._auditing = True
+        try:
+            return self.runtime.audit(
+                StepTarget(run, {"p": self.params, "caches": self.caches}, profile=profile),
+                {"p": Role.PARAMS, "caches": Role.KV_CACHE}, donated={"caches"},
+                host_bytes_allowed=self.audit_allowance(name),
+                label=f"{name}:{self.bundle.cfg.name}:{self.policy.name}",
+            )
+        finally:
+            self._auditing = False
+
+    def _audit_builds(self) -> None:
+        """Hold a graphed build to the audits of its last warm-ups
+        (:meth:`_capture`; the reference's ``_audit_builds``): under
+        ``cfg.verify_donation`` an error raises ``DonationAliasError``.
+        An eager build audits each step on its first run instead
+        (:meth:`_audit_first`)."""
+        if getattr(self.cfg, "verify_donation", True):
+            for report in self.audit_reports.values():
+                report.raise_on_donation_errors()
+
+    def _audit_first(self, name: str, step) -> None:
+        """Run ``step(handed_back)`` as the build's movement audit of
+        ``name``: its report lands in :attr:`audit_reports`, and under
+        ``cfg.verify_donation`` an error raises ``DonationAliasError``."""
+        report = self._audit(name, step)
+        self.audit_reports[name] = report
+        if getattr(self.cfg, "verify_donation", True):
+            report.raise_on_donation_errors()
+
+    def audit_dispatch(self, name: str, *, profile: bool = True, slot: int = 0,
+                       rows=None):
+        """The movement audit of one more dispatch: ``"decode"`` (one step,
+        the packed fetch included), ``"prefill"`` (one dispatch of what the
+        prefill inputs hold), a graph replay on a card, or ``"insert"``
+        (:meth:`insert_slot` of ``rows`` into ``slot``).  With ``profile``
+        on a card the dispatch runs inside a traced window and its copy
+        records are held to the allowance.  Not part of a build: the tools
+        call it."""
+        if name == "decode":
+            def step(out):
+                self.decode()
+                out["caches"] = self.caches
+        elif name == "prefill":
+            def step(out):
+                self._run("prefill", self._prefill_step)
+                out["caches"] = self.caches
+        elif name == "insert":
+            def step(out):
+                self.insert_slot(slot, rows)
+                out["caches"] = self.caches
+        else:
+            raise ValueError(f"no dispatch {name!r}: decode, prefill or insert")
+        return self._audit(name, step, profile=profile)
 
     def _written(self) -> list[torch.Tensor]:
         """Every tensor a step writes that outlives it."""
@@ -440,7 +561,8 @@ class Executor:
         return restore
 
     def _capture(self, name: str, step, restore=None) -> torch.cuda.CUDAGraph:
-        """Warm ``step`` up on a side stream, then capture it.
+        """Warm ``step`` up on a side stream (the last warm-up is the
+        build's movement audit of it, :meth:`_audit`), then capture it.
 
         A new Executor warms up on its all-idle state (rows that are
         inactive or take no new tokens), which changes nothing a request
@@ -451,8 +573,10 @@ class Executor:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
+            for _ in range(WARMUP_RUNS - 1):
                 step()
+            # the last warm-up is the build's movement audit of the step
+            self.audit_reports[name] = self._audit(name, step)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         if restore is not None:
@@ -488,8 +612,11 @@ class Executor:
             self._graphs[name].replay()
             self.counters[f"{name}_replays"] += 1
             self.replay_launches.update(self.graph_launches[name])
-        else:
+        elif name in self.audit_reports or self._auditing:
             step()
+        else:
+            # an eager build's movement audit of a step is its first run
+            self._audit_first(name, step)
 
     # -- decode ------------------------------------------------------------
     def decode(self) -> tuple[np.ndarray, np.ndarray]:
@@ -504,13 +631,14 @@ class Executor:
             self.runtime.faults.check("decode")
         t0 = time.perf_counter()
         self._run("decode", self._decode_step)
-        # the one fetch per step: the packed (2, B) vector
-        if self._out_host is None:
-            out = self.out.numpy().copy()
-        else:
-            self._out_host.copy_(self.out, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            out = self._out_host.numpy().copy()
+        # the one fetch per step, the packed (2, B) vector: the serve path's
+        # one sanctioned blocking fetch (analysis.lint)
+        host = self.out
+        if self._out_host is not None:
+            host = self._out_host
+            host.copy_(self.out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()  # repro: lint-disable=blocking-transfer-in-hot-path
+        out = host.numpy().copy()  # repro: lint-disable=blocking-transfer-in-hot-path
         dt = time.perf_counter() - t0
         self.counters["decode_s"] += dt
         self.counters["decode_steps"] += 1
@@ -562,10 +690,15 @@ class Executor:
         ``new_lens[b]`` of its ``(batch_slots, prefill_chunk)`` tokens at
         cache position ``offsets[b]`` (the graph's replay on the card).
         Queued, not waited for."""
-        self._prefill_up.put({"tokens": tokens, "new_lens": new_lens,
-                              "offsets": offsets})
+        self.stage_prefill(tokens, new_lens, offsets)
         self._run("prefill", self._prefill_step)
         self.counters["prefill_dispatches"] += 1
+
+    def stage_prefill(self, tokens: np.ndarray, new_lens: np.ndarray,
+                      offsets: np.ndarray) -> None:
+        """Upload one dispatch's inputs into the fixed prefill buffers
+        (queued on the current stream), without dispatching."""
+        self._prefill_up.put({"tokens": tokens, "new_lens": new_lens, "offsets": offsets})
 
     def _chunked_prefill(self, new, table) -> None:
         chunk = self.prefill_in["tokens"].shape[1]
@@ -678,14 +811,25 @@ class Executor:
             raise RuntimeError("spilled rows in pageable host memory: a spill to host "
                                "memory must land pinned")
         self._sync()
-        for dst, src in zip(tree_leaves(self.caches), leaves):
-            dst[:, i:i + 1].copy_(src, non_blocking=True)
+        if "insert" in self.audit_reports or self._auditing:
+            self._insert_rows(i, rows)
+        else:
+            # the build's movement audit of the insert is its first restore
+            self._audit_first("insert", lambda out: out.update(
+                caches=self._insert_rows(i, rows)))
         self._sync()
         if host:
             self._spill_pool.append(rows)
         dt = time.perf_counter() - t0
         self.counters["restore_s"] += dt
         self.moves.append(("restore", "host" if host else "device", self.slot_bytes(), dt))
+
+    def _insert_rows(self, i: int, rows):
+        """Copy ``rows`` into slot ``i`` of every cache leaf, in place;
+        returns the caches."""
+        for dst, src in zip(tree_leaves(self.caches), tree_leaves(rows)):
+            dst[:, i:i + 1].copy_(src, non_blocking=True)
+        return self.caches
 
     # -- live re-placement -------------------------------------------------
     def _adopt(self, trees: dict) -> None:

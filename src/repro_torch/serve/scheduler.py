@@ -53,9 +53,13 @@ Placement: ``ServeConfig.policy`` forces a placement policy, or leaves
 the pick to the planner; the :class:`Executor` realizes it through its
 :class:`~repro_torch.api.Runtime` (``server.runtime``).
 
+``ServeConfig.verify_donation`` (ported with ROADMAP A12) raises where
+an ``Executor`` build's movement audit finds the cache copied instead of
+written in place, or the params or a streamed source written: at the
+build on a card, at the step's first run after it eagerly.
+
 Left out, each named in ROADMAP: ``adopt_spilled``, ``requeue_hook`` and
-``ServeConfig.pool`` (disaggregated serving, A13), ``verify_donation``
-(an XLA donation audit, A12) and ``rules`` (A10).
+``ServeConfig.pool`` (disaggregated serving, A13) and ``rules`` (A10).
 """
 
 from __future__ import annotations
@@ -185,6 +189,11 @@ class ServeConfig:
     #: considered — also the thrash guard: a freshly (re)admitted slot
     #: cannot be re-evicted sooner
     preempt_wait: int = 8
+    #: raise when an Executor build's movement audit finds the cache
+    #: copied instead of written in place, or the params or a streamed
+    #: source written (analysis.transfer_audit.DonationAliasError instead
+    #: of a silent cache-sized copy per dispatch)
+    verify_donation: bool = True
     #: injected-fault schedule (core.faults.FaultPlan); None = NO_FAULTS.
     #: Lives on the executor's Runtime so every site consults one plan.
     faults: FaultPlan | None = None

@@ -146,8 +146,23 @@ def test_wrappers_refuse_cpu_tensors_without_building():
     assert not _build._LIBS
 
 
+class _OnXla(torch.Tensor):
+    """A tensor that reports an ``xla`` device and computes nothing: a
+    device the port has no path for (``meta`` takes the plain version, for
+    the dry run's counts)."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=torch.float32,
+                                                   device="xla")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on a device with no path")
+
+
 def test_ops_refuse_other_devices():
-    q = torch.zeros(1, 2, 16, device="meta")
-    cache = torch.zeros(1, 2, 8, 16, device="meta")
+    q = _OnXla(1, 2, 16)
+    cache = _OnXla(1, 2, 8, 16)
     with pytest.raises(ValueError, match="no attention path"):
         tops.decode_attention(q, cache, cache, torch.ones(1, dtype=torch.int32))
