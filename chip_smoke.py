@@ -28,16 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    cross-attention against 1024 frames at its decode (8, 16, 1, 1024),
    prefill-chunk (8, 16, 256, 1024) and training (4, 16, 2048, 1024)
    shapes, its encoder (4, 16, 1024, 1024) and a ragged Sq 37 x Sk 1000;
+   phase 6f's gemma3-27b shapes in bfloat16 (2 x 32/16 heads x 2048, head
+   dim 128: sliding window 1024, and causal) and phase 6e's repro-100m
+   shape in float32 (16 x 12/4 heads x 256, head dim 64);
 3. smoke parity on the card and on the CPU from the same weights:
    yi-6b-smoke, granite-8b-smoke, llama4-maverick-smoke (GShard MoE) and
    deepseek-v2-smoke (MLA + MoE) in float32 through ``Server`` (the
    card's through its CUDA graphs; greedy tokens identical per request),
-   then olmo-1b-smoke, yi-6b-smoke, llama4-maverick-smoke and
-   deepseek-v2-smoke in float32 for 3 AdamW steps of the same batches
-   (losses, grad norms and the MoE aux loss within tolerance; the MoE
-   models' card steps each start from the CPU's state, since routing is
-   not continuous in the weights; deepseek-v2-smoke's attention runs the
-   kernels at (24, 16) padded to (32, 32)); (3c) the same for mamba2-smoke
+   then olmo-1b-smoke, yi-6b-smoke, llama4-maverick-smoke,
+   deepseek-v2-smoke and gemma3-27b-smoke in float32 for 3 AdamW steps of
+   the same batches (losses, grad norms and the MoE aux loss within
+   tolerance; the MoE models' card steps each start from the CPU's state,
+   since routing is not continuous in the weights; deepseek-v2-smoke's
+   attention runs the kernels at (24, 16) padded to (32, 32); gemma3's
+   7 ``L`` layers launch the sliding mask and its ``G`` layer the causal
+   one, counted by shape); (3c) the same for mamba2-smoke
    and zamba2-smoke (the SSD scan's forward and backward kernels,
    launches counted); (3d) seamless-m4t-smoke (encoder-decoder; its
    attention projections at 1/sqrt(fan-in), see ``scale_attention``) and
@@ -135,14 +140,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    cross forward and backward launches a step) and internvl2-1b (256
    patch embeddings + 1792 tokens a row) at full width and depth, 4 AdamW
    steps of 4 x 2048 each through ``make_train_step``: finite losses,
-   tokens/s, peak memory, a profiled step;
+   tokens/s, peak memory, a profiled step; (6e, after 6b) the end-to-end
+   trainer ``repro_torch.examples.train_e2e`` at full size: repro-100m
+   (100.07 M params, f32) for 300 steps of 16 x 256 tokens, remat full,
+   async checkpoints and the resume (the loss falls; the restored state
+   is the final one bit for bit); 2 forward and 1 backward attention
+   launches a layer a step; tokens/s, peak memory; then over the model's
+   gradients from one more batch ``quantize``/``dequantize`` (within half
+   a step, times beside the bytes they must move), and on a one-rank NCCL
+   group's ``pod`` mesh ``compressed_grad_sync`` (its inputs back), 20
+   steps with ``compress_pod_grads`` against 20 without (bit for bit) and
+   ``pipelined_forward`` against the sequential stage loop (a ``pod`` of
+   several cards cannot run on one H100; the multi-rank paths are held to
+   the reference on the CPU through gloo); (6f) gemma3-27b at full width,
+   depth 2 with pattern ``LG`` (2.235 B params), bf16, 4 AdamW steps of 2
+   x 2048, remat full: finite losses and grad norms, 2 forward and 1
+   backward attention launches a layer a step for each mask kind;
+   tokens/s, peak memory;
 7. times of the training attention kernels at the phase 6 shape, beside
    their plain versions, SDPA and their bounds, with each one's TFLOP/s,
    its fraction of the operation bound and its ratio to SDPA; (7c) the
    same at phase 6c's shape (q/k 192, v 128), naming SDPA's backend;
    (7d) ``flash_attention`` at seamless-m4t's cross-attention shapes
    (decode, prefill chunk) and its encoder's (forward and backward),
-   beside the plain version, SDPA and the bound;
+   beside the plain version, SDPA and the bound; (7e, after 6f)
+   ``flash_attention`` forward and backward at 6f's gemma3 shapes (the
+   sliding window 1024, its bound over the window's work only; the causal
+   mask) in bf16 and at 6e's repro-100m shape in f32 (bound at the f32
+   CUDA-core peak), beside the plain version, SDPA (backend named) and
+   the bound;
 8. Mamba-2 serving.  (a) the SSD scan kernel against its plain versions
    (the chunked oracle and the literal recurrence) in bfloat16 and float32
    at the mamba2-780m serving shape (B 8, T 256, H 48, P 64, N 128) with a
@@ -333,6 +359,16 @@ OLMO_TRAIN = dict(B=4, Hq=16, Hkv=16, S=2048, D=128, steps=4)
 #: + a 12288-wide MLP), batch 4 x 2048 tokens: the attention kernels at
 #: 128 heads, q/k head dim 192 (128 no-rope + 64 rope), v head dim 128
 MLA_TRAIN = dict(B=4, H=128, S=2048, D=192, Dv=128, depth=1, steps=4)
+
+#: the end-to-end trainer (phase 6e): repro-100m in float32, 300 steps of
+#: batch 16 x 256 tokens, 12/4 heads of 64, remat full
+E2E_TRAIN = dict(B=16, S=256, Hq=12, Hkv=4, D=64, steps=300, layers=12)
+
+#: gemma3-27b training at full width (phase 6f): depth 2, one sliding L
+#: layer (window 1024) and one global G layer, bf16, 4 AdamW steps of 2 x
+#: 2048 tokens, remat full; 32/16 heads of 128
+GEMMA_TRAIN = dict(B=2, S=2048, Hq=32, Hkv=16, D=128, window=1024, steps=4,
+                   pattern="LG")
 
 #: seamless-m4t-medium (ROADMAP A7): 16/16 heads of 64, 1024 frame
 #: positions; serving 8 slots x 2048, prefill chunk 256; training batch 4 x
@@ -1733,8 +1769,11 @@ def sdpa_backend(fn, inputs):
     ``inputs``: read from its kernels' names in the trace."""
     names = {}
     time_ms(fn, inputs, reps=1, iters=1, by_kernel=names)
-    top = max(names, key=names.get).lower()
-    for frag, backend in (("flash", "flash"), ("cudnn", "cuDNN"), ("fmha", "efficient"),
+    top = max(names, key=names.get)
+    log(f"  SDPA's largest kernel: {top[:120]}")
+    top = top.lower()
+    # cuDNN's fused attention kernels carry "flash" in their names too
+    for frag, backend in (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha", "efficient"),
                           ("cutlass", "efficient")):
         if frag in top:
             return backend
@@ -2068,12 +2107,20 @@ def phase_train_kernels():
     # and a ragged one, off every tile
     mla = [("mla-train", m["B"], m["H"], m["H"], m["S"], m["S"], m["D"], 0, "causal", {}),
            ("mla-ragged", 2, 16, 16, 1000, 1000, m["D"], 0, "causal", {})]
+    # phase 6f's gemma3-27b shapes (bf16: its L layers' sliding window and
+    # its G layer's causal mask) and phase 6e's repro-100m shape (f32)
+    g3, e2e = GEMMA_TRAIN, E2E_TRAIN
+    gemma = [(f"gemma3-{kind}", g3["B"], g3["Hq"], g3["Hkv"], g3["S"], g3["S"], g3["D"], 0,
+              kind, kw) for kind, kw in (("sliding", {"window": g3["window"]}),
+                                         ("causal", {}))]
+    by_dtype = {torch.float32: [("e2e-train", e2e["B"], e2e["Hq"], e2e["Hkv"], e2e["S"],
+                                 e2e["S"], e2e["D"], 0, "causal", {})],
+                torch.bfloat16: mla + gemma}
     gen = torch.Generator(device="cuda").manual_seed(3)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for tag, B, Hq, Hkv, Sq, Sk, D, q_off, kind, kw in (
-                cases + (mla if dtype == torch.bfloat16 else [])):
+        for tag, B, Hq, Hkv, Sq, Sk, D, q_off, kind, kw in cases + by_dtype[dtype]:
             Dv = m["Dv"] if tag.startswith("mla") else D
             rows = fa_live_rows(kind, kw, Sq, Sk, q_off)
             q, k, v, dout = fa_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen, rows, Dv)
@@ -2096,7 +2143,8 @@ def phase_train_kernels():
                 suffix = "_mla" if tag == "mla-train" else ""
                 errs[("attention_fwd" + suffix, dn)] = e_out
                 errs[("attention_bwd" + suffix, dn)] = e_grad
-            if tag in ("cross-decode", "cross-chunk", "encoder"):
+            if tag in ("cross-decode", "cross-chunk", "encoder", "gemma3-sliding",
+                       "gemma3-causal", "e2e-train"):
                 errs[("attention_fwd_" + tag, dn)] = e_out
                 errs[("attention_bwd_" + tag, dn)] = e_grad
             del q, k, v, dout, out, lse, grads, qkv, want, want_g
@@ -2190,7 +2238,8 @@ def phase_train_parity():
     log("== phase 3b: smoke training, float32, card against CPU (llama4-maverick-smoke and "
         "deepseek-v2-smoke: MoE, its aux loss and its AdamW updates compared too; "
         "deepseek-v2-smoke's MLA through the attention kernels at (24, 16) padded to "
-        "(32, 32))")
+        "(32, 32); gemma3-27b-smoke: its L layers through the sliding mask, its G layer "
+        "the causal one, launches counted by mask)")
     # step 1 starts from the same weights: the losses differ only by the
     # order of f32 sums.  Steps 2-3 start from weights that AdamW moved by
     # up to lr per element, and m / sqrt(v) turns a near-zero gradient's
@@ -2215,7 +2264,8 @@ def phase_train_parity():
         state[dev][:2] = [params, opt]
         return {k: float(m[k]) for k in ("loss", "grad_norm", "aux")}
 
-    for arch in ("olmo-1b", "yi-6b", "llama4-maverick-400b-a17b", "deepseek-v2-236b"):
+    for arch in ("olmo-1b", "yi-6b", "llama4-maverick-400b-a17b", "deepseek-v2-236b",
+                 "gemma3-27b"):
         cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
         bundle = ModelBundle(cfg)
         params_cpu = bundle.init_params(torch.Generator().manual_seed(0))
@@ -2231,6 +2281,8 @@ def phase_train_parity():
         res = {dev: [] for dev in ("cuda", "cpu")}
         state, gaps = fresh(params_cpu), []
         before = (flash_attention.launches, flash_attention_bwd.launches)
+        flash_attention.by_shape.clear()
+        flash_attention_bwd.by_shape.clear()
         for b in batches:
             if resync:
                 state["cuda"][:2] = [to("cuda", x) for x in state["cpu"][:2]]
@@ -2243,6 +2295,18 @@ def phase_train_parity():
         want = (2 * cfg.n_layers * 3, cfg.n_layers * 3)
         if n != want:
             raise AssertionError(f"{arch}: attention launches {n} != {want}")
+        codes = cfg.layer_codes()
+        if "L" in codes:            # the sliding (L) and causal (G) launches apart
+            by_kind = {kind: (flash_attention.by_shape[kind, 64, 64],
+                              flash_attention_bwd.by_shape[kind, 64, 64])
+                       for kind in ("sliding", "causal")}
+            want_kind = {kind: (2 * codes.count(c) * 3, codes.count(c) * 3)
+                         for kind, c in (("sliding", "L"), ("causal", "G"))}
+            if by_kind != want_kind:
+                raise AssertionError(f"{arch}: launches by mask (forward, backward) "
+                                     f"{by_kind} != {want_kind}")
+            log(f"  {arch}-smoke: attention launches by mask (forward, backward) {by_kind}"
+                f" (window {cfg.attention.window} over 64 positions)")
         lc, gc, ac = ([r[k] for r in res["cuda"]] for k in ("loss", "grad_norm", "aux"))
         lp, gp, ap = ([r[k] for r in res["cpu"]] for k in ("loss", "grad_norm", "aux"))
         for i in range(3):
@@ -2549,6 +2613,342 @@ def phase_train_times(launches, errs):
     ):
         rows.append(kernel_row(name, "src/repro_torch/csrc/flash_attention.cu",
                                replaces, rec, launches[name], errs[(name, "bfloat16")]))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# training over a pod axis (ROADMAP A8): the end-to-end trainer, compression
+# and pipelining on a one-rank mesh, ring-layer training at full width
+# ---------------------------------------------------------------------------
+
+def phase_train_e2e():
+    """6e: ``repro_torch.examples.train_e2e`` at full size on the card:
+    repro-100m (100.07 M params, f32), 300 steps of 16 x 256 tokens, remat
+    ``full``, the Supervisor's async checkpoints and the resume from the
+    last one (its state bit for bit the final one).  Then, over the
+    model's device gradients from one more batch: ``quantize`` /
+    ``dequantize`` round-trip every leaf to within half a step, timed
+    beside the bytes they must move; a one-rank NCCL group's ``pod`` mesh,
+    on which ``compressed_grad_sync`` returns its inputs, 20 steps with
+    ``compress_pod_grads=True`` give the losses of 20 without it bit for
+    bit, and ``pipelined_forward`` equals the sequential stage loop.
+    Returns the attention launches of the 300 steps."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.examples import train_e2e
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.sharding import tree_leaves
+    from repro_torch.optim import (
+        compressed_grad_sync,
+        dequantize,
+        init_error_feedback,
+        quantize,
+    )
+    from repro_torch.train import init_train_state, make_train_step, pipelined_forward
+    from repro_torch.train.train_step import loss_and_grads
+
+    e = E2E_TRAIN
+    log(f"== phase 6e: repro_torch.examples.train_e2e on the card: repro-100m float32, "
+        f"{e['steps']} steps of {e['B']} x {e['S']} tokens, remat full, async checkpoints "
+        "and a resume")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.launches = 0
+        fn.by_shape.clear()
+    out = train_e2e.train(train_e2e.parse_args(["--ckpt-dir", str(ROOT / "build" / "ckpt-e2e")]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    launches = {"attention_fwd": flash_attention.launches,
+                "attention_bwd": flash_attention_bwd.launches}
+    ran = out["steps"] + len(out["replayed"])
+    L, S = e["layers"], e["S"]
+    if out["steps"] != e["steps"] or (out["cfg"].n_layers, out["batch"], out["seq"]) != (
+            L, e["B"], S):
+        raise AssertionError(f"6e ran {out['steps']} steps of {out['cfg'].name} at "
+                             f"{out['batch']} x {out['seq']}")
+    bad = [x for x in out["losses"] if not x == x or abs(x) == float("inf")]
+    if bad:
+        raise AssertionError(f"6e: non-finite losses {bad[:5]}")
+    want = {"attention_fwd": 2 * L * ran, "attention_bwd": L * ran}
+    by_shape = (dict(flash_attention.by_shape), dict(flash_attention_bwd.by_shape))
+    if launches != want or by_shape != ({("causal", S, S): want["attention_fwd"]},
+                                        {("causal", S, S): want["attention_bwd"]}):
+        raise AssertionError(f"6e: attention launches {launches} {by_shape} != {want} "
+                             f"(2 forward and 1 backward a layer a step, causal {S} x {S})")
+    steady = statistics.median(out["step_s"][1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = out["losses"]
+    log(f"  {out['steps']} steps in {wall:.2f} s (set-up, checkpoints and the resume "
+        f"included); loss {losses[0]:.4f} -> {losses[-1]:.4f} (every 50th: "
+        f"{[round(x, 4) for x in losses[::50]]}); straggler stats {out['stragglers']}")
+    log(f"  steady step {steady:.4f} s (median after the first; first {out['step_s'][0]:.3f}"
+        f" s) -> {e['B'] * S / steady:.1f} training tokens/s; peak memory {peak:.2f} GiB; "
+        f"attention launches {launches} ({ran} steps run: {len(out['replayed'])} replayed)")
+    log(f"  resumed from the checkpoint of step {out['resumed']} ({out['ckpt_dir']}): "
+        + (f"{len(out['replayed'])} steps replayed, losses identical" if out["replayed"]
+           else "the restored state equals the final one bit for bit"))
+
+    # compression over the model's device gradients from one more batch
+    bundle, state = out["bundle"], out["state"]
+    data_cfg = DataConfig(vocab=out["cfg"].vocab, seq_len=S, global_batch=e["B"],
+                          structure=0.9)
+    data = SyntheticLM(data_cfg)
+    data.restore({"step": out["steps"], "seed": 0})
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+    _, _, grads = loss_and_grads(bundle, state["p"], batch, "full")
+    leaves = tree_leaves(grads)
+    worst = 0.0
+    for g in leaves:
+        q, s = quantize(g)
+        err = float((dequantize(q, s) - g.float()).abs().max())
+        if q.dtype != torch.int8 or not err <= 0.5 * float(s) * (1 + 2.0 ** -20):
+            raise AssertionError(f"6e: quantize round trip off by {err} at step {float(s)}")
+        worst = max(worst, err / float(s))
+    n = sum(g.numel() for g in leaves)
+    hbm, _, _ = peaks()
+    q_ms = time_ms(lambda: [quantize(g) for g in leaves], [()], reps=3, iters=3)
+    qs = [quantize(g) for g in leaves]
+    dq_ms = time_ms(lambda: [dequantize(q, s) for q, s in qs], [()], reps=3, iters=3)
+    log(f"  quantize/dequantize over {len(leaves)} gradient leaves ({n} f32 elements): "
+        f"round trip within {worst:.6f} of a step (limit 0.5); quantize {q_ms:.4f} ms "
+        f"(must move {5 * n} bytes: {5 * n / hbm * 1e3:.4f} ms at the card's memory rate), "
+        f"dequantize {dq_ms:.4f} ms (the same bytes: {5 * n / hbm * 1e3:.4f} ms)")
+    del qs
+
+    store = ROOT / "build" / "pod-store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for((1,), ("pod",))
+        ef = init_error_feedback(grads)
+        synced, new_ef = compressed_grad_sync(grads, ef, mesh)
+        if synced is not grads or new_ef is not ef:
+            raise AssertionError("6e: compressed_grad_sync on a one-rank pod changed its inputs")
+        del ef, grads, leaves
+        runs = {}
+        for compress in (False, True):
+            tcfg = dataclasses.replace(out["tcfg"], compress_pod_grads=compress)
+            params, opt, ef = init_train_state(
+                bundle, torch.Generator(device="cuda").manual_seed(0), tcfg, mesh)
+            step = make_train_step(bundle, tcfg, mesh)
+            data = SyntheticLM(data_cfg)
+            runs[compress] = []
+            for _ in range(20):
+                b = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+                params, opt, ef, m = step(params, opt, ef, b)
+                runs[compress].append(float(m["loss"]))
+            del params, opt, ef, step
+        if runs[True] != runs[False]:
+            raise AssertionError(f"6e: 20 steps with compress_pod_grads on a one-rank pod "
+                                 f"{runs[True]} != without {runs[False]}")
+        log(f"  one-rank NCCL pod mesh: compressed_grad_sync returns its inputs; 20 steps "
+            f"with compress_pod_grads=True give the losses of 20 without it bit for bit "
+            f"({runs[True][0]:.6f} -> {runs[True][-1]:.6f})")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        d = out["cfg"].d_model
+        ws = torch.randn(1, d, d, generator=g, device="cuda") * d ** -0.5
+        xs = torch.randn(4, e["B"], d, generator=g, device="cuda")
+        stage = lambda w, x: torch.tanh(x @ w)  # noqa: E731
+        y = pipelined_forward(mesh, stage, ws, xs)
+        seq = torch.stack([stage(ws[0], x) for x in xs])
+        perr = float((y - seq).abs().max())
+        if y.shape != seq.shape or perr > 1e-6:
+            raise AssertionError(f"6e: pipelined_forward off the stage loop by {perr}")
+        log(f"  pipelined_forward on the one-rank mesh (4 microbatches of {e['B']} x {d}): "
+            f"max |difference| from the sequential stage loop {perr:.3e}"
+            f"{' (bit for bit)' if torch.equal(y, seq) else ''}")
+    finally:
+        dist.destroy_process_group()
+    del out, state, bundle
+    torch.cuda.empty_cache()
+    log(f"== phase 6e took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_gemma_train_full():
+    """6f: gemma3-27b training at full width, depth 2 with pattern ``LG``
+    (one sliding-window ``L`` layer, window 1024, and one global ``G``
+    layer), bf16, 4 AdamW steps of 2 x 2048 tokens of ``SyntheticLM``
+    through ``make_train_step`` with remat ``full``.  Reductions: depth 2
+    of 62; the pattern ``LG`` in place of the first period ``LLLLLG``,
+    whose 3.887 B params need ~62 GB of params, grads and AdamW state
+    before activations.  2.235 B params (~36 GB of that state, logits
+    over a 262,144 vocabulary).  Finite losses and grad norms, exactly 2
+    forward and 1 backward attention launches a layer a step for each mask
+    kind; tokens/s and peak memory.  Returns the launches by kind."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    gt = GEMMA_TRAIN
+    B, S, steps = gt["B"], gt["S"], gt["steps"]
+    cfg = dataclasses.replace(get_config("gemma3-27b"), n_layers=len(gt["pattern"]),
+                              layer_pattern=gt["pattern"])
+    if cfg.layer_codes() != gt["pattern"] or cfg.attention.window != gt["window"]:
+        raise AssertionError(f"6f: layers {cfg.layer_codes()}, window {cfg.attention.window}")
+    log(f"== phase 6f: training {cfg.name} bfloat16 at full width, depth {cfg.n_layers} "
+        f"({cfg.layer_codes()}: sliding window {cfg.attention.window}, then global), "
+        f"{cfg.num_params() / 1e9:.3f} B params, batch {B} x {S}, remat full, {steps} AdamW "
+        "steps")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    opt = init_opt_state(params)
+    step = make_train_step(bundle, TrainConfig(
+        remat="full", optimizer=AdamWConfig(lr=3e-4, warmup_steps=2)))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B))
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.launches = 0
+        fn.by_shape.clear()
+    losses, norms, times = [], [], []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, metrics = step(params, opt, None, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    bad = [x for x in losses + norms if not x == x or abs(x) == float("inf")]
+    if bad:
+        raise AssertionError(f"6f: non-finite losses / grad norms {bad}")
+    launches = {kind: (flash_attention.by_shape[kind, S, S],
+                       flash_attention_bwd.by_shape[kind, S, S])
+                for kind in ("sliding", "causal")}
+    if launches != {"sliding": (2 * steps, steps), "causal": (2 * steps, steps)} or (
+            flash_attention.launches, flash_attention_bwd.launches) != (4 * steps, 2 * steps):
+        raise AssertionError(f"6f: attention launches by mask (forward, backward) {launches}; "
+                             "want 2 forward and 1 backward a layer a step for each")
+    steady = statistics.median(times[1:])
+    log(f"  losses {losses}; grad norms {norms}; step times {[round(t, 4) for t in times]} s;"
+        f" steady step {steady:.4f} s -> {B * S / steady:.1f} training tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; attention launches by mask "
+        f"(forward, backward) {launches}")
+    del params, opt, step
+    torch.cuda.empty_cache()
+    log(f"== phase 6f took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def sdpa_call(kind, window, gqa):
+    """One ``scaled_dot_product_attention`` call computing ``flash_attention``'s
+    function: ``is_causal`` for the causal mask, a boolean mask for the
+    sliding one (query i sees keys i - window < j <= i), the KV heads shared
+    by ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+
+    masks = {}
+
+    def call(q, k, v):
+        kw = {"enable_gqa": True} if gqa else {}
+        if kind == "causal":
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, **kw)
+        S = q.shape[2]
+        if S not in masks:
+            i = torch.arange(S, device=q.device)
+            masks[S] = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=masks[S], **kw)
+
+    return call
+
+
+def phase_pod_train_times(e2e_launches, gemma_launches, errs):
+    """7e: ``flash_attention`` forward and backward at phase 6f's gemma3
+    shapes (2 x 32 heads x 2048, 16 KV heads, head dim 128, bf16: the
+    ``L`` layer's sliding window 1024 and the ``G`` layer's causal mask)
+    and phase 6e's repro-100m shape (16 x 12 heads x 256, 4 KV heads,
+    head dim 64, f32), beside the plain version, SDPA (its backend named)
+    and the bound: the sliding row's work is the window's only, and the
+    f32 row's operation bound is at the f32 CUDA-core peak."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    g3, e2e = GEMMA_TRAIN, E2E_TRAIN
+    cases = [
+        ("gemma3-27b L, sliding window 1024", "gemma3-sliding", torch.bfloat16, g3,
+         "sliding", g3["window"], gemma_launches["sliding"]),
+        ("gemma3-27b G, causal", "gemma3-causal", torch.bfloat16, g3, "causal", 0,
+         gemma_launches["causal"]),
+        ("repro-100m, float32", "e2e-train", torch.float32, e2e, "causal", 0,
+         (e2e_launches["attention_fwd"], e2e_launches["attention_bwd"])),
+    ]
+    rows = []
+    for label, tag, dt, c, kind, window, (n_fwd, n_bwd) in cases:
+        B, Hq, Hkv, S, D = c["B"], c["Hq"], c["Hkv"], c["S"], c["D"]
+        dn = str(dt).split(".")[-1]
+        log(f"== phase 7e: training attention times, {label} ({B}, {Hq}/{Hkv}, {S}, {D}) {dn}")
+        isz = dt.itemsize
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        per_set = (3 * Hq + 2 * Hkv) * B * S * D * isz
+        sets = [fa_inputs(B, Hq, Hkv, S, S, D, dt, gen)
+                for _ in range(max(2, -(-150 * 2**20 // per_set)))]       # past the L2
+        mask = dict(kind=kind, window=window) if kind == "sliding" else dict(kind=kind)
+        fwd_in = [(q, k, v) for q, k, v, _ in sets]
+        sdpa = sdpa_call(kind, window, Hq != Hkv)
+        backend = sdpa_backend(sdpa, fwd_in)
+        fwd = dict(
+            ms=time_ms(lambda q, k, v: flash_attention(q, k, v, **mask), fwd_in),
+            plain_ms=time_ms(lambda q, k, v: ref.attention(q, k, v, **mask), fwd_in,
+                             reps=2, iters=2),
+            library_ms=time_ms(sdpa, fwd_in, reps=2, iters=4),
+        )
+        bwd_in = []
+        for q, k, v, dout in sets:
+            out, lse = flash_attention(q, k, v, **mask)
+            bwd_in.append((q, k, v, out, lse, dout))
+        bwd_ms = time_ms(lambda *a: flash_attention_bwd(*a, **mask), bwd_in)
+        q, k, v, dout = sets[0]
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        graph = ref.attention(*qkv, **mask)
+        plain_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout, retain_graph=True),
+                            [()], reps=2, iters=1)
+        del graph
+        graph = sdpa(*qkv)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(graph, qkv, dout, retain_graph=True),
+                          [()], reps=2, iters=1)
+        del graph, bwd_in, sets, fwd_in, qkv, q, k, v, dout
+        torch.cuda.empty_cache()
+        live = torch.arange(S, dtype=torch.float64) + 1                  # keys a query row sees
+        if kind == "sliding":
+            live = live.clamp(max=window)
+        pairs = int(B * Hq * live.sum())
+        qb, kvb = B * Hq * S * D * isz, B * Hkv * S * D * isz
+        fwd.update(bytes=2 * qb + 2 * kvb + B * Hq * S * 4, flops=4 * D * pairs, dtype=dn)
+        bwd = dict(ms=bwd_ms, plain_ms=plain_bwd, library_ms=lib_bwd, dtype=dn,
+                   bytes=4 * qb + 4 * kvb + B * Hq * S * 4, flops=10 * D * pairs)
+        hbm, bf16_peak, f32_peak = peaks()
+        peak = bf16_peak if dt == torch.bfloat16 else f32_peak
+        for name, rec in (("forward", fwd), ("backward", bwd)):
+            log(f"  {name}: {rec['flops'] / rec['ms'] / 1e9:.1f} TFLOP/s ({rec['flops']} flops "
+                f"over the {'window' if kind == 'sliding' else 'causal triangle'} in "
+                f"{rec['ms']:.4f} ms), {rec['flops'] / peak * 1e3 / rec['ms']:.3f} of the "
+                f"{dn} operation bound, {rec['ms'] / rec['library_ms']:.3f} x SDPA's "
+                f"{rec['library_ms']:.4f} ms (backend {backend}); plain {rec['plain_ms']:.4f} ms")
+        rows += [
+            kernel_row(f"{name} ({label})", "src/repro_torch/csrc/flash_attention.cu",
+                       replaces, rec, n, errs[(f"{name}_{tag}", dn)])
+            for name, rec, replaces, n in (
+                ("attention_fwd", fwd, "src/repro/kernels/flash_attention.py:115", n_fwd),
+                ("attention_bwd", bwd, "src/repro/kernels/ops.py:66", n_bwd),
+            )
+        ]
     return rows
 
 
@@ -5165,7 +5565,11 @@ def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     t_bytes = rec["bytes"] / hbm_bytes_per_s * 1e3
     if rec.get("pcie_bytes"):       # bytes that must cross PCIe to the host
         t_bytes = max(t_bytes, rec["pcie_bytes"] / SPEC_SYSTEM.chip.pcie_bandwidth * 1e3)
-    t_ops = rec["flops"] / bf16_flops_per_s * 1e3
+    # the operation bound at the peak of the row's type: the bf16 tensor
+    # cores unless the record is a float32 kernel's (its FMAs run on the
+    # CUDA cores)
+    t_ops = rec["flops"] / (f32_flops_per_s if rec.get("dtype") == "float32"
+                            else bf16_flops_per_s) * 1e3
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max_abs_err,
@@ -5267,6 +5671,8 @@ def main() -> int:
     rows.append(kernel_row("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
                            "src/repro/kernels/ops.py:162", bwd_rec,
                            ssm_train_launches["ssd_scan_bwd"], bwd_err))
+    e2e_launches = phase_train_e2e()
+    rows += phase_pod_train_times(e2e_launches, phase_gemma_train_full(), errs)
     phase_gemm_kernel()
     rows.append(phase_gemm_study())
     torch.cuda.empty_cache()

@@ -49,15 +49,21 @@ def _flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
 
 
 def _to_host(v) -> tuple[np.ndarray, str]:
+    """A host copy of ``v`` as it is now: the write happens later, on
+    another thread, and the train step updates the optimizer state in
+    place (a CPU tensor's ``.cpu().numpy()`` is a view, so it is copied)."""
     t = torch.as_tensor(v).detach()
     if t.dtype == torch.bfloat16:
         return t.float().cpu().numpy(), "bfloat16"
     a = t.cpu().numpy()
+    if t.device.type == "cpu":
+        a = a.copy()
     return a, str(a.dtype)
 
 
 def _from_host(a: np.ndarray, dtype: str, like) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    # ascontiguousarray returns at least 1-d: keep a scalar's shape ()
+    t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
     if dtype == "bfloat16":
         t = t.to(torch.bfloat16)
     dev = like.device if isinstance(like, torch.Tensor) else "cpu"

@@ -9,9 +9,23 @@ asking for CUDA without a card raises.
 ``--policy`` places the train state (``auto``: the planner picks for the
 train phase; otherwise any ``parse_policy`` spelling — ``opt_host``
 streams the optimizer state from pinned host memory), ``--calibration``
-prices the pick on a measured hardware model.  Left out until the mesh is
-ported (ROADMAP A10/A8): the reference's ``--mesh``, ``--donor``,
-``--remote-donor`` and ``--compress-pod-grads``.
+prices the pick on a measured hardware model.
+
+``--mesh`` takes the reference's ``AxB[xC]`` spelling (``2x1x1`` is
+(pod, data, model); ``4x2`` is (data, model); ``4`` is data).  A ``pod``
+axis of several ranks trains data parallel over it: run one process per
+rank under ``torchrun`` (gloo with ``--device cpu``, nccl on cards; each
+rank drives ``cuda:<LOCAL_RANK>``), e.g.
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch olmo-1b --smoke --device cpu --mesh 2x1x1 --compress-pod-grads
+
+Each rank reads its rows of the global ``--batch`` and writes its
+checkpoints under ``<ckpt-dir>/rank_<r>`` (the ranks' error feedback
+differs).  ``--compress-pod-grads`` syncs the gradients over ``pod`` in
+int8 with error feedback; without a pod axis of several ranks it is the
+reference's no-op.  A ``data`` or ``model`` axis of more than one rank,
+``--donor`` and ``--remote-donor`` are refused (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -19,16 +33,19 @@ from __future__ import annotations
 import argparse
 import logging
 import math
+import os
 import pathlib
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.api import Runtime
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.multimodal import frontend_input_defs
 from repro_torch.models.sharding import torch_dtype
@@ -53,6 +70,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--mesh", default="1x1",
+                    help="e.g. 2x1x1 -> (pod,data,model); 4x2 -> (data,model); only "
+                         "a pod axis may have several ranks (run under torchrun)")
+    ap.add_argument("--donor", type=int, default=1,
+                    help="an ICI donor axis of this size (>= 2: ROADMAP A10, refused)")
+    ap.add_argument("--remote-donor", type=int, default=1,
+                    help="a DCN donor axis of this size (>= 2: ROADMAP A10, refused)")
+    ap.add_argument("--compress-pod-grads", action="store_true",
+                    help="int8 gradient sync with error feedback over the pod axis")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="full", choices=["none", "full", "dots"])
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR),
@@ -82,10 +108,65 @@ def pick_policy(bundle, args, device) -> str:
     return rt.policy.name
 
 
+def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``--mesh``'s shape and axis names, as the reference reads them."""
+    dims = tuple(int(x) for x in spec.split("x"))
+    axes = ("pod", "data", "model")[-len(dims):] if len(dims) > 1 else ("data",)
+    return dims, axes
+
+
+def rank_device(device: torch.device) -> torch.device:
+    """The card this rank drives: ``cuda:<LOCAL_RANK>`` when torchrun
+    started several ranks on one host, else ``device`` as given."""
+    if device.type != "cuda" or "LOCAL_RANK" not in os.environ:
+        return device
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def make_mesh(args: argparse.Namespace, device: torch.device):
+    """The run's mesh: None on one process with every axis of size 1;
+    else the ``pod`` mesh over the process group of torchrun's
+    environment (initialized here).  Raises naming ROADMAP A10 for a
+    ``data``/``model`` axis of several ranks or a donor axis."""
+    dims, axes = parse_mesh(args.mesh)
+    wide = {a: n for a, n in zip(axes, dims) if a != "pod" and n > 1}
+    if args.donor > 1 or args.remote_donor > 1:
+        wide.update(donor=args.donor, remote_donor=args.remote_donor)
+    if wide:
+        raise SystemExit(f"--mesh {args.mesh} with {wide}: only a pod axis is ported; "
+                         "data, model and donor axes are ROADMAP A10")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if math.prod(dims) == 1 and world == 1:
+        return None
+    if math.prod(dims) != world:
+        raise SystemExit(f"--mesh {args.mesh} needs {math.prod(dims)} processes, this "
+                         f"run has {world}: start it under torchrun --nproc-per-node "
+                         f"{math.prod(dims)}")
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method="env://")
+    return make_mesh_for(dims, axes)
+
+
 def train(args: argparse.Namespace) -> dict:
     """Run the training loop; returns the losses, grad norms, step times
     and the supervisor's restart count."""
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
+    mesh = make_mesh(args, device)
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, device: torch.device, mesh) -> dict:
+    rank = dist.get_rank() if mesh is not None else 0
+    world = dist.get_world_size() if mesh is not None else 1
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} does not split over {world} ranks")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = ModelBundle(cfg)
     text_len = args.seq if bundle.encdec else args.seq - cfg.frontend_tokens
@@ -100,25 +181,31 @@ def train(args: argparse.Namespace) -> dict:
     tcfg = TrainConfig(
         remat=args.remat,
         n_microbatches=args.microbatches,
+        compress_pod_grads=args.compress_pod_grads,
         optimizer=AdamWConfig(lr=args.lr, warmup_steps=min(50, args.steps // 5 + 1)),
         policy=pick_policy(bundle, args, device),
     )
-    log.info("training under placement policy %s", tcfg.policy)
+    log.info("training under placement policy %s%s", tcfg.policy,
+             f", rank {rank} of {world} on the pod axis" if mesh is not None else "")
     gen = torch.Generator(device=device).manual_seed(0)
-    params, opt_state, ef = init_train_state(bundle, gen, tcfg)
-    step_fn = make_train_step(bundle, tcfg)
+    params, opt_state, ef = init_train_state(bundle, gen, tcfg, mesh)
+    step_fn = make_train_step(bundle, tcfg, mesh)
 
     # a frontend model's batch also carries its stub embeddings, N(0, 1)
-    # drawn on the device, seeded by the count of steps run; a VLM's text
-    # is shorter by its patches (text_len), so that patches and text fill
-    # --seq: the batch of ModelBundle.input_defs (ROADMAP C: the
-    # reference's launcher passes no stubs)
+    # drawn on the device for the global batch, seeded by the count of
+    # steps run (a rank keeps its rows); a VLM's text is shorter by its
+    # patches (text_len), so that patches and text fill --seq: the batch
+    # of ModelBundle.input_defs (ROADMAP C: the reference's launcher
+    # passes no stubs)
     front = frontend_input_defs(cfg, args.batch)
     stub_gen = torch.Generator(device=device) if front else None
+    rows = slice(rank * args.batch // world, (rank + 1) * args.batch // world)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=text_len,
-                                  global_batch=args.batch))
+                                  global_batch=args.batch),
+                       process_index=rank, process_count=world)
     it = Prefetcher(data)
-    ckpt = Checkpointer(args.ckpt_dir)
+    ckpt = Checkpointer(args.ckpt_dir if mesh is None
+                        else os.path.join(args.ckpt_dir, f"rank_{rank}"))
     sup = Supervisor(ckpt, SupervisorConfig(checkpoint_every=args.ckpt_every))
 
     state = {"params": params, "opt": opt_state, "ef": ef}
@@ -131,7 +218,7 @@ def train(args: argparse.Namespace) -> dict:
         batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         if front:
             stub_gen.manual_seed(len(out["losses"]))
-            batch.update({k: torch.randn(p.shape, generator=stub_gen, device=device).to(
+            batch.update({k: torch.randn(p.shape, generator=stub_gen, device=device)[rows].to(
                 torch_dtype(cfg.dtype)) for k, p in front.items()})
         p, o, e, metrics = step_fn(state["params"], state["opt"], state["ef"], batch)
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])

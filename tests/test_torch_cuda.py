@@ -2292,3 +2292,33 @@ def test_a7_prefill_with_embeddings_on_card_matches_cpu(arch):
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
         assert torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
+
+
+@requires_cuda
+def test_one_rank_compressed_grad_sync_on_card_is_an_identity(tmp_path):
+    """A one-rank NCCL group and its (1,) ``pod`` mesh: ``compressed_grad_sync``
+    returns the gradients and the error feedback themselves; ``quantize``
+    on the card rounds every element to within half a step, and equals
+    the CPU's bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.optim import compressed_grad_sync, dequantize, init_error_feedback, quantize
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    grads = {"w": torch.randn(64, 48, generator=g, device="cuda"),
+             "b": torch.randn(61, generator=g, device="cuda").to(torch.bfloat16)}
+    ef = init_error_feedback(grads)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        synced, new_ef = compressed_grad_sync(grads, ef, make_mesh_for((1,), ("pod",)))
+    finally:
+        dist.destroy_process_group()
+    assert synced is grads and new_ef is ef
+    for t in grads.values():
+        q, s = quantize(t)
+        assert q.device.type == "cuda" and q.dtype == torch.int8
+        assert float((dequantize(q, s) - t.float()).abs().max()) <= float(s) * 0.5 + 1e-9
+        qc, sc = quantize(t.cpu())
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)

@@ -70,6 +70,8 @@ def test_packages_import_without_building_or_jax():
         "import repro_torch.core.faults, repro_torch.examples.serve_llm\n"
         "import repro_torch.tools.serve_soak, repro_torch.tools.serve_chaos\n"
         "import repro_torch.tools.policy_smoke\n"
+        "import repro_torch.launch.mesh, repro_torch.optim.compression\n"
+        "import repro_torch.train.pipeline_parallel, repro_torch.examples.train_e2e\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._LIBS and not _build.BUILD_LOG\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"

@@ -16,8 +16,8 @@ layer keeps ``max_len`` slots and takes its own RoPE base.
   records that the reference differs there;
 * gemma3-27b-smoke (``LLLLLG`` + ``LL``, window 32) through ``ModelBundle``
   and ``Server`` against the reference's, with prompts that wrap the
-  rings, one training loss and its grads, host placements and
-  preemption with ring slots;
+  rings, one training loss and its grads, 3 AdamW steps, host
+  placements and preemption with ring slots;
 * a test-only dense ``CCCG`` config (llama4-smoke's attention, chunk 16,
   no MoE) built in both packages.
 
@@ -37,20 +37,28 @@ import torch
 
 from repro import configs as jconfigs
 from repro.configs import smoke_config as jax_smoke_config
+from repro.launch.mesh import make_mesh_for as jax_mesh_for
 from repro.models import attention as jattn
 from repro.models.model_zoo import ModelBundle as JaxBundle
+from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.serve import Request as JaxRequest
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import Server as JaxServer
+from repro.train import TrainConfig as JaxTrainConfig
+from repro.train import init_train_state as jax_init_train_state
+from repro.train import make_train_step as jax_make_train_step
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.configs import ShapeSpec, get_config, smoke_config
 from repro_torch.core.placement import Role, parse_policy
+from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttf
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.sharding import tree_leaves, tree_map
+from repro_torch.optim import AdamWConfig
 from repro_torch.serve import Request, ServeConfig, Server
+from repro_torch.train import TrainConfig, make_train_step
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -366,6 +374,41 @@ def test_gemma3_loss_and_grads_match_reference(gemma):
     tree_map(lambda g, w: _close(g, w, rtol=1e-4,
                                  atol=2e-4 * max(float(np.abs(w).max()), 1e-6)),
              tree_map(lambda _: next(it), tparams), jgrads)
+
+
+def test_gemma3_train_steps_match_reference(gemma):
+    """3 AdamW steps of gemma3-smoke (4 x 48 tokens, past the window of
+    32) from the reference's initial state, carried across, at
+    ``tests/test_torch_train.py``'s limits: step 1's loss at 1e-5, later
+    losses at 1e-4, grad norms at 1e-4, every weight within 2 x the summed
+    lr_t of the reference's and the 99th percentile within 1e-5."""
+    jb, _, tb, _ = gemma
+    lr, warmup = 1e-3, 2
+    mesh = jax_mesh_for((1,), ("data",))
+    jtcfg = JaxTrainConfig(remat="full",
+                           optimizer=JaxAdamWConfig(lr=lr, warmup_steps=warmup))
+    jparams, jopt, jef = jax_init_train_state(jb, mesh, jax.random.PRNGKey(0), jtcfg)
+    params, opt = convert.params_from_jax(jax.tree.map(np.asarray, (jparams, jopt)), "cpu")
+    jstep = jax.jit(jax_make_train_step(jb, mesh, jtcfg))
+    step = make_train_step(tb, TrainConfig(
+        remat="full", optimizer=AdamWConfig(lr=lr, warmup_steps=warmup)))
+    data = SyntheticLM(DataConfig(vocab=tb.cfg.vocab, seq_len=48, global_batch=4))
+    lr_sum = 0.0
+    for i in range(3):
+        batch = next(data)
+        jparams, jopt, jef, jm = jstep(jparams, jopt, jef,
+                                       {k: jnp.asarray(v) for k, v in batch.items()})
+        params, opt, _, m = step(params, opt, None, {k: _t(v) for k, v in batch.items()})
+        lr_sum += lr * min((i + 1) / warmup, 1.0)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5 if i == 0 else 1e-4)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+        diffs = []
+        tree_map(lambda g, w: diffs.append(np.abs(g.numpy() - np.asarray(w)).ravel()),
+                 params, jparams)
+        diffs = np.concatenate(diffs)
+        assert diffs.max() <= 2 * lr_sum * 1.1, (i, diffs.max())
+        assert np.quantile(diffs, 0.99) <= 1e-5, (i, np.quantile(diffs, 0.99))
 
 
 def _gemma_prompts(vocab):

@@ -18,6 +18,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -317,10 +318,17 @@ def test_prefetcher_yields_the_stream_and_closes():
 
 
 def test_train_config_refuses_what_needs_a_mesh():
+    """Sharding rules, other FSDP axes or ZeRO stages, and a ``data`` axis
+    of several ranks are ROADMAP A10.  ``compress_pod_grads`` is ported
+    (``tests/test_torch_pod_train.py``): it is refused only beside such a
+    mesh."""
     for kw in (dict(rules={"batch": "data"}), dict(fsdp_axes=("pod", "data")),
-               dict(zero_stage=1), dict(compress_pod_grads=True)):
+               dict(zero_stage=1)):
         with pytest.raises(NotImplementedError, match="A10"):
             make_train_step(None, TrainConfig(**kw))
+    data2 = types.SimpleNamespace(mesh_dim_names=("data",), shape=(2,))
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_train_step(None, TrainConfig(compress_pod_grads=True), data2)
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +362,31 @@ def test_checkpoint_restart_exact(tmp_path):
     assert manifest["step"] == 6
     _, cont2 = _train(bundle, steps=4, start_state=tuple(restored), data_start=6)
     np.testing.assert_allclose(cont, cont2, rtol=1e-5, atol=1e-6)
+
+
+def test_async_checkpoint_is_a_snapshot(tmp_path, monkeypatch):
+    """An async save keeps the values of the moment it was called: the
+    train step updates the optimizer state in place before the background
+    write runs (held back here until after the update)."""
+    import threading
+
+    gate, np_save = threading.Event(), np.save
+
+    def held_save(*a, **kw):
+        gate.wait(timeout=30)
+        return np_save(*a, **kw)
+
+    monkeypatch.setattr(np, "save", held_save)
+    tree = {"master": torch.arange(6, dtype=torch.float32), "step": torch.tensor(3)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, tree)
+    tree["master"].add_(100.0)
+    gate.set()
+    ck.wait()
+    restored, _ = ck.restore(tree)
+    assert torch.equal(restored["master"], torch.arange(6, dtype=torch.float32))
+    # a scalar (the step count, the error feedback's zeros) keeps its shape ()
+    assert restored["step"].shape == () and int(restored["step"]) == 3
 
 
 def test_microbatched_matches_full_batch():
