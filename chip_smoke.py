@@ -239,11 +239,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    and stream against the compute stream's (also for one eager
    ``kv_host`` decode step), a SHA-256 of the tokens, the kernels a replay
    launches, and the planner's step on the spec sheet and on 9d's
-   calibration; (c) full-depth olmo-1b in bf16, 3 AdamW steps under
-   ``hbm_resident``, ``opt_host`` and ``opt=host`` (RESIDENT: the update
-   reads and writes the master and moments in place) from the same
-   weights and batches (losses and grad norms compared, host bytes, step
-   times); (d) full-width, full-depth mamba2-780m in bf16, 8 slots x 2048,
+   calibration; (c) full-depth olmo-1b in bf16, 3 AdamW steps and a
+   traced fourth from the same weights and batches under ``hbm_resident``,
+   ``opt_host``, ``opt=host`` (RESIDENT: the update reads and writes the
+   master and moments in place), ``weights_stream`` and all three roles
+   ``host:stream`` at 4 x 2048, and ``params=host`` (RESIDENT: the steps
+   read the params in place and the update writes them back there) beside
+   an ``hbm_resident`` twin at 1 x 2048 (losses and grad norms against the
+   twin's, the step time beside the planner's train price, the traced
+   step's H2D and D2H bytes against the streamed windows', peak device
+   memory, attention launches, the params arena kept); (f) full-width,
+   full-depth yi-6b in bf16 under ``opt_host``, 2 AdamW steps at 1 x
+   2048 (the f32 master and moments pinned in host memory, 67.7 GiB; the
+   phase fails, naming the numbers, when MemAvailable cannot hold them);
+   (g) full-width, full-depth seamless-m4t-medium in bf16 serving 8
+   requests through the graphs under ``hbm_resident``, ``kv_host``,
+   ``weights_stream`` and both over the same random cross KV: tokens
+   identical, a replay's H2D bytes those of the decoder's windows, one
+   write-back a layer (the self rows), the audits ``ok``, the host cross
+   KV unchanged; (d) full-width, full-depth mamba2-780m in bf16, 8 slots x 2048,
    8 requests through the graphs under ``hbm_resident``, ``kv_host``,
    ``kv=host`` and ``weights_stream``, and zamba2-1.2b under
    ``hbm_resident`` and ``kv_host``: tokens identical within each model,
@@ -735,10 +749,12 @@ def phase_smoke_parity():
             f"{tokens['cuda']}")
 
 
-def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False):
+def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False,
+                   before=None):
     """Serve greedy requests through ``Server`` on the card.  The kernels'
     counts are reset just before the server is built, so its warm-up and
-    capture belong to the run.  Returns (server, requests, wall seconds,
+    capture belong to the run; ``before(server)`` runs once it is built,
+    before the requests arrive.  Returns (server, requests, wall seconds,
     launches): for a graphed server each kernel's launches per replay x
     the replays of its graph, for an eager one the wrappers' counts; the
     build's audits of its decode and prefill steps must be ``ok``."""
@@ -752,6 +768,8 @@ def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False):
     server = Server(bundle, scfg, params, device="cuda", eager=eager)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
+    if before is not None:
+        before(server)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
             for i, p in enumerate(prompts)]
     server.add_requests(reqs)
@@ -4156,75 +4174,238 @@ def phase_placed_serving():
     return kv_launches, table
 
 
-def phase_opt_host_training():
-    """10c: full-depth olmo-1b in bf16, 3 AdamW steps under hbm_resident,
-    opt_host (the optimizer state streamed) and opt=host (RESIDENT: the
-    update reads and writes it in place) from the same weights and
-    batches."""
+#: phase 10c's rows: (policy, batch rows of 2048 tokens).  A policy whose
+#: steps read the params in place runs at batch 1 beside an hbm_resident
+#: twin at batch 1: cuBLAS reads a mapped operand once per row block of a
+#: product, so its steps cost seconds at batch 4
+TRAIN_PLACED = (("hbm_resident", 4), ("opt_host", 4), ("opt=host", 4),
+                ("weights_stream", 4),
+                ("params=host:stream,master=host:stream,opt_state=host:stream", 4),
+                ("hbm_resident", 1), ("params=host", 1))
+
+
+def planner_train(bundle, policy, B, S):
+    """The planner's train step for ``policy`` at B x S, remat full, on the
+    spec sheet and on phase 9d's calibration: {label: prediction}."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core.hardware import SPEC_SYSTEM
+    from repro_torch.core.placement import parse_policy
+    from repro_torch.core.planner import predict
+
+    prof = bundle.train_workload(ShapeSpec("train", S, B, "train"), remat=True)
+    return {name: predict(prof, parse_policy(policy), system)
+            for name, system in (("spec", SPEC_SYSTEM), ("calibrated", cal_system()))}
+
+
+def streamed_train_bytes(step):
+    """(H2D, D2H) bytes one training step's HostStreams copy: a streamed
+    params tree's windows forward and again backward (all but the tail),
+    and the new params back; a streamed master's and moments' windows
+    each way."""
+    streams = step.placed.get("streams") or {}
+
+    def total(key):
+        return sum(streams[key].window_bytes) if key in streams else 0
+
+    h2d = total("source") + total("master") + total("opt")
+    if "source" in streams:
+        h2d += total("source") - streams["source"].window_bytes[-1]
+    return h2d, total("params") + total("master") + total("opt")
+
+
+def train_rows(bundle, rows, batches, steps, label):
+    """Train ``bundle`` from the same weights (seed 0) and batches under
+    each (policy, B) of ``rows``: ``steps`` AdamW steps timed, then one
+    more inside a profiler window (:func:`replay_traffic`) for its H2D and
+    D2H bytes against the streams' windows.  Each row's attention launches
+    are counted from 0 at its start; a params tree in host memory must
+    keep its storage.  Returns {(policy, B): record}."""
     import gc
 
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.placement import host_bytes
-    from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.models.sharding import tree_leaves
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
-    o = OLMO_TRAIN
-    cfg = get_config("olmo-1b")
-    policies = ("hbm_resident", "opt_host", "opt=host")
-    log(f"== phase 10c: training {cfg.name} bfloat16 at full depth, batch {o['B']} x "
-        f"{o['S']}, 3 AdamW steps under {', '.join(policies)}")
-    bundle = ModelBundle(cfg)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=o["S"], global_batch=o["B"]))
-    batches = [next(data) for _ in range(3)]
-    res = {}
-    for pol in policies:
+    S, L, out, failed = 2048, bundle.cfg.n_layers, {}, []
+    for pol, B in rows:
         tcfg = TrainConfig(remat="full", policy=pol,
                            optimizer=AdamWConfig(lr=3e-4, warmup_steps=1))
+        flash_attention.launches = flash_attention_bwd.launches = 0
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         params, opt, ef = init_train_state(
             bundle, torch.Generator(device="cuda").manual_seed(0), tcfg)
-        on_host = [k for k in ("master", "mu", "nu")
-                   if getattr(tree_leaves(opt[k])[0], "_host_arena", None) is not None]
-        mapped = all(tree_leaves(opt[k])[0].is_cuda for k in on_host)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trees = {"params": params, "master": opt["master"], "mu": opt["mu"], "nu": opt["nu"]}
+        on_host = {k: "mapped" if tree_leaves(t)[0].is_cuda else "pinned"
+                   for k, t in trees.items()
+                   if getattr(tree_leaves(t)[0], "_host_arena", None) is not None}
+        pinned = sum(host_bytes(trees[k]) for k in on_host)
+        ptrs = [t.data_ptr() for t in tree_leaves(params)]
         step = make_train_step(bundle, tcfg)
         losses, gnorms, times = [], [], []
-        for b in batches:
+        for b in batches[B][:steps]:
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
             params, opt, ef, m = step(params, opt, ef, batch)
             losses.append(float(m["loss"]))
             gnorms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)
-        res[pol] = (losses, gnorms)
-        where = ("" if not on_host else " (mapped: the update works on it in place)"
-                 if mapped else " (streamed through the update)")
-        log(f"  {pol}: losses {losses}, grad norms {gnorms}; step times "
-            f"{[round(t, 4) for t in times]} s; "
-            f"{sum(host_bytes(opt[k]) for k in on_host) / 2**30:.2f} GiB of optimizer "
-            f"state in pinned host memory{where}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        del params, opt, ef, step
+        last = {k: torch.from_numpy(v).to("cuda") for k, v in batches[B][steps].items()}
+        cur, runs = [params, opt, ef], []
+
+        def one():
+            cur[:] = step(*cur, last)[:3]
+            runs.append(1)
+
+        tr = replay_traffic(f"10c {pol} {B} x {S} step", one)
+        params = cur[0]
+        want_h2d, want_d2h = streamed_train_bytes(step)
+        name = f"{pol} at {B} x {S}"
+        for what, got, want in (("H2D", tr["h2d"], want_h2d), ("D2H", tr["d2h"], want_d2h)):
+            if abs(got - want) > 2**20:
+                failed.append(f"{name}: {what} {got} bytes a step, the windows' {want}; "
+                              f"copies {sorted(tr['sizes'].items())[:12]}")
+        n = steps + len(runs)
+        launches = (flash_attention.launches, flash_attention_bwd.launches)
+        if launches != (2 * L * n, L * n):
+            failed.append(f"{name}: attention launches {launches}, want forward 2 x {L} x "
+                          f"{n}, backward {L} x {n}")
+        if on_host.get("params") and [t.data_ptr() for t in tree_leaves(params)] != ptrs:
+            failed.append(f"{name}: the params left their host arena")
+        preds = planner_train(bundle, pol, B, S)
+        steady = statistics.median(times[1:])
+        rec = dict(losses=losses, gnorms=gnorms, times=times, steady=steady,
+                   peak=torch.cuda.max_memory_allocated(), init_peak=init_peak,
+                   pinned=pinned, on_host=on_host,
+                   h2d=tr["h2d"], d2h=tr["d2h"], want_h2d=want_h2d, want_d2h=want_d2h,
+                   traced_ms=tr["wall_ms"], launches=launches, init_s=t_init,
+                   spec_s=preds["spec"].step_s, cal_s=preds["calibrated"].step_s,
+                   limiting=preds["calibrated"].limiting, ptr=ptrs[0])
+        out[(pol, B)] = rec
+        where = ", ".join(f"{k} {v}" for k, v in on_host.items()) or "nothing"
+        log(f"  {name}: losses {losses}, grad norms {gnorms}; step times "
+            f"{[round(t, 4) for t in times]} s, steady {steady:.4f} s against the planner's "
+            f"train price {rec['spec_s']:.4f} s spec, {rec['cal_s']:.4f} s calibrated "
+            f"(limited by {rec['limiting']}); in host memory: {where} "
+            f"({pinned / 2**30:.2f} GiB); peak device memory {rec['peak'] / 2**30:.2f} GiB in "
+            f"the steps, {init_peak / 2**30:.2f} GiB in the set-up ({t_init:.1f} s)")
+        log(f"  {name}: a traced step ({tr['wall_ms']:.1f} ms wall) copied H2D {tr['h2d']} "
+            f"bytes (the windows {want_h2d}) and D2H {tr['d2h']} (the windows {want_d2h}) in "
+            f"{tr['copies']} copies, {tr['kernels']} kernels; attention launches {launches}"
+            + (f"; params arena at {ptrs[0]:#x} before and after the steps"
+               if on_host.get("params") else ""))
+        del params, opt, ef, step, cur, trees, last, batch
         gc.collect()
         torch.cuda.empty_cache()
-    lr_, gr = res["hbm_resident"]
-    for pol in policies[1:]:
-        lo, go = res[pol]
-        if lr_ == lo and gr == go:
-            log(f"  {pol} losses and grad norms equal hbm_resident's bit for bit")
-            continue
-        # a difference can only come from run-to-run rounding on the card
-        # (the update itself is elementwise); hold it to phase 3b's
-        # card-vs-CPU limits
-        for i in range(3):
-            lim = 1e-5 if i == 0 else 1e-3
-            if abs(lr_[i] - lo[i]) > lim * abs(lr_[i]) or abs(gr[i] - go[i]) > 1e-2 * abs(gr[i]):
-                raise AssertionError(f"step {i + 1}: {pol} {lo[i]} / {go[i]} against "
-                                     f"hbm_resident {lr_[i]} / {gr[i]}")
-        log(f"  {pol} against hbm_resident: not bit for bit, within phase 3b's limits")
+    if failed:
+        raise AssertionError(f"{label}:\n" + "\n".join(failed))
+    return out
+
+
+def same_losses(label, got, want):
+    """Losses and grad norms of a row against its hbm_resident twin's: bit
+    for bit, or within phase 3b's card-vs-CPU limits (a difference can
+    only come from run-to-run rounding on the card)."""
+    if got["losses"] == want["losses"] and got["gnorms"] == want["gnorms"]:
+        log(f"  {label}: losses and grad norms equal hbm_resident's bit for bit")
+        return
+    for i, (lo, go, lr_, gr) in enumerate(zip(got["losses"], got["gnorms"], want["losses"],
+                                              want["gnorms"])):
+        lim = 1e-5 if i == 0 else 1e-3
+        if abs(lr_ - lo) > lim * abs(lr_) or abs(gr - go) > 1e-2 * abs(gr):
+            raise AssertionError(f"{label} step {i + 1}: {lo} / {go} against hbm_resident "
+                                 f"{lr_} / {gr}")
+    log(f"  {label} against hbm_resident: not bit for bit, within phase 3b's limits")
+
+
+def phase_opt_host_training():
+    """10c: full-depth olmo-1b in bf16, 3 AdamW steps from the same weights
+    and batches under each of TRAIN_PLACED: the optimizer state streamed
+    (opt_host) or updated in place in host memory (opt=host), the params
+    streamed (weights_stream; with the optimizer state too) or read and
+    updated in place there (params=host, at batch 1 beside its twin).
+    Losses and grad norms against the hbm_resident twin's; each row's
+    step time against the planner's train price, a traced step's copies
+    against the windows', its peak device memory, the params arena kept.
+    Returns each kernel's launches across the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import ModelBundle
+
+    cfg = get_config("olmo-1b")
+    log(f"== phase 10c: training {cfg.name} bfloat16 at full depth, 3 AdamW steps and a "
+        f"traced one under {', '.join(f'{p} (batch {b})' for p, b in TRAIN_PLACED)}")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    batches = {}
+    for B in {b for _, b in TRAIN_PLACED}:
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048, global_batch=B))
+        batches[B] = [next(data) for _ in range(4)]
+    host_memory("before phase 10c")
+    res = train_rows(bundle, TRAIN_PLACED, batches, 3, "phase 10c")
+    for (pol, B), rec in res.items():
+        if pol != "hbm_resident":
+            same_losses(f"{pol} at batch {B}", rec, res[("hbm_resident", B)])
+    log("  10c table (olmo-1b, 3 steps, bf16): policy | batch | steady step s | planner "
+        "spec / calibrated s (limit) | H2D / D2H bytes a step (windows) | peak device "
+        "GiB | host GiB")
+    for (pol, B), r in res.items():
+        log(f"    {pol} | {B} | {r['steady']:.4f} | {r['spec_s']:.4f} / {r['cal_s']:.4f} "
+            f"({r['limiting']}) | {r['h2d']} / {r['d2h']} ({r['want_h2d']} / "
+            f"{r['want_d2h']}) | {r['peak'] / 2**30:.2f} | {r['pinned'] / 2**30:.2f}")
+    log(f"  phase 10c took {time.perf_counter() - t_phase:.1f} s")
+    return {"attention_fwd": sum(r["launches"][0] for r in res.values()),
+            "attention_bwd": sum(r["launches"][1] for r in res.values())}
+
+
+def phase_yi_opt_host_training():
+    """10f: full-width, full-depth yi-6b in bf16 under opt_host, 2 AdamW
+    steps at 1 x 2048, remat full: 6.06 B params x 16 bytes do not fit one
+    80 GB card, and the f32 master and moments (12 bytes a parameter) go
+    to pinned host memory.  Fails, naming the numbers, when the host's
+    MemAvailable cannot hold them.  Returns the attention launches."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_leaves
+
+    cfg = get_config("yi-6b")
+    bundle = ModelBundle(cfg)
+    n = sum(int(torch.Size(p.shape).numel()) for p in tree_leaves(bundle.param_defs()))
+    need = 12 * n
+    log(f"== phase 10f: training {cfg.name} bfloat16 at full width and depth ({cfg.n_layers} "
+        f"layers, {n / 1e9:.3f} B params) under opt_host, 2 AdamW steps at 1 x 2048, remat full")
+    t_phase = time.perf_counter()
+    hbm = planner_train(bundle, "hbm_resident", 1, 2048)["spec"]
+    log(f"  hbm_resident would hold {n * 16 / 1e9:.1f} GB of params, grads and f32 optimizer "
+        f"state (the planner: fits {hbm.fits}, {hbm.hbm_bytes / 2**30:.1f} GiB of HBM)")
+    avail = host_memory("before phase 10f")
+    if avail is None or avail < need + 4 * 2**30:
+        raise AssertionError(
+            f"10f: host MemAvailable {(avail or 0) / 2**30:.2f} GiB cannot hold the "
+            f"{need / 2**30:.2f} GiB of pinned optimizer state and 4 GiB of headroom")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=2048, global_batch=1))
+    res = train_rows(bundle, (("opt_host", 1),), {1: [next(data) for _ in range(3)]}, 2,
+                     "phase 10f")[("opt_host", 1)]
+    if res["pinned"] != need:
+        raise AssertionError(f"10f: {res['pinned']} bytes pinned, want {need}")
+    bad = [x for x in res["losses"] + res["gnorms"] if not x == x or abs(x) == float("inf")]
+    if bad:
+        raise AssertionError(f"10f: non-finite losses / grad norms {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_memory(f"phase 10f freed ({time.perf_counter() - t_phase:.1f} s)")
+    return {"attention_fwd": res["launches"][0], "attention_bwd": res["launches"][1]}
 
 
 #: the placements phase 10d serves each Mamba-2 / Zamba-2 model under
@@ -4396,6 +4577,139 @@ def phase_ssm_placed_serving():
         raise AssertionError("phase 10d:\n" + "\n".join(failed))
     log(f"  phase 10d took {time.perf_counter() - t_phase:.1f} s")
     return kv_launches
+
+
+#: the placements phase 10g serves seamless-m4t-medium under
+SEAMLESS_PLACED = ("hbm_resident", "kv_host", "weights_stream",
+                   "kv=host:stream,params=host:stream")
+
+
+def phase_seamless_placed_serving():
+    """10g: seamless-m4t-medium at full width and depth in bf16 (8 slots x
+    2048, chunk 256), serving phase 4's first 8 prompts (16 new tokens
+    each) through the CUDA graphs under each of SEAMLESS_PLACED, over the
+    same N(0, 1) cross KV (a frontend's projection) in every slot: greedy
+    tokens equal hbm_resident's; one decode and one prefill replay's H2D
+    bytes equal the streamed windows' (the decoder's weights, each layer's
+    self and cross KV) and their D2H the (2, B) fetch; a streamed cache's
+    replays launch one write-back a layer (self only); the build's and the
+    replays' audits ``ok``; the host cross KV unchanged, bit for bit.
+    Returns the served requests' write-back launches and cross-attention
+    launches in decode and prefill replays."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.placement import Role
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_leaves
+    from repro_torch.serve import ServeConfig
+
+    c = SEAMLESS
+    cfg = get_config("seamless-m4t-medium")
+    B, S, L, H, D = c["B"], c["Smax"], cfg.n_layers, c["H"], c["D"]
+    log(f"== phase 10g: {cfg.name} bfloat16 at full width and depth under "
+        f"{', '.join(SEAMLESS_PLACED)}, through the CUDA graphs")
+    t_phase = time.perf_counter()
+    bundle = ModelBundle(cfg)
+    params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cross_fill = torch.randn((L, B, H, cfg.frontend_tokens, D), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(5)
+                             ).to(torch.bfloat16)
+    prompts = dense_prompts(cfg.vocab)[0][:8]
+    new, shape = 16, ShapeSpec("serve", S, B, "decode")
+    host_memory("before phase 10g")
+    tokens, failed = {}, []
+    counts = {"kv_stream": 0, "cross_decode": 0, "cross_prefill": 0}
+    for pol in SEAMLESS_PLACED:
+        t0 = time.perf_counter()
+        scfg = ServeConfig(batch_slots=B, max_len=S, prefill_chunk=c["chunk"], policy=pol)
+
+        def fill(server):
+            for t in tree_leaves(server.engine.caches["decoder"]["cross"]):
+                t.copy_(cross_fill)
+            torch.cuda.synchronize()
+
+        server, reqs, wall, launches = serve_requests(bundle, params, scfg, prompts, new,
+                                                      before=fill)
+        eng, st = server.engine, server.stats()
+        name = eng.policy.name
+        stream_kv = eng.runtime.streamed(Role.KV_CACHE)
+        cross = tree_leaves(eng.caches["decoder"]["cross"])
+        want = {"decode_attention": L * st["decode_steps"],
+                "prefill_attention": L * st["prefill_dispatches"], "ssd_scan": 0,
+                "flash_attention": L * (st["decode_steps"] + st["prefill_dispatches"]),
+                "kv_stream": L * (st["decode_steps"] + st["prefill_dispatches"])
+                if stream_kv else 0}
+        if launches != want:
+            failed.append(f"{name}: launches {launches} != {want}")
+        counts["kv_stream"] += launches["kv_stream"]
+        counts["cross_decode"] += L * st["decode_steps"]
+        counts["cross_prefill"] += L * st["prefill_dispatches"]
+        if stream_kv and eng.graph_launches["decode"].get("kv_stream") != L:
+            failed.append(f"{name}: {eng.graph_launches['decode']} a decode replay, want "
+                          f"{L} kv_stream (the self rows only)")
+        tokens[name] = [r.out_tokens for r in reqs]
+        feed = eng.feed
+        expect = feed.h2d_bytes() if feed is not None else 0
+        if feed is not None:
+            log(f"  {name}: windows a step "
+                f"{ {k: v.n_windows for k, v in feed.streams().items()} }, "
+                f"{ {k: sum(v.window_bytes) for k, v in feed.streams().items()} } bytes; "
+                f"{sum(b.numel() for s_ in feed.streams().values() for b in s_.buffers()) / 2**30:.2f}"
+                " GiB of device staging slots")
+        before = [t.cpu() for t in cross]
+        dec = replay_traffic(f"10g {name} decode", eng.decode)
+        eng.stage_prefill(np.ones((B, c["chunk"]), np.int32),
+                          np.full(B, c["chunk"], np.int32),
+                          np.arange(0, B * c["chunk"], c["chunk"], dtype=np.int32))
+        torch.cuda.synchronize()
+        pre = replay_traffic(f"10g {name} prefill", eng._graphs["prefill"].replay)
+        torch.cuda.synchronize()
+        for label, tr in (("decode", dec), ("prefill", pre)):
+            if abs(tr["h2d"] - expect) > 0.02 * max(expect, 1):
+                failed.append(f"{name} {label}: H2D {tr['h2d']} bytes, the windows "
+                              f"{expect}; copies {sorted(tr['sizes'].items())[:12]}")
+            if tr["write_backs"] != (L if stream_kv else 0):
+                failed.append(f"{name} {label}: {tr['write_backs']} write-back kernels, "
+                              f"expected {L if stream_kv else 0}")
+        if dec["d2h"] != 2 * B * 4 or pre["d2h"] != 0:
+            failed.append(f"{name}: D2H memcpy {dec['d2h']} / {pre['d2h']} bytes, expected "
+                          f"the (2, {B}) fetch only")
+        audit_replays(f"seamless-m4t {name} (phase 10g)", server)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(before, cross)):
+            failed.append(f"{name}: the cross KV changed")
+        preds = planner_steps(bundle, eng.policy, shape)
+        log(f"  {name}: decode step EWMA {eng.measured_step_s * 1e3:.2f} ms against the "
+            f"planner's {preds['spec'].step_s * 1e3:.3f} ms spec, "
+            f"{preds['calibrated'].step_s * 1e3:.3f} ms calibrated (limited by "
+            f"{preds['calibrated'].limiting}); decode replay {dec['wall_ms']:.2f} ms wall, H2D "
+            f"{dec['h2d']} bytes (windows {expect}), D2H {dec['d2h']}, {dec['write_backs']} "
+            f"write-backs; prefill replay {pre['wall_ms']:.2f} ms, H2D {pre['h2d']}, "
+            f"{pre['write_backs']} write-backs; cross KV "
+            f"{'in pinned host memory' if cross[0].device.type == 'cpu' else 'on the card'}, "
+            f"unchanged; launches per replay {eng.graph_launches}")
+        del server, reqs, eng, feed, cross, before
+        gc.collect()
+        torch.cuda.empty_cache()
+        host_memory(f"{name} freed ({time.perf_counter() - t0:.1f} s)")
+    first = tokens["hbm_resident"]
+    diff = {k: [i for i, (a, b) in enumerate(zip(v, first)) if a != b]
+            for k, v in tokens.items() if v != first}
+    if diff:
+        failed.append(f"greedy tokens differ from hbm_resident's: {diff}")
+    if failed:
+        raise AssertionError("phase 10g:\n" + "\n".join(failed))
+    digest = hashlib.sha256(json.dumps(first).encode()).hexdigest()
+    log(f"  greedy tokens identical across the {len(tokens)} placements for all "
+        f"{len(first)} requests (SHA-256 {digest})")
+    del params, cross_fill
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 10g took {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def phase_migrate():
@@ -5587,6 +5901,14 @@ def kernel_row(name, source, replaces, rec, launches, max_abs_err):
     return row
 
 
+def add_launches(rows, name, n):
+    """Add ``n`` launches from a later phase's run to the ``kernels`` line's
+    row ``name``."""
+    row = next(r for r in rows if r["name"] == name)
+    row["launches"] += n
+    log(f"  {name}: {row['launches']} launches on the main path with the later phases' {n}")
+
+
 def main() -> int:
     # the script drives one card: show torch only the first visible one, so
     # the device count it reports is the count it used
@@ -5684,8 +6006,17 @@ def main() -> int:
     t10 = time.perf_counter()
     kv_rec, kv_err = phase_kv_stream_kernel()
     kv_launches, _ = phase_placed_serving()
-    phase_opt_host_training()
+    placed_train = [phase_opt_host_training(), phase_yi_opt_host_training()]
     kv_launches += phase_ssm_placed_serving() + gemma_kv_launches
+    seamless_placed = phase_seamless_placed_serving()
+    kv_launches += seamless_placed["kv_stream"]
+    for name, n in (("attention_fwd", sum(t["attention_fwd"] for t in placed_train)),
+                    ("attention_bwd", sum(t["attention_bwd"] for t in placed_train)),
+                    ("attention_fwd (seamless-m4t cross, decode)",
+                     seamless_placed["cross_decode"]),
+                    ("attention_fwd (seamless-m4t cross, prefill chunk)",
+                     seamless_placed["cross_prefill"])):
+        add_launches(rows, name, n)
     rows.append(kernel_row(
         "kv_stream", "src/repro_torch/csrc/kv_stream.cu",
         "none: no Pallas original (the reference's host transfers are XLA's, "

@@ -391,11 +391,16 @@ class Runtime:
         if pl.tier is MemoryTier.HBM and all(t.device == here for t in leaves):
             return tree
         if pl.tier is MemoryTier.HOST:
-            # a mapped view lies on the card, a streamed leaf on the CPU
+            # a mapped view lies on the card, a streamed leaf on the CPU;
+            # an arena made for "cuda" is the current card's too
             where = (self.device if pl.strategy is Strategy.RESIDENT
                      else torch.device("cpu"))
+
+            def card(d):
+                return here if d.type == "cuda" and d.index is None else d
+
             if all(getattr(t, "_host_arena", None) is not None
-                   and t._host_arena.device == self.device
+                   and card(t._host_arena.device) == here
                    and t.device.type == where.type for t in leaves):
                 return tree
         return place_tree(tree, pl, self.device)

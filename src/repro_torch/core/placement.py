@@ -734,11 +734,23 @@ class HostStream:
     a step that streams can be captured in a CUDA graph (the copies go
     through ``cudaMemcpyAsync`` on pinned memory).  :meth:`write_back`
     copies a window's slot back into host memory (the updated optimizer
-    state).  On the CPU the copies are plain synchronous copies between
-    host tensors, so the window logic runs there too.
+    state, a training step's new params).  :meth:`stage` hands out a
+    window's slot without copying into it, for a window the caller only
+    writes and then writes back; the caller's writes into it wait for the
+    slot's last write-back.  On the CPU the copies are plain synchronous
+    copies between host tensors, so the window logic runs there too.
+
+    A sweep runs forward (``begin()``: window ``i`` prefetches ``i + 1``)
+    or in reverse (``begin(reverse=True)``: window ``i`` prefetches ``i -
+    1``, a training step's backward, last layer first).  ``slots`` shares
+    the staging slots of another stream over the same host tree (a
+    training step's params update writes back through the slots its
+    forward and backward staged in); the two must not be mid-sweep at the
+    same time.
     """
 
-    def __init__(self, windows: list, device: str | torch.device, depth: int = 2):
+    def __init__(self, windows: list, device: str | torch.device, depth: int = 2,
+                 *, slots: list[torch.Tensor] | None = None):
         if not windows:
             raise ValueError("a HostStream needs at least one window")
         self.windows = windows
@@ -749,8 +761,15 @@ class HostStream:
         layouts = [_layout(ls) for ls in self._leaves]
         self._offsets = [o for o, _ in layouts]
         self.slot_bytes = max(n for _, n in layouts)
-        self._slots = [torch.empty(max(self.slot_bytes, 1), dtype=torch.uint8,
-                                   device=self.device) for _ in range(self.depth)]
+        if slots is None:
+            slots = [torch.empty(max(self.slot_bytes, 1), dtype=torch.uint8,
+                                 device=self.device) for _ in range(self.depth)]
+        elif len(slots) != self.depth or any(s.numel() < self.slot_bytes for s in slots):
+            raise ValueError(f"{len(slots)} shared slots of {[s.numel() for s in slots]} "
+                             f"bytes for {self.depth} slots of {self.slot_bytes}")
+        self._slots = list(slots)
+        #: whether the current sweep runs last window first
+        self.reverse = False
         self._views: dict[tuple[int, int], object] = {}
         #: window index -> slot, for the windows staged now
         self._held: dict[int, int] = {}
@@ -775,6 +794,8 @@ class HostStream:
             self._wb_stream = torch.cuda.Stream(self.device)
             #: per slot, the end of the write-back of the window it holds
             self._read = [torch.cuda.Event() for _ in range(self.depth)]
+            #: per slot, the end of the last copy of it back to host memory
+            self._drained = [torch.cuda.Event() for _ in range(self.depth)]
         #: per slot, whether this step queued a write-back that reads it
         self._reading = [False] * self.depth
         #: whether the write-back stream has work finish() has not joined
@@ -823,18 +844,23 @@ class HostStream:
             self._copy(dst, src, self._copy_stream)
         self._ready[slot].record(self._copy_stream)
 
-    def begin(self) -> None:
+    def begin(self, reverse: bool = False) -> None:
         """Forget what is staged: the next :meth:`window` copies afresh
-        (a step starts; its windows are read from host memory again)."""
+        (a step, or a sweep of it, starts; its windows are read from host
+        memory again).  ``reverse``: the sweep asks for its windows last
+        first, and each prefetches the one before it."""
         self._held.clear()
         self._reading = [False] * self.depth   # the last step's finish joined them
+        self.reverse = bool(reverse)
 
     def window(self, i: int):
         """Window ``i`` in device memory; the copies of the next ``depth -
-        1`` windows are issued behind it."""
+        1`` windows of the sweep (after ``i``, or before it in reverse)
+        are issued behind it."""
         if not 0 <= i < self.n_windows:
             raise IndexError(f"window {i} of {self.n_windows}")
-        keep = range(i, min(i + self.depth, self.n_windows))
+        keep = (range(i, max(i - self.depth, -1), -1) if self.reverse
+                else range(i, min(i + self.depth, self.n_windows)))
         for k in [k for k in self._held if k not in keep]:
             del self._held[k]          # its slot is free for a prefetch
         for j in keep:                 # j == i first: the caller's window
@@ -843,6 +869,21 @@ class HostStream:
         slot = self._held[i]
         if self._cuda:
             torch.cuda.current_stream(self.device).wait_event(self._ready[slot])
+        return self._view(slot, i)
+
+    def stage(self, i: int):
+        """Window ``i``'s slot in device memory, nothing copied into it: for
+        a window the caller fills and then :meth:`write_back` s.  The
+        caller's stream waits for the slot's last copy back to host
+        memory before it may write the slot."""
+        if not 0 <= i < self.n_windows:
+            raise IndexError(f"window {i} of {self.n_windows}")
+        slot = i % self.depth
+        for k in [k for k, s in self._held.items() if s == slot]:
+            del self._held[k]
+        self._held[i] = slot
+        if self._cuda:
+            torch.cuda.current_stream(self.device).wait_event(self._drained[slot])
         return self._view(slot, i)
 
     @contextlib.contextmanager
@@ -878,6 +919,7 @@ class HostStream:
         self._copy_stream.wait_stream(torch.cuda.current_stream(self.device))
         for dst, src in pairs:
             self._copy(dst, src, self._copy_stream)
+        self._drained[slot].record(self._copy_stream)
 
     def finish(self) -> None:
         """Join the copy stream, and the write-back stream when this step

@@ -234,6 +234,7 @@ class _PinnedBlock:
     (``__array_interface__``); freed when the last tensor over it dies."""
 
     def __init__(self, nbytes: int):
+        self.ptr = None               # nothing to free if the allocation fails
         ptr = ctypes.c_void_p()
         _build.check(_lib().kv_stream_host_alloc(ctypes.byref(ptr), nbytes), "kv_stream")
         self.ptr = ptr.value
@@ -241,7 +242,7 @@ class _PinnedBlock:
                                     "typestr": "|u1", "version": 3}
 
     def __del__(self):
-        if sys.is_finalizing():       # the process's end releases it anyway
+        if sys.is_finalizing() or self.ptr is None:   # the process's end releases it
             return
         _views.clear()                # no resolved view outlives its block
         _build.check(_lib().kv_stream_host_free(self.ptr), "kv_stream")

@@ -8,8 +8,10 @@ asking for CUDA without a card raises.
 
 ``--policy`` places the train state (``auto``: the planner picks for the
 train phase; otherwise any ``parse_policy`` spelling — ``opt_host``
-streams the optimizer state from pinned host memory), ``--calibration``
-prices the pick on a measured hardware model.
+streams the optimizer state from pinned host memory, ``weights_stream``
+the params, ``params=host`` keeps them there and reads them in place),
+``--calibration`` prices the pick on a measured hardware model.  The log
+names each role in host memory, its placement and its bytes.
 
 ``--mesh`` takes the reference's ``AxB[xC]`` spelling (``2x1x1`` is
 (pod, data, model); ``4x2`` is (data, model); ``4`` is data).  A ``pod``
@@ -44,6 +46,7 @@ from repro_torch import resolve_device
 from repro_torch.api import Runtime
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.core.placement import Role, host_bytes, parse_policy
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.models.model_zoo import ModelBundle
@@ -106,6 +109,19 @@ def pick_policy(bundle, args, device) -> str:
                       seq=args.seq, remat=args.remat != "none")
     log.info("planner picked %s\n%s", rt.policy.name, rt.explain("train"))
     return rt.policy.name
+
+
+def log_host_roles(policy, params, opt_state) -> None:
+    """Log each role ``policy`` places in host memory: its placement and
+    its bytes."""
+    pol = parse_policy(policy)
+    trees = {Role.PARAMS: params, Role.MASTER: opt_state["master"],
+             Role.OPT_STATE: {k: opt_state[k] for k in ("mu", "nu")}}
+    for role, tree in trees.items():
+        pl = pol.placement(role)
+        if pl.on_host:
+            log.info("%s in host memory (%s): %d bytes", role.value, pl.to_str(),
+                     host_bytes(tree))
 
 
 def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
@@ -189,6 +205,7 @@ def _train(args: argparse.Namespace, device: torch.device, mesh) -> dict:
              f", rank {rank} of {world} on the pod axis" if mesh is not None else "")
     gen = torch.Generator(device=device).manual_seed(0)
     params, opt_state, ef = init_train_state(bundle, gen, tcfg, mesh)
+    log_host_roles(tcfg.policy, params, opt_state)
     step_fn = make_train_step(bundle, tcfg, mesh)
 
     # a frontend model's batch also carries its stub embeddings, N(0, 1)

@@ -38,7 +38,7 @@ from repro_torch.models.layers import (
     mlp_defs,
     norm_defs,
 )
-from repro_torch.models.sharding import Param, stack_defs, tree_map
+from repro_torch.models.sharding import Param, stack_defs, tree_leaves, tree_map
 
 
 def _enc_layer_defs(cfg: ArchConfig) -> dict:
@@ -83,6 +83,27 @@ def encdec_cache_defs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     }
     layer = {"self": attn.cache_defs(batch, max_len, a, "F"), "cross": cross}
     return {"decoder": stack_defs(layer, cfg.n_layers)}
+
+
+def param_windows(cfg: ArchConfig, params) -> list[dict]:
+    """The windows in which a serving step reads ``params``, in step
+    order: the embedding, each decoder layer, then the tail (the decoder's
+    final norm and the head, with the embedding again when the head is
+    tied to it): ``cfg.n_layers + 2`` windows.  The encoder's params are
+    in none of them: only :func:`encode` reads them, which no serving step
+    runs."""
+    tail = {k: params[k] for k in ("dec_final_norm", "head")}
+    if cfg.tie_embeddings:
+        tail["embed"] = params["embed"]
+    layers = [tree_map(lambda t: t[i], params["decoder"]) for i in range(cfg.n_layers)]
+    return [{"embed": params["embed"]}] + layers + [tail]
+
+
+def cache_windows(caches) -> list[dict]:
+    """One window a decoder layer, ``{"self": {k, v}, "cross": {k, v}}``
+    of its slice of the stacked cache."""
+    n = tree_leaves(caches)[0].shape[0]
+    return [tree_map(lambda t: t[i], caches["decoder"]) for i in range(n)]
 
 
 class DecoderFeed(tf_mod.ResidentFeed):
@@ -184,7 +205,7 @@ def _decoder_step(cfg, feed, x, lengths, mode, new_lens=None, memory=None):
 def _tail_logits(cfg, feed, x):
     top = feed.top("tail")
     x = apply_norm(top["dec_final_norm"], x, cfg.norm)
-    return apply_head(top["head"], top["embed"], x)[:, 0]
+    return apply_head(top["head"], top.get("embed"), x)[:, 0]
 
 
 def encdec_prefill(params, frames, tokens, caches, cfg: ArchConfig, *, feed=None):

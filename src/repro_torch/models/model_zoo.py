@@ -227,6 +227,40 @@ class ModelBundle(ModelSizing):
             extra_embeds=frontend_embeds(batch), remat=remat,
         )
 
+    def param_windows(self, params) -> list[dict]:
+        """The windows in which a step reads ``params``, in step order: the
+        embedding, each layer, the tail (:func:`~repro_torch.models.
+        transformer.param_windows`; an encoder-decoder's decoder layers,
+        :func:`~repro_torch.models.encdec.param_windows`)."""
+        if self.encdec:
+            return encdec_mod.param_windows(self.cfg, params)
+        return tf_mod.param_windows(self.cfg, params)
+
+    def cache_windows(self, caches) -> list[dict]:
+        """The cache's windows, one a layer (a stage's stacked index), in
+        step order (:func:`~repro_torch.models.transformer.leaf_windows`;
+        an encoder-decoder's ``{"self", "cross"}`` a decoder layer,
+        :func:`~repro_torch.models.encdec.cache_windows`)."""
+        if self.encdec:
+            return encdec_mod.cache_windows(caches)
+        return tf_mod.leaf_windows(caches)
+
+    def train_loss_windowed(self, source, batch: dict, grads):
+        """:meth:`train_loss` and its gradients over params read window by
+        window from ``source`` (a ``HostStream`` or ``ParamViews`` over
+        :meth:`param_windows`) -> (loss, {"ce", "aux"}), the gradients
+        written into the device tree ``grads``
+        (:func:`~repro_torch.models.transformer.lm_loss_windowed`).  An
+        encoder-decoder raises: its training loops read the params whole
+        (ROADMAP A7c)."""
+        if self.encdec:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training an encoder-decoder with its params in "
+                "host memory is not ported yet (ROADMAP A7c)")
+        return tf_mod.lm_loss_windowed(
+            source, batch["tokens"], batch["labels"], grads, self.cfg,
+            extra_embeds=frontend_embeds(batch))
+
     def prefill(self, params, batch: dict, caches, *, feed=None):
         """Fill ``caches`` (in place) from ``batch["tokens"]`` at position 0
         — after a VLM's ``patch_embeds``, or over an encoder-decoder's

@@ -281,6 +281,153 @@ def _run_stages_train(cfg, params, x, remat: str):
     return x, aux
 
 
+# ---------------------------------------------------------------------------
+# Training over windows of a host-placed params tree
+# ---------------------------------------------------------------------------
+
+class ParamViews:
+    """The windows of a params tree the training step computes on in place
+    (``params=host``, RESIDENT: on a card CUDA tensors over the mapped view
+    of a pinned arena), with a :class:`~repro_torch.core.placement.
+    HostStream`'s sweep interface: nothing is staged or copied."""
+
+    def __init__(self, windows: list):
+        self.windows, self.n_windows = windows, len(windows)
+
+    def begin(self, reverse: bool = False) -> None:
+        pass
+
+    def window(self, i: int):
+        return self.windows[i]
+
+    def finish(self) -> None:
+        pass
+
+
+def _drop_saved(t):
+    """The pack hook of a forward that saves nothing (its graph is never
+    run backward)."""
+    return None
+
+
+def _never_unpacked(_):
+    raise RuntimeError("a windowed forward's graph is never run backward")
+
+
+def _live(tree) -> tuple[dict, list]:
+    """``tree`` with every leaf a fresh graph leaf over the same storage,
+    and those leaves in order."""
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(tree)]
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree), leaves
+
+
+def lm_loss_windowed(source, tokens, labels, grads, cfg: ArchConfig, *,
+                     extra_embeds=None, aux_weight: float = 0.01):
+    """:func:`lm_loss` and its gradients over a params tree that the step
+    reads window by window -> (loss, {"ce", "aux"}), the gradients written
+    into ``grads`` (a device tree shaped like the params).
+
+    ``source`` hands out the windows of :func:`param_windows` (the
+    embedding, each stacked index of each stage with Zamba-2's shared
+    block in each one that applies it, the tail): a
+    :class:`~repro_torch.core.placement.HostStream` over a streamed host
+    tree (``params=host:stream``), or :class:`ParamViews` of a RESIDENT
+    one (``params=host``).  Every layer runs as ``remat="full"`` does:
+    the forward sweep keeps only each window's input (``x`` and ``aux``;
+    its graph saves nothing, so no saved tensor points into a staging slot
+    the next window overwrites), and the backward sweep asks for the
+    windows again, last first, recomputes each with grad over its leaves
+    and writes their gradients into ``grads`` at its slice.  A leaf in
+    several windows (the shared block, the tied embedding) sums its
+    gradients in the order the autograd engine sums them under
+    ``hbm_resident``, and so does the embedding output that every ``S``
+    layer reads, so the values are bit for bit those of :func:`lm_loss`
+    under ``remat="full"`` and ``torch.autograd.grad``.  The loss and the
+    metrics come back detached.
+    """
+    stages = [codes for (codes, count, _) in cfg.stages() for _ in range(count)]
+    gw = param_windows(cfg, grads)
+    written: set[int] = set()
+
+    def put(i, gs):
+        for dst, g in zip(tree_leaves(gw[i]), gs, strict=True):
+            if id(dst) in written:
+                dst.add_(g)
+            else:
+                dst.copy_(g)
+                written.add(id(dst))
+
+    def body(codes, w, x, aux, emb0):
+        return _stage_body(cfg, codes, x, aux, w, emb0, w.get("shared_attn"))
+
+    source.begin()
+    with torch.no_grad():
+        x0 = _embed(source.window(0)["embed"], tokens, extra_embeds)
+    emb0 = x0 if "S" in cfg.layer_pattern else None
+    x, aux = x0, x0.new_zeros((), dtype=torch.float32)
+    inputs = []
+    for k, codes in enumerate(stages):
+        inputs.append((x, aux))
+        lw, _ = _live(source.window(1 + k))
+        # with grad, as in hbm_resident's checkpoint, so every op takes the
+        # path it takes there; the graph keeps nothing and is dropped
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                _drop_saved, _never_unpacked):
+            xi, ai = x.detach().requires_grad_(), aux.detach().requires_grad_()
+            ei = None if emb0 is None else (xi if k == 0 else emb0)
+            x, aux = body(codes, lw, xi, ai, ei)
+        x, aux = x.detach(), aux.detach()
+    n = len(stages) + 2
+    tw, t_leaves = _live(source.window(n - 1))
+    with torch.enable_grad():
+        xl, al = x.requires_grad_(), aux.requires_grad_()
+        h = apply_norm(tw["final_norm"], xl, cfg.norm)
+        if extra_embeds is not None:
+            h = h[:, extra_embeds.shape[1]:]
+        ce = fused_cross_entropy(tw["head"], tw.get("embed"), h, labels)
+        loss = ce + aux_weight * al
+    dx, daux, *gs = torch.autograd.grad(loss, [xl, al] + t_leaves)
+    put(n - 1, gs)
+
+    source.begin(reverse=True)
+    demb = None                 # the S layers' gradient of emb0, summed
+    for k in reversed(range(len(stages))):
+        lw, leaves = _live(source.window(1 + k))
+        x_in, aux_in = inputs[k]
+        with torch.enable_grad():
+            xi, ai = x_in.detach().requires_grad_(), aux_in.detach().requires_grad_()
+            ei = None if emb0 is None else (xi if k == 0 else emb0.detach().requires_grad_())
+            xo, ao = body(stages[k], lw, xi, ai, ei)
+            outs, gouts = [xo], [dx]
+            if ao is not ai:
+                outs.append(ao)
+                gouts.append(daux)
+            if k == 0 and demb is not None:
+                # under hbm_resident the later S layers' gradients reach the
+                # embedding output before the first window's: a view made
+                # after the body is the engine's first node here too
+                outs.append(xi.view_as(xi))
+                gouts.append(demb)
+        wrt = [xi, ai] + ([ei] if ei is not None and k > 0 else []) + leaves
+        got = torch.autograd.grad(outs, wrt, gouts, allow_unused=True)
+        dx = got[0]
+        if ao is not ai:
+            daux = got[1]
+        if ei is not None and k > 0:
+            g = got[2]
+            if g is not None:
+                demb = g if demb is None else demb + g
+            got = got[:2] + got[3:]
+        put(1 + k, got[2:])
+    w, leaves = _live(source.window(0))
+    with torch.enable_grad():
+        x0r = _embed(w["embed"], tokens, extra_embeds)
+    put(0, torch.autograd.grad(x0r, leaves, dx))
+    source.finish()
+    return loss.detach(), {"ce": ce.detach(), "aux": aux.detach()}
+
+
 class ResidentFeed:
     """Where a serving step's params and caches come from, layer by layer,
     when neither is streamed: both in the compute device's memory

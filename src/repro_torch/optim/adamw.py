@@ -18,7 +18,11 @@ mapped view of it: every pass of the update crosses PCIe).
 The master and the moments are updated **in place** (the port's
 counterpart of the reference's donated state buffers: no second 12-byte
 copy per parameter at the peak); the params come back as new tensors
-cast from the master.
+cast from the master, or, for params in host memory (``in_place``), are
+cast into their own storage: in place under ``params=host`` (RESIDENT),
+and under ``params=host:stream`` window by window into a device slot
+that is copied back into the host tree (``streams["params"]``), in the
+same walk over the windows as a streamed master and moments.
 """
 
 from __future__ import annotations
@@ -42,16 +46,20 @@ class AdamWConfig:
     warmup_steps: int = 100
 
 
-def init_opt_state(params) -> dict:
+def init_opt_state(params, place=None) -> dict:
+    """The f32 master (a copy of ``params``), both moments at zero and the
+    step count, on the params' device.  ``place(key, tree)`` (``key`` of
+    "master", "mu", "nu") moves each tree where it lives as soon as it is
+    made, so that only one of them is on the device at a time."""
     dev = tree_leaves(params)[0].device
-    return {
-        "master": tree_map(lambda x: x.detach().to(torch.float32, copy=True), params),
-        "mu": tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                             device=x.device), params),
-        "nu": tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                             device=x.device), params),
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
-    }
+    place = place or (lambda key, tree: tree)
+    out = {"master": place("master", tree_map(
+        lambda x: x.detach().to(torch.float32, copy=True), params))}
+    for k in ("mu", "nu"):
+        out[k] = place(k, tree_map(lambda x: torch.zeros(
+            x.shape, dtype=torch.float32, device=x.device), params))
+    out["step"] = torch.zeros((), dtype=torch.int32, device=dev)
+    return out
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -60,20 +68,30 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The f32 L2 norm over every leaf.  Each leaf is summed in its logical
+    order (a contiguous f32 copy), so equal values give the same norm
+    whatever their memory layout: a tied embedding's gradient comes out of
+    autograd as its head product's transpose, and a gradient written into
+    a fresh tree does not."""
     return torch.sqrt(sum(
-        torch.sum(torch.square(x.float())) for x in tree_leaves(tree)
+        torch.sum(torch.square(x.to(torch.float32, memory_format=torch.contiguous_format)))
+        for x in tree_leaves(tree)
     ))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: dict, cfg: AdamWConfig, *, streams=None):
+def apply_updates(params, grads, state: dict, cfg: AdamWConfig, *, streams=None,
+                  in_place: bool = False):
     """One AdamW step -> (new params, state, {"grad_norm", "lr"}).
 
     ``state``'s master and moments are updated in place; its ``step`` is
     replaced.  Every scalar stays a device tensor: no host sync.
-    ``streams`` (``{"master": HostStream | None, "opt": HostStream | None}``
-    over :func:`master_windows` and :func:`opt_windows`) streams a host-resident role through
-    the update window by window; None updates every role in place.
+    ``streams`` (``{"master", "opt", "params"}``: HostStreams over
+    :func:`master_windows`, :func:`opt_windows` and ``leaf_windows`` of a
+    streamed params tree, each optional) streams a host-resident role
+    through the update window by window; None updates every role in place.
+    ``in_place``: the new params are cast into ``params``' own storage
+    (params in host memory), which comes back as the new params.
     """
     step = state["step"] + 1
     lr = schedule(cfg, step)
@@ -93,12 +111,16 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig, *, streams=None)
         w.sub_(lr * ((m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
                      + cfg.weight_decay * w))
 
-    if streams is None:
+    if not streams:
         tree_map(update, state["master"], grads, state["mu"], state["nu"])
-        new_params = tree_map(lambda p, w: w.to(p.dtype, copy=True), params,
-                              state["master"])
+        if in_place:
+            tree_map(lambda p, w: p.copy_(w), params, state["master"])
+            new_params = params
+        else:
+            new_params = tree_map(lambda p, w: w.to(p.dtype, copy=True), params,
+                                  state["master"])
     else:
-        new_params = _streamed_update(update, params, grads, state, streams)
+        new_params = _streamed_update(update, params, grads, state, streams, in_place)
     state["step"] = step
     return new_params, state, {"grad_norm": gnorm, "lr": lr}
 
@@ -116,21 +138,24 @@ def opt_windows(state: dict) -> list[dict]:
             zip(leaf_windows(state["mu"]), leaf_windows(state["nu"]))]
 
 
-def _streamed_update(update, params, grads, state, streams):
+def _streamed_update(update, params, grads, state, streams, in_place):
     """``update`` window by window, each host-resident role staged on the
     device and written back after; the new params cast from each window's
-    master into place."""
-    new_params = tree_map(torch.empty_like, params)
+    master into place (a streamed params window into its staging slot,
+    then copied back into the host tree)."""
+    new_params = params if in_place else tree_map(torch.empty_like, params)
     out_w, grad_w = leaf_windows(new_params), leaf_windows(grads)
     master_w, opt_w = master_windows(state), opt_windows(state)
-    live = [st for st in (streams.get("master"), streams.get("opt")) if st is not None]
+    live = [st for st in (streams.get(k) for k in ("master", "opt", "params"))
+            if st is not None]
     for st in live:
         st.begin()
     for i in range(len(out_w)):
         w = master_w[i] if streams.get("master") is None else streams["master"].window(i)
         mv = opt_w[i] if streams.get("opt") is None else streams["opt"].window(i)
         tree_map(update, w, grad_w[i], mv["mu"], mv["nu"])
-        tree_map(lambda dst, src: dst.copy_(src), out_w[i], w)
+        out = out_w[i] if streams.get("params") is None else streams["params"].stage(i)
+        tree_map(lambda dst, src: dst.copy_(src), out, w)
         for st in live:
             st.write_back(i)
     for st in live:

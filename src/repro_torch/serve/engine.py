@@ -56,12 +56,12 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   stream inside the captured graphs), and each layer's new cache rows go
   back to host memory through the hand-written write-back kernel
   (``kernels/kv_stream.py``; in a prefill dispatch on a write-back stream
-  of its own), an ``M`` layer's state whole, one copy a leaf.  Under
-  ``hbm_resident`` the steps take views of the resident trees and launch
-  and copy exactly what they did before placement was realized.  A
-  streamed placement of an encoder-decoder bundle raises
-  ``NotImplementedError`` (ROADMAP A7b): its cross windows are not cut
-  for ``HostStream``; its RESIDENT host placements serve.
+  of its own), an ``M`` layer's state whole, one copy a leaf.  An
+  encoder-decoder's steps stream its decoder stack the same way
+  (:class:`PlacedDecoderFeed`): each layer's cross KV is staged in and
+  never copied back.  Under ``hbm_resident`` the steps take views of the
+  resident trees and launch and copy exactly what they did before
+  placement was realized.
 
 * **Slot extract/insert** — preemption's device half: a victim's rows
   (``leaf[:, i]`` of every cache leaf: an ``F``/``S`` layer's KV, an ``M``
@@ -101,9 +101,6 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   pay a profiler start): :meth:`Executor.audit_dispatch` does that for one
   replay or restore, for ``tools/audit.py --transfer-audit`` and
   ``chip_smoke.py``.
-
-Left out, named in ROADMAP: host streaming of an encoder-decoder bundle
-(A7b).
 """
 
 from __future__ import annotations
@@ -136,6 +133,7 @@ from repro_torch.kernels.decode_attention import flash_decode
 from repro_torch.kernels.flash_attention import flash_attention, flash_prefill
 from repro_torch.kernels.kv_stream import kv_write_back
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.sharding import tree_leaves, tree_map
 from repro_torch.runtime.retry import MIGRATION_RETRY, retry_call
@@ -163,10 +161,11 @@ class PlacedFeed(tf_mod.ResidentFeed):
     for the interface).
 
     A streamed role's host tree is cut into the windows a step reads in
-    order (:func:`~repro_torch.models.transformer.param_windows`: the
-    embedding, each layer, with Zamba-2's shared block again in each one
-    that applies it, the tail; :func:`~repro_torch.models.
-    transformer.leaf_windows` of the cache: each layer) and staged through
+    order (``bundle.param_windows``, :func:`~repro_torch.models.transformer.
+    param_windows`: the embedding, each layer, with Zamba-2's shared block
+    again in each one that applies it, the tail; ``bundle.cache_windows``,
+    :func:`~repro_torch.models.transformer.leaf_windows` of the cache: each
+    layer) and staged through
     a :class:`~repro_torch.core.placement.HostStream` of two device slots.
     A resident role (in device memory, or RESIDENT in host memory through
     the card's mapped view) is fed as views, as :class:`ResidentFeed`
@@ -189,21 +188,30 @@ class PlacedFeed(tf_mod.ResidentFeed):
     once, so the steps can be captured.
     """
 
-    def __init__(self, cfg, params, caches, *, stream_params: bool,
+    def __init__(self, bundle, params, caches, *, stream_params: bool,
                  stream_kv: bool, batch_slots: int, device):
         super().__init__(params, caches)
         self.device = torch.device(device)
         self.batch_slots = batch_slots
-        counts = [count for _, count, _ in cfg.stages()]
+        counts = [count for _, count, _ in bundle.cfg.stages()]
         #: global window index of each stage's first layer
         self._first = [sum(counts[:s]) for s in range(len(counts))]
-        self.weights = (HostStream(tf_mod.param_windows(cfg, params), device)
+        self.weights = (HostStream(bundle.param_windows(params), device)
                         if stream_params else None)
-        self.kv = (HostStream(tf_mod.leaf_windows(caches), device)
+        self.kv = (HostStream(bundle.cache_windows(caches), device)
                    if stream_kv else None)
         self._consts: dict[int, torch.Tensor] = {}
         self._pos = self._n = None
         self._beside = False
+
+    @staticmethod
+    def written_back(window: dict) -> tuple[list[str], list[str]]:
+        """The entries of a layer's cache window a step writes, as (rows:
+        an attention layer's KV, whose new rows go back through the
+        write-back kernel; whole: an ``M`` layer's state, which goes back
+        whole)."""
+        rows = [key for key, entry in window.items() if "k" in entry]
+        return rows, [key for key in window if key not in rows]
 
     def _const(self, value: int) -> torch.Tensor:
         if value not in self._consts:
@@ -232,8 +240,8 @@ class PlacedFeed(tf_mod.ResidentFeed):
         if self.kv is None:
             return 0
         return sum(t.numel() * t.element_size() for window in self.kv.windows
-                   for entry in window.values() if "k" not in entry
-                   for t in tree_leaves(entry))
+                   for key in self.written_back(window)[1]
+                   for t in tree_leaves(window[key]))
 
     def begin(self, pos, counts) -> None:
         self._pos = self._const(0) if pos is None else pos
@@ -273,16 +281,41 @@ class PlacedFeed(tf_mod.ResidentFeed):
         # an M entry's state is rewritten whole every step: it goes back
         # whole, one copy a leaf; an attention entry's rows go back through
         # the write-back kernel
-        attn = {key: staged for key, staged in cache.items() if "k" in staged}
-        for key in cache:
-            if key not in attn:
-                self.kv.write_back(g, key)
-        if not attn:
+        rows, whole = self.written_back(cache)
+        for key in whole:
+            self.kv.write_back(g, key)
+        if not rows:
             return
         with self.kv.writing_back(g) if self._beside else contextlib.nullcontext():
-            for key, staged in attn.items():
-                kv_write_back(staged["k"], staged["v"], host[key]["k"], host[key]["v"],
-                              self._pos, self._n)
+            for key in rows:
+                kv_write_back(cache[key]["k"], cache[key]["v"], host[key]["k"],
+                              host[key]["v"], self._pos, self._n)
+
+
+class PlacedDecoderFeed(PlacedFeed, encdec_mod.DecoderFeed):
+    """:class:`PlacedFeed` over an encoder-decoder's ``decoder`` stack
+    (the layer views of a role that is not streamed come from
+    :class:`~repro_torch.models.encdec.DecoderFeed`).  The windows are
+    :func:`~repro_torch.models.encdec.param_windows` (the embedding, each
+    decoder layer, the tail; the encoder's params, which no serving step
+    reads, stay in the host tree and are never copied) and
+    :func:`~repro_torch.models.encdec.cache_windows` (each layer's ``{"self",
+    "cross"}``).  Only the self cache goes back, its new rows through the
+    write-back kernel, one launch a layer: a serving step only reads the
+    cross KV, so it is staged in and never copied back.  A prefill from
+    position 0 (``encdec_prefill``) is not a serving step and is refused
+    here: it reads the encoder's params and writes the cross cache."""
+
+    @staticmethod
+    def written_back(window: dict) -> tuple[list[str], list[str]]:
+        return ["self"], []
+
+    def begin(self, pos, counts) -> None:
+        if pos is None:
+            raise ValueError("encdec_prefill reads the encoder's params and writes "
+                             "the cross cache: it does not run through a PlacedFeed, "
+                             "whose steps stream the decoder and only read the cross KV")
+        super().begin(pos, counts)
 
 
 class Executor:
@@ -430,15 +463,11 @@ class Executor:
         fallback to the eager path."""
         stream_params = self.runtime.streamed(Role.PARAMS)
         stream_kv = self.runtime.streamed(Role.KV_CACHE)
-        if (stream_params or stream_kv) and self.bundle.encdec:
-            raise NotImplementedError(
-                f"{self.bundle.cfg.name}: policy {self.policy.name!r} streams a role "
-                "of an encoder-decoder from host memory, which is not ported yet "
-                "(ROADMAP A7b); its RESIDENT host placements serve")
+        feed_cls = PlacedDecoderFeed if self.bundle.encdec else PlacedFeed
         #: the layer feed of the steps (None: views of resident trees)
-        self.feed = (PlacedFeed(self.bundle.cfg, self.params, self.caches,
-                                stream_params=stream_params, stream_kv=stream_kv,
-                                batch_slots=self.cfg.batch_slots, device=self.device)
+        self.feed = (feed_cls(self.bundle, self.params, self.caches,
+                              stream_params=stream_params, stream_kv=stream_kv,
+                              batch_slots=self.cfg.batch_slots, device=self.device)
                      if stream_params or stream_kv else None)
         # the first decode step after a build pays set-up: the watchdog and
         # the runtime's step EWMA skip it

@@ -2322,3 +2322,108 @@ def test_one_rank_compressed_grad_sync_on_card_is_an_identity(tmp_path):
         assert float((dequantize(q, s) - t.float()).abs().max()) <= float(s) * 0.5 + 1e-9
         qc, sc = quantize(t.cpu())
         assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+
+
+@requires_cuda
+def test_host_stream_in_reverse_waits_for_each_slot_reader():
+    """A HostStream over pinned windows swept last first on the card: each
+    window's values are right although the reader of a slot is slow (the
+    refill of the slot, issued on the copy stream while the reader runs,
+    waits for it), and the prefetch runs one window behind."""
+    from repro_torch.core.placement import HostStream, to_host
+
+    n, d = 6, 1024
+    host = to_host({"w": torch.arange(1, n + 1, dtype=torch.float32)[:, None, None]
+                    .expand(n, d, d).contiguous()}, "cuda")
+    assert host["w"].is_pinned() and host["w"].device.type == "cpu"
+    st = HostStream.stacked(host, n, "cuda")
+    sums = {}
+    st.begin(reverse=True)
+    for i in reversed(range(n)):
+        w = st.window(i)["w"]
+        acc = torch.zeros((), device="cuda")
+        for _ in range(20):                  # a slow reader of the slot
+            acc = acc + (w @ w).mean()
+        sums[i] = acc
+    st.finish()
+    torch.cuda.synchronize()
+    for i in range(n):
+        assert sums[i].item() == pytest.approx(20 * d * (i + 1) ** 2, rel=1e-6), i
+    assert list(st.fetches) == list(reversed(range(n)))
+    assert st._copy_stream != torch.cuda.current_stream()
+
+
+@requires_cuda
+@pytest.mark.parametrize("policy", ["weights_stream", "params=host"])
+def test_params_in_host_memory_train_on_card_as_hbm_resident(policy):
+    """olmo-1b-smoke in float32, 3 AdamW steps on the card under a params
+    placement in host memory and under hbm_resident from the same weights:
+    the same losses, grad norms and params, bit for bit; the host params
+    keep their pinned storage; the attention kernels launch as often
+    (forward twice a layer, backward once)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("olmo-1b"), dtype="float32"))
+    runs = {}
+    for pol in ("hbm_resident", policy):
+        tcfg = TrainConfig(remat="full", policy=pol,
+                           optimizer=AdamWConfig(lr=1e-3, warmup_steps=2))
+        params, opt, ef = init_train_state(
+            tb, torch.Generator(device="cuda").manual_seed(0), tcfg)
+        where = [t.data_ptr() for t in tree_leaves(params)]
+        step = make_train_step(tb, tcfg)
+        data = SyntheticLM(DataConfig(vocab=tb.cfg.vocab, seq_len=64, global_batch=4))
+        fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+        out = []
+        for _ in range(3):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+            params, opt, ef, m = step(params, opt, ef, batch)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        torch.cuda.synchronize()
+        launches = (flash_attention.launches - fwd, flash_attention_bwd.launches - bwd)
+        runs[pol] = (out, [t.clone() for t in tree_leaves(params)], launches)
+        if pol != "hbm_resident":
+            assert [t.data_ptr() for t in tree_leaves(params)] == where
+            assert all(t._host_arena.pinned for t in tree_leaves(params))
+    L = tb.cfg.n_layers
+    assert runs[policy][2] == runs["hbm_resident"][2] == (2 * L * 3, L * 3)
+    assert runs[policy][0] == runs["hbm_resident"][0]
+    for a, b in zip(runs[policy][1], runs["hbm_resident"][1]):
+        assert torch.equal(a.cuda(), b)
+
+
+@requires_cuda
+def test_seamless_kv_host_server_on_card_as_hbm_resident():
+    """seamless-smoke in float32 served on the card through the graphs
+    under kv_host and hbm_resident, over the same random cross KV: the same
+    greedy tokens; a decode replay writes back each layer's self rows (one
+    kv_stream launch a layer) and the host cross KV is unchanged."""
+    from repro_torch.serve import Request, ServeConfig, Server
+
+    tb = ModelBundle(dataclasses.replace(smoke_config("seamless-m4t-medium"),
+                                         dtype="float32"))
+    params = tree_map(lambda t: t.cuda(), tb.init_params(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, tb.cfg.vocab, n).astype(np.int32) for n in (20, 9, 33, 4)]
+    runs = {}
+    for pol in ("hbm_resident", "kv_host"):
+        server = Server(tb, ServeConfig(batch_slots=2, max_len=64, prefill_chunk=4,
+                                        policy=pol), params, device="cuda")
+        cross = tree_leaves(server.engine.caches["decoder"]["cross"])
+        gen = torch.Generator().manual_seed(3)
+        for t in cross:
+            t.copy_(torch.randn(t.shape, generator=gen))
+        before = [t.clone() for t in cross]
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        server.add_requests(reqs)
+        server.run_until_done(max_steps=1000)
+        torch.cuda.synchronize()
+        runs[pol] = [r.out_tokens for r in reqs]
+        if pol == "kv_host":
+            assert all(t.device.type == "cpu" and t.is_pinned() for t in cross)
+            assert all(torch.equal(a, b) for a, b in zip(before, cross))
+            assert server.engine.graph_launches["decode"]["kv_stream"] == tb.cfg.n_layers
+            assert server.stats()["decode_replays"] > 0
+    assert runs["kv_host"] == runs["hbm_resident"]

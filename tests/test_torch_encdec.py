@@ -9,8 +9,9 @@ admission vs the JAX reference.
   frames, and ``encdec_decode_step``, on shared numpy inputs in float32 at
   atol/rtol 1e-4 (``tests/test_torch_model.py``'s ``TOL``);
 * the reference ``Server``'s greedy tokens through the port's ``Server``
-  under ``hbm_resident``, the RESIDENT host placements and preemption; a
-  streamed host placement refused (ROADMAP A7b);
+  under ``hbm_resident``, the RESIDENT host placements, the streamed ones
+  (the decoder's windows through ``PlacedDecoderFeed``, the host cross
+  KV never written) and preemption;
 * the decode-step replay admission of a bundle whose ``prefill_at``
   raises (the reference's ``tests/test_serve_scheduler.py``
   ``TestReplayFallback``): the tokens of chunked admission, the counter,
@@ -316,13 +317,91 @@ def test_preempted_tokens_match_reference(seamless, seamless_tokens):
     assert server.engine.slot_bytes() == want == 2 * tb.cache_bytes_for(1, 48)
 
 
+STREAMED = ["kv_host", "weights_stream", "kv=host:stream,params=host:stream"]
+
+
+@pytest.mark.parametrize("policy", STREAMED)
+def test_streamed_placement_tokens_match_reference(seamless, seamless_tokens, policy):
+    """The decoder stack streamed from host memory (its weights, its self
+    and cross caches, or both) through ``PlacedDecoderFeed``: the
+    reference ``Server``'s greedy tokens."""
+    _, _, tb, tparams = seamless
+    server, got = _port_tokens(tb, tparams, _prompts(tb.cfg.vocab), policy=policy)
+    assert server.policy.name == parse_policy(policy).name
+    assert server.engine.supports_chunked_prefill
+    assert got == seamless_tokens
+
+
+def _random_cross(server, seed=3):
+    """Fill every slot's cross KV with N(0, 1) values (a frontend's
+    projection: the token-only prompts leave zeros), in place."""
+    gen = torch.Generator().manual_seed(seed)
+    for t in tree_leaves(server.engine.caches["decoder"]["cross"]):
+        t.copy_(torch.randn(t.shape, generator=gen))
+
+
+@pytest.mark.parametrize("policy,streams", [
+    ("kv_host", {"kv_cache": 2}),
+    ("weights_stream", {"params": 4}),
+    ("kv=host:stream,params=host:stream", {"kv_cache": 2, "params": 4}),
+])
+def test_streamed_cross_kv_is_read_and_never_written(seamless, policy, streams):
+    """Over a cross KV of random values, a streamed server's tokens equal
+    ``hbm_resident``'s, and after every prefill dispatch and decode step
+    the host cross entries are unchanged, bit for bit: only the self rows
+    go back.  The windows and their bytes: one cache window a decoder layer
+    (self and cross), the embedding, each decoder layer and the tail
+    (final norm, the tied embedding again) of weights; the encoder's
+    params in none."""
+    _, _, tb, tparams = seamless
+    runs = {}
+    for pol in ("hbm_resident", policy):
+        server = Server(tb, ServeConfig(batch_slots=2, max_len=48, prefill_chunk=4,
+                                        policy=pol), tparams, device="cpu")
+        _random_cross(server)
+        cross = tree_leaves(server.engine.caches["decoder"]["cross"])
+        before = [t.clone() for t in cross]
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW)
+                for i, p in enumerate(_prompts(tb.cfg.vocab))]
+        for r in reqs:
+            server.add_request(r)
+        while server.has_work():
+            server.step()
+            assert all(torch.equal(a, b) for a, b in zip(before, cross))
+        runs[pol] = (server, [r.out_tokens for r in reqs])
+    assert runs[policy][1] == runs["hbm_resident"][1]
+    server = runs[policy][0]
+    st = server.stats()
+    assert st["prefill_dispatches"] > 0 and st["decode_steps"] > 0
+    feed = server.engine.feed
+    assert {name: s.n_windows for name, s in feed.streams().items()} == streams
+    assert tb.cfg.n_layers == 2
+    p = server.params
+    want = {"params": sum(t.numel() * 4 for t in tree_leaves(p))
+            - sum(t.numel() * 4 for t in tree_leaves(p["encoder"]))
+            - sum(t.numel() * 4 for t in tree_leaves(p["enc_final_norm"]))
+            + sum(t.numel() * 4 for t in tree_leaves(p["embed"])),
+            "kv_cache": sum(t.numel() * 4 for t in tree_leaves(server.engine.caches))}
+    assert {name: sum(s.window_bytes) for name, s in feed.streams().items()} == {
+        name: want[name] for name in streams}
+    assert feed.h2d_bytes() == sum(want[name] for name in streams)
+    assert feed.d2h_bytes() == 0           # the self rows go back through the kernel
+    assert server.engine.audit_allowance("decode") == 3 * 2 * 4 + feed.h2d_bytes()
+
+
 @pytest.mark.parametrize("policy", ["kv_host", "weights_stream"])
 def test_streamed_placement_is_refused(seamless, policy):
-    """Host streaming of an encoder-decoder's windows is ROADMAP A7b."""
+    """A streamed placement serves (above), but the whole-prompt prefill
+    from position 0, which reads the encoder's params and writes the cross
+    cache, does not run through its feed."""
     _, _, tb, tparams = seamless
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        Server(tb, ServeConfig(batch_slots=2, max_len=48, prefill_chunk=4, policy=policy),
-               tparams, device="cpu")
+    server = Server(tb, ServeConfig(batch_slots=2, max_len=48, prefill_chunk=4,
+                                    policy=policy), tparams, device="cpu")
+    frames = torch.from_numpy(_frames(tb.cfg, 2, 0))
+    with pytest.raises(ValueError, match="does not run through a PlacedFeed"):
+        tb.prefill(server.params, {"frame_embeds": frames,
+                                   "tokens": torch.ones((2, 3), dtype=torch.int32)},
+                   server.engine.caches, feed=server.engine.feed)
 
 
 class _NoChunkBundle:

@@ -11,9 +11,10 @@ state **bit for bit** equal to the port's ``hbm_resident`` run, and match
 the reference's ``hbm_resident`` run within ``tests/test_torch_train.py``'s
 tolerances (the reference's own ``opt_host`` run aborts on this JAX,
 ROADMAP C3).  A checkpoint restored under ``opt_host`` continues exactly;
-the launcher takes ``--policy``; placements the step cannot realize
+the launcher takes ``--policy``; grads and activations in host memory
 raise (RESIDENT ``opt=host`` and ``master=host``:
-``tests/test_torch_resident_host.py``).
+``tests/test_torch_resident_host.py``; the params in host memory:
+``tests/test_torch_params_host_train.py``).
 """
 
 import os
@@ -128,11 +129,12 @@ def test_train_placements_the_step_cannot_realize_raise():
     _, tb = _bundles("olmo-1b")
     gen = torch.Generator().manual_seed(0)
     # the optimizer state takes RESIDENT host placements too
-    # (tests/test_torch_resident_host.py); params, grads and activations in
-    # host memory are the rest of A9c
-    for policy in ("params=host:stream", "grads=host:stream", "act=host:stream",
-                   "params=host"):
-        with pytest.raises(NotImplementedError, match="rest of ROADMAP A9c"):
+    # (tests/test_torch_resident_host.py), the params both
+    # (tests/test_torch_params_host_train.py); the reference's step places
+    # neither grads nor activations
+    for policy in ("grads=host:stream", "act=host:stream", "grads=host",
+                   "params=host:stream,act=host"):
+        with pytest.raises(NotImplementedError, match="host roles in training"):
             init_train_state(tb, gen, TrainConfig(policy=policy))
     with pytest.raises(DonorAxisError):
         init_train_state(tb, gen, TrainConfig(policy="opt_peer_host"))
