@@ -156,7 +156,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    depth 2 with pattern ``LG`` (2.235 B params), bf16, 4 AdamW steps of 2
    x 2048, remat full: finite losses and grad norms, 2 forward and 1
    backward attention launches a layer a step for each mask kind;
-   tokens/s, peak memory;
+   tokens/s, peak memory; (6g) olmo-1b at phase 6's width, depth, batch,
+   seed and learning rate, 4 steps on a one-rank NCCL (pod, data, model)
+   = (1, 1, 1) mesh with ``one_rank=True`` (a step shards over no
+   one-rank axis unless asked) under ZeRO-3 (every window of params
+   gathered over the one-rank ``data`` group into two device slots,
+   forward and again in the backward, its gradients reduce-scattered
+   back) and under ZeRO-1 (the gradients reduce-scattered into the
+   optimizer's shards, the new params all-gathered): each step's loss and
+   ``grad_norm`` beside phase 6's ``mesh=None`` run (bit-identical, or
+   the phase fails), tokens/s, peak
+   memory, the ``flash_attention`` forward and backward launches a step
+   against the windows' count (several ranks on ``data`` and ``model``
+   run on the CPU through gloo: ``tests/test_torch_mesh_train.py``);
 7. times of the training attention kernels at the phase 6 shape, beside
    their plain versions, SDPA and their bounds, with each one's TFLOP/s,
    its fraction of the operation bound and its ratio to SDPA; (7c) the
@@ -215,6 +227,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``build/BENCH_serve.json``) and ``bench_datapath_bounds``; then the
    planner's yi-6b decode step at phase 4's shape, on the spec sheet and
    the calibration, beside phase 4's measured step (information only);
+   (f) ``bench_pingpong``, ``bench_internode`` and ``bench_collectives``
+   (Figs. 13, 14, 18, 19: measured over 8 gloo ranks on the host's CPU,
+   one skip row each for the cards, the analytic NVLink/InfiniBand rows)
+   and ``repro_torch.tools.whatif_scale --arch gemma3-27b``;
 10. placement on one card.  (a) ``kv_stream``, the KV write-back into
    pinned host memory, against its plain version in bf16 and f32 at the
    yi-6b serving shape (decode and prefill row sets, ragged, ring wrap,
@@ -2791,6 +2807,116 @@ def phase_train_e2e():
     return launches
 
 
+def phase_mesh_train(phase6):
+    """6g: olmo-1b as phase 6 trains it (full width and depth, 4 x 2048,
+    bf16, seed 0, lr 3e-4 with a one-step warm-up, remat full), on a
+    one-rank NCCL (pod, data, model) = (1, 1, 1) mesh under ZeRO-3 and
+    ZeRO-1, beside phase 6's ``mesh=None`` losses and grad norms
+    (``phase6``).  A step shards over no one-rank axis unless asked, so
+    both run with ``one_rank=True``: the windows' gathers, the gradients'
+    reduce-scatters and ZeRO-1's all-gather over the one-rank ``data``
+    group, which measures their cost on one card.  Over one rank they
+    compute the identity, so the losses and grad norms must equal phase
+    6's bit for bit; anything else raises.  Returns the attention
+    launches of both runs."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.models.sharding import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    o = OLMO_TRAIN
+    cfg = get_config("olmo-1b")
+    bundle, L, steps = ModelBundle(cfg), cfg.n_layers, o["steps"]
+    log(f"== phase 6g: training {cfg.name} bfloat16 ({L} layers) on a one-rank NCCL "
+        f"(pod, data, model) = (1, 1, 1) mesh, ZeRO-3 and ZeRO-1, batch {o['B']} x "
+        f"{o['S']}, remat full, {steps} AdamW steps, beside phase 6's mesh=None run")
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "mesh-store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    total = {"attention_fwd": 0, "attention_bwd": 0}
+    try:
+        mesh = make_mesh_for((1, 1, 1), ("pod", "data", "model"))
+        for zero in (3, 1):
+            tcfg = TrainConfig(remat="full", zero_stage=zero, policy="hbm_resident",
+                               optimizer=AdamWConfig(lr=3e-4, warmup_steps=1))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params, opt, ef = init_train_state(
+                bundle, torch.Generator(device="cuda").manual_seed(0), tcfg, mesh)
+            step = make_train_step(bundle, tcfg, mesh, one_rank=True)
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=o["S"], global_batch=o["B"]))
+            flash_attention.launches = 0
+            flash_attention_bwd.launches = 0
+            losses, norms, times = [], [], []
+            for _ in range(steps):
+                batch = {k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+                t0 = time.perf_counter()
+                params, opt, ef, m = step(params, opt, ef, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                times.append(time.perf_counter() - t0)
+            launches = {"attention_fwd": flash_attention.launches,
+                        "attention_bwd": flash_attention_bwd.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if launches != {"attention_fwd": 2 * L * steps, "attention_bwd": L * steps}:
+                raise AssertionError(f"6g ZeRO-{zero}: attention launches {launches}: want "
+                                     f"forward 2 x {L} x {steps}, backward {L} x {steps}")
+            bad = [x for x in losses + norms if not x == x or abs(x) == float("inf")]
+            if bad:
+                raise AssertionError(f"6g ZeRO-{zero}: non-finite losses / grad norms {bad}")
+            for t in tree_leaves(params):
+                if t.device.type != "cuda":
+                    raise AssertionError(f"6g ZeRO-{zero}: a param on {t.device}")
+            for k, n in launches.items():
+                total[k] += n
+            src = step.placed.get("source")
+            gathered = (f"; {src.gathers} window gathers a step over {src.n_windows} "
+                        f"windows ({2 * src.n_windows - 1} = forward + backward re-fetch), "
+                        f"peak gathered {src.peak_bytes} bytes (largest window "
+                        f"{max(src.window_bytes)})" if src is not None else "")
+            same = losses == phase6["losses"] and norms == phase6["grad_norms"]
+            dl = max(abs(a - b) for a, b in zip(losses, phase6["losses"]))
+            dn = max(abs(a - b) / b for a, b in zip(norms, phase6["grad_norms"]))
+            steady = statistics.median(times[1:])
+            log(f"  ZeRO-{zero}: losses {losses}; grad norms {norms}")
+            log(f"  phase 6 (mesh=None): losses {phase6['losses']}; grad norms "
+                f"{phase6['grad_norms']}")
+            log(f"  ZeRO-{zero} against phase 6: "
+                + ("bit-identical" if same else
+                   f"max |loss difference| {dl:.3e}, max relative grad-norm difference "
+                   f"{dn:.3e}"))
+            log(f"  ZeRO-{zero}: step times {[round(t, 4) for t in times]} s; steady step "
+                f"{steady:.4f} s -> {o['B'] * o['S'] / steady:.1f} training tokens/s (phase 6: "
+                f"{o['B'] * o['S'] / statistics.median(phase6['step_s'][1:]):.1f}); peak "
+                f"memory {peak:.2f} GiB; attention launches {launches} "
+                f"({launches['attention_fwd'] // steps} forward, "
+                f"{launches['attention_bwd'] // steps} backward a step over {L} layers)"
+                + gathered)
+            if not same:
+                raise AssertionError(
+                    f"6g ZeRO-{zero}: over one rank the collectives compute the identity, "
+                    f"yet the run differs from phase 6's mesh=None run: max |loss "
+                    f"difference| {dl:.3e}, max relative grad-norm difference {dn:.3e}")
+            if (src is None) != (zero == 1):
+                raise AssertionError(f"6g ZeRO-{zero}: window source {src!r}")
+            del params, opt, ef, step, m
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"== phase 6g took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def phase_gemma_train_full():
     """6f: gemma3-27b training at full width, depth 2 with pattern ``LG``
     (one sliding-window ``L`` layer, window 1024, and one global ``G``
@@ -3650,6 +3776,37 @@ def phase_planner_benches():
             raise AssertionError(f"serve leg entry {key}: {e}")
     log(f"  serve leg took {time.perf_counter() - t0:.1f} s; wrote {bench_llm_inference.OUT}")
     bench_datapath_bounds.main("cuda")
+
+
+def phase_collective_benches():
+    """9f: the collective microbenchmarks (Figs. 13, 14, 18, 19) and the
+    scale what-if.  Their measured rows are gloo ranks on the host's CPU
+    (NCCL between cards needs several cards: one skip row each)."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import bench_collectives, bench_internode, bench_pingpong
+    from repro_torch.tools import whatif_scale
+
+    log("== phase 9f: bench_pingpong, bench_internode, bench_collectives (gloo ranks on "
+        "the host's CPU) and whatif_scale --arch gemma3-27b")
+    t0 = time.perf_counter()
+    for mod, n_rows in ((bench_pingpong, 3 + 1 + 6), (bench_internode, 3 + 1 + 15),
+                        (bench_collectives, 8 + 1 + 18)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mod.main("cuda")
+        rows = buf.getvalue().splitlines()
+        if len(rows) != n_rows or not any("skipped" in r for r in rows):
+            raise AssertionError(f"9f: {mod.__name__} printed {len(rows)} rows: {rows}")
+        for r in rows:
+            log(f"  {r}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        whatif_scale.main(["--arch", "gemma3-27b"])
+    for r in buf.getvalue().splitlines():
+        log(f"  {r}")
+    log(f"== phase 9f took {time.perf_counter() - t0:.1f} s")
 
 
 def planner_against_measured(measured):
@@ -5378,7 +5535,8 @@ def phase_seamless_full():
     caches, then 32 decode steps through its decode graph, and again with a
     preemption round trip of slot 3 (nonzero cross KV) at step 16: tokens
     unchanged; (b) the 16 requests eagerly, tokens identical to (a).
-    Returns the flash_attention launches of (a) by use."""
+    Returns the flash_attention launches of (a) by use, and the decode and
+    prefill kernels' (the self-attention's)."""
     import gc
 
     import numpy as np
@@ -5450,6 +5608,9 @@ def phase_seamless_full():
     # the cross-attention's launches: per replay (counted at capture) x replays
     cross_launches = {ph: eng.graph_launches[ph]["flash_attention"] * st[f"{ph}_replays"]
                       for ph in ("decode", "prefill")}
+    # and the self-attention's
+    self_launches = {k: eng.graph_launches[ph][k] * st[f"{ph}_replays"] for ph, k in
+                     (("decode", "decode_attention"), ("prefill", "prefill_attention"))}
 
     # (d) where a decode step's and a prefill dispatch's device time goes
     t0 = time.perf_counter()
@@ -5534,7 +5695,7 @@ def phase_seamless_full():
     del eager, params, bundle
     free()
     log(f"== phase 4f took {time.perf_counter() - t_phase:.1f} s")
-    return cross_launches
+    return cross_launches, self_launches
 
 
 def phase_internvl_full():
@@ -5717,12 +5878,15 @@ def phase_a7_train_full():
     return out
 
 
-def phase_a7_times(serve_launches, train_launches, errs):
+def phase_a7_times(serve_launches, train_launches, errs, self_launches):
     """7d: ``flash_attention`` at seamless-m4t's cross-attention shapes —
     decode (8 x 16 heads, one query against 1024 frames) and a prefill
     chunk (256 queries) — and its encoder's (4 x 16 x 1024 x 1024,
     forward and backward), bidirectional, bf16, past L2, beside the plain
-    version, SDPA and the bound."""
+    version, SDPA and the bound; then the decoder's self-attention kernels
+    at 4f (d)'s shapes (decode: 8 rows of 1030 cached keys; prefill: 8 x
+    256 queries at fills 0..1792), held against their plain versions,
+    beside SDPA and the bound, with 4f (a)'s launches (``self_launches``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -5784,13 +5948,70 @@ def phase_a7_times(serve_launches, train_launches, errs):
                 ("attention_fwd", "encoder"): enc[0], ("attention_bwd", "encoder"): enc[1]}
     what = {"cross-decode": "cross, decode", "cross-chunk": "cross, prefill chunk",
             "encoder": "encoder"}
-    return [
+    rows = [
         kernel_row(f"{name} (seamless-m4t {what[tag]})",
                    "src/repro_torch/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:115" if name == "attention_fwd"
                    else "src/repro/kernels/ops.py:66", rec, launches[(name, tag)],
                    errs[(f"{name}_{tag}", "bfloat16")])
         for (name, tag), rec in recs.items()
+    ]
+    rows += seamless_self_times(self_launches)
+    return rows
+
+
+def seamless_self_times(self_launches):
+    """7d (self): the decode and prefill kernels at seamless-m4t's
+    self-attention shapes in 4f (d)'s trace, bf16, past L2: each held to
+    its plain version by ``check_close`` at ``TOL`` (the prefill's live
+    rows), timed beside it, SDPA and the bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_prefill
+
+    c = SEAMLESS
+    B, H, D, Smax, Sn = c["B"], c["H"], c["D"], c["Smax"], c["chunk"]
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, kv, L = decode_inputs(B, H, H, D, Smax, [1030] * B, dt, gen, 2)
+    dec = decode_record(q, kv, L)
+    got = flash_decode(q, *kv[0], L)
+    torch.cuda.synchronize()
+    dec_err = check_close(f"decode_attention seamless self B{B} H{H} D{D} Smax{Smax}",
+                          got, ref.decode_attention(q, *kv[0], L), "bfloat16")
+    del kv, got
+    offs = [0, 256, 512, 768, 1024, 1280, 1536, 1792]
+    q, srcs = prefill_inputs(B, H, H, D, Smax, Sn, dt, gen, 2)
+    q_pos, k_pos = prefill_positions(offs, [Sn] * B, Smax, Sn)
+    pre = prefill_record(q, srcs, q_pos, k_pos)
+    kc, vc, kn, vn = srcs[0]
+    got = flash_prefill(q, kc, vc, q_pos, k_pos, k_new=kn, v_new=vn)
+    torch.cuda.synchronize()
+    # rows with no live key are padding (the kernel gives 0, the plain
+    # version mean(V)): both sides discard them, as phase 2 does
+    rows = live_mask(q_pos, k_pos, "causal").any(-1)[:, None, :].expand(B, H, Sn)
+    pre_err = check_close(f"prefill_attention seamless self B{B} H{H} D{D} Smax{Smax} Sn{Sn}",
+                          got, ref.prefill_attention(q, torch.cat([kc, kn], 2),
+                                                     torch.cat([vc, vn], 2), q_pos, k_pos),
+                          "bfloat16", rows)
+    del srcs, got
+    torch.cuda.empty_cache()
+    for name, rec, err in (("decode_attention", dec, dec_err),
+                           ("prefill_attention", pre, pre_err)):
+        log(f"  {name} seamless self: max |error| {err:.3e} against the plain version "
+            f"(check_close, TOL bfloat16); "
+            f"{rec['bytes'] / rec['ms'] / 1e6:.1f} GB/s, {rec['flops'] / rec['ms'] / 1e9:.1f} "
+            f"TFLOP/s, {rec['ms'] / rec['library_ms']:.3f} x SDPA's {rec['library_ms']:.4f} ms")
+    return [
+        kernel_row("decode_attention (seamless-m4t self, decode)",
+                   "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:71", dec,
+                   self_launches["decode_attention"], dec_err),
+        kernel_row("prefill_attention (seamless-m4t self, prefill chunk)",
+                   "src/repro_torch/csrc/prefill_attention.cu",
+                   "src/repro/kernels/flash_attention.py:237", pre,
+                   self_launches["prefill_attention"], pre_err),
     ]
 
 
@@ -5974,7 +6195,7 @@ def main() -> int:
         )
     ]
     phase_deepseek_full()
-    cross_launches = phase_seamless_full()
+    cross_launches, seamless_self = phase_seamless_full()
     phase_internvl_full()
     server, eager, params, ssm_launches, mamba_tokens = phase_mamba_full()
     per_replay["mamba2-780m"] = copy.deepcopy(server.engine.graph_launches)
@@ -5984,17 +6205,20 @@ def main() -> int:
     phase_zamba_full()
     out, train_launches = phase_train_full()
     profile_train(out)
+    olmo_run = {k: out[k] for k in ("losses", "grad_norms", "step_s")}
     del out
     torch.cuda.empty_cache()
     rows += phase_train_times(train_launches, errs)
     rows += phase_mla_train_times(phase_mla_train_full(), errs)
-    rows += phase_a7_times(cross_launches, phase_a7_train_full(), errs)
+    rows += phase_a7_times(cross_launches, phase_a7_train_full(), errs, seamless_self)
     ssm_train_launches = phase_ssm_train_full()
     rows.append(kernel_row("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
                            "src/repro/kernels/ops.py:162", bwd_rec,
                            ssm_train_launches["ssd_scan_bwd"], bwd_err))
     e2e_launches = phase_train_e2e()
     rows += phase_pod_train_times(e2e_launches, phase_gemma_train_full(), errs)
+    for name, n in phase_mesh_train(olmo_run).items():
+        add_launches(rows, name, n)
     phase_gemm_kernel()
     rows.append(phase_gemm_study())
     torch.cuda.empty_cache()
@@ -6003,6 +6227,7 @@ def main() -> int:
     phase_calibrate()
     phase_planner_benches()
     planner_against_measured(measured)
+    phase_collective_benches()
     t10 = time.perf_counter()
     kv_rec, kv_err = phase_kv_stream_kernel()
     kv_launches, _ = phase_placed_serving()

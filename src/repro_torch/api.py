@@ -35,8 +35,14 @@ profiler on a card, its host<->device copy records within the allowance
 a compiled module's text, its ``target`` is a step callable with its role
 trees.
 
-Not ported, each named in ROADMAP: ``rules`` (A10), ``specs`` (shardings
-need a mesh, A10).
+Sharding (ported with ROADMAP A10b, training half): ``Runtime(...,
+mesh=, rules=)`` holds a mesh (a ``DeviceMesh`` over ``pod``/``data``/
+``model``, or an ``{axis: size}`` mapping where only specs are asked for)
+and the rule overlay; :meth:`Runtime.specs` returns a role's
+:class:`~repro_torch.models.sharding.PartitionSpec` tree, None without a
+mesh, as the reference's.  The training step realizes the specs
+(``train/train_step.py``); a peer or remote tier still raises at
+construction: its realization over a donor axis is ROADMAP A10c.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, Sequence
 
 import torch
 
@@ -81,7 +87,7 @@ from repro_torch.core.planner import (
     predict,
 )
 from repro_torch.core.replay import ReplayLog
-from repro_torch.models.sharding import tree_leaves
+from repro_torch.models.sharding import DEFAULT_RULES, _policy_specs, mesh_shape, tree_leaves
 
 log = logging.getLogger("repro_torch.api")
 
@@ -161,9 +167,15 @@ class Runtime:
         policy: PlacementPolicy | str | Mapping | None = None,
         *,
         system: SystemSpec | None = None,
+        mesh=None,
+        rules: Mapping | None = None,
     ):
         self.bundle = bundle
         self.device = resolve_device(device)
+        #: the mesh the specs are laid over (None: one device) and the
+        #: sharding-rule overlay
+        self.mesh = mesh
+        self._rules = dict(rules) if rules else None
         # the runtime owns the (possibly calibrated) system every pricing
         # path consumes; None adopts the process-wide active system
         self.system = system if system is not None else get_active_system()
@@ -363,7 +375,7 @@ class Runtime:
         """JSON-serializable record of what this runtime runs under."""
         return {
             "policy": json.loads(self.policy.to_json()),
-            "mesh_axes": None,
+            "mesh_axes": mesh_shape(self.mesh) or None,
             "device": str(self.device),
             "phases": {
                 name: {"picked": pl.picked, "top3": pl.table(3)}
@@ -372,6 +384,31 @@ class Runtime:
         }
 
     # -- realization -------------------------------------------------------
+    @property
+    def rules(self) -> dict:
+        """The sharding rules in force: ``DEFAULT_RULES`` under the
+        overlay."""
+        return {**DEFAULT_RULES, **(self._rules or {})}
+
+    def specs(self, role: Role | str, defs=None, *, fsdp_axes: Sequence[str] = (),
+              policy: PlacementPolicy | None = None):
+        """The PartitionSpecs realizing the policy's placement of ``role``
+        over the mesh (:func:`~repro_torch.models.sharding._policy_specs`):
+        the rules, ``fsdp_axes``, a peer/remote tier's donor axis.  ``defs``
+        defaults to the bundle's param defs for ``Role.PARAMS``.  None with
+        no mesh, the one-device path."""
+        if self.mesh is None:
+            return None
+        role = parse_role(role)
+        if defs is None:
+            if role is not Role.PARAMS:
+                raise ValueError(
+                    f"specs({role}): a def pytree is required for every role but "
+                    "PARAMS (params default to bundle.param_defs())")
+            defs = self.bundle.param_defs()
+        return _policy_specs(defs, self.mesh, self._rules, role, policy or self.policy,
+                             fsdp_axes=fsdp_axes)
+
     def realize(self, tree, role: Role | str, *, policy: PlacementPolicy | None = None):
         """``tree`` under the policy's placement of ``role``
         (:func:`~repro_torch.core.placement.place_tree`): this device's

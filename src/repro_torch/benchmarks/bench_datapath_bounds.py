@@ -16,7 +16,7 @@ Counterpart of the reference's ``benchmarks/bench_datapath_bounds.py``:
 The reference's measured peer/remote column (an in-place read over a
 donor-sharded buffer and a double-buffered ``DonorStream`` sweep) needs
 two or more devices and a donor mesh axis, which one card does not have:
-it is not ported, and a skip row says so (ROADMAP A10).
+it is not ported, and a skip row says so (ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def main(device) -> None:
     # Figs. 15-17: the generated per-policy step-time table
     policy_table()
     emit("peer_measured", 0.0,
-         "skipped: one card, no donor axis (ROADMAP A10)")
+         "skipped: one card, no donor axis (ROADMAP A10c)")
     # Table II analogue: where this device's benchmarks place buffers
     emit("memory_kinds", 0.0, "|".join(kinds(torch.device(device))))
     # the live registry: policies registered later appear automatically

@@ -12,8 +12,13 @@ modules one card measures:
   bench_managed_vs_system Fig. 4
   bench_datapath_bounds   Fig. 3, Table II, Figs. 15-17 (the policy table)
   bench_llm_inference     Fig. 17 (serve, queued and analytic legs)
+  bench_pingpong          Fig. 13 (gloo ranks on the CPU + the NVLink/IB ladder)
+  bench_internode         Fig. 14 (gloo ranks on the CPU + alpha-beta rows)
+  bench_collectives       Figs. 18, 19 (gloo ranks on the CPU + algo-bw rows)
 
-The device defaults to ``cuda``; without a card that raises.
+The device defaults to ``cuda``; without a card that raises.  The last
+three measure over gloo ranks on the CPU whatever the device (NCCL
+between cards needs several; each prints a skip row saying so).
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ MODULES = [
     "bench_managed_vs_system",
     "bench_datapath_bounds",
     "bench_llm_inference",
+    "bench_pingpong",
+    "bench_internode",
+    "bench_collectives",
 ]
 
 

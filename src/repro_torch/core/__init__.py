@@ -15,7 +15,7 @@ Counterpart of ``repro/core``:
 * :mod:`repro_torch.core.roofline`    — the three-term roofline of a counted step.
 
 The ``Runtime`` that owns them is :mod:`repro_torch.api`.  The donor
-tiers' realization needs a mesh (ROADMAP A10).
+tiers' realization needs a donor axis (ROADMAP A10c).
 """
 
 from repro_torch.core.hardware import (  # noqa: F401

@@ -35,8 +35,8 @@ dispatcher (forward, and backward when the step differentiates):
 
 ``transfers`` is filled only from a card's profiler records (the memcpy
 records of a traced window, :func:`transfers_from_trace`), never estimated:
-a meta run moves nothing.  ``collectives`` is empty on one card (the mesh
-is ROADMAP A10).
+a meta run moves nothing.  ``collectives`` is empty on one card (the dry
+run's mesh cells are ROADMAP A10b, rest).
 """
 
 from __future__ import annotations

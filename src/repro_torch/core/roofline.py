@@ -7,7 +7,7 @@ once on ``meta``, :func:`~repro_torch.core.op_analysis.analyze_step`):
 * ``compute_s``    = product FLOPs / peak bf16 FLOP/s;
 * ``memory_s``     = the must-move bytes, ``model_bytes`` / HBM bandwidth;
 * ``collective_s`` = collective wire bytes / link bandwidth: 0 on one
-  card (the mesh is ROADMAP A10).
+  card (the dry run's mesh cells are ROADMAP A10b, rest).
 
 The terms are priced on the port's :class:`~repro_torch.core.hardware.
 SystemSpec` — the H100 data sheet's 989 TFLOP/s bf16 and 3.35 TB/s, or

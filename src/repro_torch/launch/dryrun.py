@@ -14,7 +14,7 @@ stand-ins and reads the compiled module.  Here, for each cell:
    ``meta`` tensor takes the plain path of :mod:`repro_torch.kernels.ops`);
    a shape or dtype mismatch, or a data-dependent op, fails here;
 3. the record keeps the reference's keys.  ``mesh`` is ``"1"`` (one card;
-   the meshes are ROADMAP A10).  ``lower_s`` is the inputs' and the step's
+   the mesh cells are ROADMAP A10b, rest).  ``lower_s`` is the inputs' and the step's
    construction, ``compile_s`` the counting run.  ``memory_analysis``
    holds the argument and output bytes and the peak of live bytes the
    counting run tracked, an estimate (it follows the plain versions),
@@ -31,7 +31,7 @@ Usage:
     python -m repro_torch.launch.dryrun --all --out build/dryrun.json
 
 ``--multipod-only``, ``--singlepod-only`` and ``--optimized`` (whose
-cells are mesh rules) need the meshes and exit naming ROADMAP A10.
+cells are mesh rules) need the meshes and exit naming ROADMAP A10b, rest.
 """
 
 from __future__ import annotations
@@ -183,7 +183,7 @@ def main(argv=None) -> int:
     if asked:
         raise SystemExit(
             f"--{asked[0].replace('_', '-')}: the dry run's meshes (single- and multi-pod, "
-            "and the optimized cells' mesh rules) are not ported yet (ROADMAP A10); the "
+            "and the optimized cells' mesh rules) are not ported yet (ROADMAP A10b, rest); the "
             "port's dry run counts each cell on one card")
 
     archs = list_archs() if args.all or not args.arch else [args.arch]

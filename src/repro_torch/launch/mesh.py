@@ -14,12 +14,18 @@ constants — importing this module touches no process group.
 
 Throughout the port ``mesh=None`` is the one-device case with no process
 group (``Runtime(bundle, device)``, ``make_train_step(bundle, tcfg)``).
+A mesh's per-axis groups are ``mesh.get_group(axis)`` and a rank's
+coordinate on an axis ``mesh.get_local_rank(axis)``: the tensor-parallel
+layers reduce over the ``model`` group, the training step over the
+``data`` and ``pod`` groups (``models/sharding.py`` realizes the specs).
+``init_device_mesh`` makes every axis's group on every rank at
+construction, so each rank must build the same mesh.
 
 **Donor axes** (the paper's peer-memory experiments, Figs. 15-17): an axis
 named :data:`DONOR_AXIS` or :data:`REMOTE_DONOR_AXIS` marks ranks whose
 memory is donated to the computation.  :func:`make_donor_mesh` builds such
 a mesh, but nothing in the port consumes it yet: the peer and remote
-placements that would shard across it are ROADMAP A10.
+placements that would shard across it are ROADMAP A10c.
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ def make_donor_mesh(
     """Compute mesh with a leading donor axis of ``donor_size`` slices:
     :data:`DONOR_AXIS`, or :data:`REMOTE_DONOR_AXIS` with ``remote=True``;
     ``donor_size * prod(compute_shape)`` ranks.  Built, not consumed: no
-    placement of the port shards across a donor axis yet (ROADMAP A10)."""
+    placement of the port shards across a donor axis yet (ROADMAP A10c)."""
     axis = REMOTE_DONOR_AXIS if remote else DONOR_AXIS
     if donor_size < 2:
         raise ValueError(f"donor axis needs >= 2 slices, got {donor_size}")

@@ -14,20 +14,22 @@ the params, ``params=host`` keeps them there and reads them in place),
 names each role in host memory, its placement and its bytes.
 
 ``--mesh`` takes the reference's ``AxB[xC]`` spelling (``2x1x1`` is
-(pod, data, model); ``4x2`` is (data, model); ``4`` is data).  A ``pod``
-axis of several ranks trains data parallel over it: run one process per
-rank under ``torchrun`` (gloo with ``--device cpu``, nccl on cards; each
-rank drives ``cuda:<LOCAL_RANK>``), e.g.
+(pod, data, model); ``4x2`` is (data, model); ``4`` is data).  A mesh of
+several ranks trains sharded by the reference's rules (ZeRO-3 over
+``data``, Megatron tensor parallelism over ``model``, data parallel over
+``pod``; ``train/train_step.py``): run one process per rank under
+``torchrun`` (gloo with ``--device cpu``, nccl on cards; each rank drives
+``cuda:<LOCAL_RANK>``), e.g.
 
-    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
-        --arch olmo-1b --smoke --device cpu --mesh 2x1x1 --compress-pod-grads
+    torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch granite-8b --smoke --device cpu --mesh 2x2x2
 
-Each rank reads its rows of the global ``--batch`` and writes its
-checkpoints under ``<ckpt-dir>/rank_<r>`` (the ranks' error feedback
-differs).  ``--compress-pod-grads`` syncs the gradients over ``pod`` in
-int8 with error feedback; without a pod axis of several ranks it is the
-reference's no-op.  A ``data`` or ``model`` axis of more than one rank,
-``--donor`` and ``--remote-donor`` are refused (ROADMAP A10).
+Each rank reads its rows of the global ``--batch`` (``batch_shard``: the
+ranks along ``model`` read the same rows) and writes its checkpoints
+(its shards) under ``<ckpt-dir>/rank_<r>``.  ``--compress-pod-grads``
+syncs the gradients over ``pod`` in int8 with error feedback; without a
+pod axis of several ranks it is the reference's no-op.  ``--donor`` and
+``--remote-donor`` are refused (ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -48,13 +50,13 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.placement import Role, host_bytes, parse_policy
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
-from repro_torch.launch.mesh import make_mesh_for
+from repro_torch.launch.mesh import make_mesh_for, mesh_axes_dict
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.multimodal import frontend_input_defs
 from repro_torch.models.sharding import torch_dtype
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import Supervisor, SupervisorConfig
-from repro_torch.train import TrainConfig, init_train_state, make_train_step
+from repro_torch.train import TrainConfig, batch_shard, init_train_state, make_train_step
 
 log = logging.getLogger("repro_torch.train")
 
@@ -74,12 +76,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--mesh", default="1x1",
-                    help="e.g. 2x1x1 -> (pod,data,model); 4x2 -> (data,model); only "
-                         "a pod axis may have several ranks (run under torchrun)")
+                    help="e.g. 2x1x1 -> (pod,data,model); 4x2 -> (data,model); a mesh "
+                         "of several ranks runs under torchrun, one process a rank")
     ap.add_argument("--donor", type=int, default=1,
-                    help="an ICI donor axis of this size (>= 2: ROADMAP A10, refused)")
+                    help="an ICI donor axis of this size (>= 2: ROADMAP A10c, refused)")
     ap.add_argument("--remote-donor", type=int, default=1,
-                    help="a DCN donor axis of this size (>= 2: ROADMAP A10, refused)")
+                    help="a DCN donor axis of this size (>= 2: ROADMAP A10c, refused)")
     ap.add_argument("--compress-pod-grads", action="store_true",
                     help="int8 gradient sync with error feedback over the pod axis")
     ap.add_argument("--microbatches", type=int, default=1)
@@ -143,16 +145,12 @@ def rank_device(device: torch.device) -> torch.device:
 
 def make_mesh(args: argparse.Namespace, device: torch.device):
     """The run's mesh: None on one process with every axis of size 1;
-    else the ``pod`` mesh over the process group of torchrun's
-    environment (initialized here).  Raises naming ROADMAP A10 for a
-    ``data``/``model`` axis of several ranks or a donor axis."""
+    else the mesh over the process group of torchrun's environment
+    (initialized here).  Raises naming ROADMAP A10c for a donor axis."""
     dims, axes = parse_mesh(args.mesh)
-    wide = {a: n for a, n in zip(axes, dims) if a != "pod" and n > 1}
     if args.donor > 1 or args.remote_donor > 1:
-        wide.update(donor=args.donor, remote_donor=args.remote_donor)
-    if wide:
-        raise SystemExit(f"--mesh {args.mesh} with {wide}: only a pod axis is ported; "
-                         "data, model and donor axes are ROADMAP A10")
+        raise SystemExit(f"--donor {args.donor} --remote-donor {args.remote_donor}: "
+                         "donor axes (the peer and remote placements) are ROADMAP A10c")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if math.prod(dims) == 1 and world == 1:
         return None
@@ -180,9 +178,9 @@ def train(args: argparse.Namespace) -> dict:
 
 def _train(args: argparse.Namespace, device: torch.device, mesh) -> dict:
     rank = dist.get_rank() if mesh is not None else 0
-    world = dist.get_world_size() if mesh is not None else 1
-    if args.batch % world:
-        raise SystemExit(f"--batch {args.batch} does not split over {world} ranks")
+    shard, shards = batch_shard(args.batch, mesh)
+    if args.batch % shards:
+        raise SystemExit(f"--batch {args.batch} does not split over {shards} ranks")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = ModelBundle(cfg)
     text_len = args.seq if bundle.encdec else args.seq - cfg.frontend_tokens
@@ -201,8 +199,14 @@ def _train(args: argparse.Namespace, device: torch.device, mesh) -> dict:
         optimizer=AdamWConfig(lr=args.lr, warmup_steps=min(50, args.steps // 5 + 1)),
         policy=pick_policy(bundle, args, device),
     )
-    log.info("training under placement policy %s%s", tcfg.policy,
-             f", rank {rank} of {world} on the pod axis" if mesh is not None else "")
+    if mesh is None:
+        where = ""
+    elif mesh_axes_dict(mesh).get("pod", 1) == dist.get_world_size():
+        where = f", rank {rank} of {dist.get_world_size()} on the pod axis"
+    else:
+        where = (f", rank {rank} of {dist.get_world_size()} on the mesh "
+                 f"{mesh_axes_dict(mesh)}, batch rows {shard} of {shards}")
+    log.info("training under placement policy %s%s", tcfg.policy, where)
     gen = torch.Generator(device=device).manual_seed(0)
     params, opt_state, ef = init_train_state(bundle, gen, tcfg, mesh)
     log_host_roles(tcfg.policy, params, opt_state)
@@ -216,10 +220,10 @@ def _train(args: argparse.Namespace, device: torch.device, mesh) -> dict:
     # passes no stubs)
     front = frontend_input_defs(cfg, args.batch)
     stub_gen = torch.Generator(device=device) if front else None
-    rows = slice(rank * args.batch // world, (rank + 1) * args.batch // world)
+    rows = slice(shard * args.batch // shards, (shard + 1) * args.batch // shards)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=text_len,
                                   global_batch=args.batch),
-                       process_index=rank, process_count=world)
+                       process_index=shard, process_count=shards)
     it = Prefetcher(data)
     ckpt = Checkpointer(args.ckpt_dir if mesh is None
                         else os.path.join(args.ckpt_dir, f"rank_{rank}"))

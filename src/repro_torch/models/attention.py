@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs import AttentionSpec
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import CopyToModel, model_split, rope, row_parallel
 from repro_torch.models.sharding import Param
 
 
@@ -172,16 +172,56 @@ def _gqa_project(params, x, spec, positions, code):
     return rope(q, positions, th), rope(k, positions, th), v
 
 
+def _local_heads(params, spec: AttentionSpec, tp) -> dict:
+    """The layer's params as a rank of a ``model`` axis that splits the
+    query heads computes on: ``w_q``/``w_o`` are its shards already;
+    ``w_k``/``w_v`` too when the kv heads split, else (the divisibility
+    drop replicates them) the contiguous kv heads its query heads map to,
+    sliced so that the GQA group stays whole.  A replicated leaf a rank
+    uses in part (those slices, the q/k norms over its heads) passes
+    :class:`~repro_torch.models.layers.CopyToModel`, which sums its
+    gradient over the group.  Raises ``NotImplementedError`` when the
+    rank's query heads straddle GQA groups."""
+    group, m, rank = tp
+    out = dict(params)
+    for k in ("q_norm", "k_norm"):
+        if k in out:
+            out[k] = CopyToModel.apply(out[k], group)
+    if model_split("kv_heads", spec.n_kv_heads) is not None:
+        return out
+    hq, g = spec.n_heads // m, spec.n_heads // spec.n_kv_heads
+    if g % hq:
+        raise NotImplementedError(
+            f"{spec.n_heads} query heads over a {m}-rank model axis put {hq} on a "
+            f"rank, which straddle the GQA groups of {g} around the "
+            f"{spec.n_kv_heads} replicated kv heads: not ported (ROADMAP A10b, rest)")
+    j = rank * hq // g
+    for k in ("w_k", "w_v"):
+        out[k] = CopyToModel.apply(params[k], group)[:, j:j + 1]
+    return out
+
+
 def gqa_train(params, x, spec: AttentionSpec, code: str):
-    """Full-sequence attention; x (B,S,D)."""
+    """Full-sequence attention; x (B,S,D).  Under a mesh whose ``model``
+    axis splits the query heads (Megatron), each rank projects and
+    attends its own heads (:func:`_local_heads`) through the same kernel,
+    and ``w_o``'s row-parallel product sums the heads over the group."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    tp = model_split("heads", spec.n_heads)
+    if tp is not None:
+        params = _local_heads(params, spec, tp)
+        x = CopyToModel.apply(x, tp[0])
     q, k, v = _gqa_project(params, x, spec, positions, code)
     o = ops.attention(
         q, k, v,
         kind=_mask_kind(code), window=spec.window, chunk=spec.chunk,
     )
-    return _merge_heads(o, params["w_o"])
+    if tp is None:
+        return _merge_heads(o, params["w_o"])
+    B, H, S, k = o.shape
+    return row_parallel(o.transpose(1, 2).reshape(B, S, H * k),
+                        params["w_o"].reshape(H * k, -1), tp[0])
 
 
 def _ring_positions(offsets: torch.Tensor, size: int) -> torch.Tensor:

@@ -3,15 +3,113 @@
 Counterpart of ``repro/models/layers.py``.  Every layer is a
 (param-defs function, apply fn) pair over plain dict pytrees; compute is in
 the model dtype with float32 normalization statistics.
+
+Tensor parallelism (Megatron) over the ``model`` axis of the mesh that
+:func:`~repro_torch.models.sharding.use_sharding` installed, where the
+reference's ``shard`` constraints let XLA insert the collectives: a layer
+whose rules split its weights over ``model`` (:func:`model_split`) runs on
+its rank's shard between Megatron's two operators, :class:`CopyToModel`
+(identity forward, all-reduce backward) and the all-reduce forward of
+:class:`ReduceFromModel` / :func:`row_parallel` (identity backward).
+Every rank computes the same residual stream and the same loss, so a leaf
+that a rank uses whole and in full (a norm's scale) gets its whole
+gradient there, and a replicated leaf a rank uses only in part (a query
+norm over its heads) goes through :class:`CopyToModel` too.  The sums run
+in float32: 16-bit partials are added as a one-device product accumulates
+them.  ``apply_mlp`` (column-parallel ``w_gate``/``w_up``, row-parallel
+``w_down``), ``apply_embed`` (a vocab-parallel lookup) and
+``fused_cross_entropy`` (logits split on vocab, the max, the sum of
+exponentials and the gold logit reduced over ``model``) take the global
+width of their split dim (``d_ff=``, ``vocab=``); without it, or without
+a mesh, they run whole, as on one device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.sharding import Param
+from repro_torch.models.sharding import P, Param, current_mesh, mesh_shape, spec_for
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the mesh's ``model`` axis
+# ---------------------------------------------------------------------------
+
+def model_split(name: str, dim: int | None):
+    """(group, ranks, rank) of the current mesh's ``model`` axis when the
+    rules split a ``dim``-wide logical axis ``name`` over it; None when
+    that dim stays whole (no mesh, a one-rank axis, ``dim`` None, or the
+    divisibility drop)."""
+    mesh = current_mesh()
+    if mesh is None or dim is None or mesh_shape(mesh).get("model", 1) < 2:
+        return None
+    if spec_for((dim,), (name,), mesh) != P("model"):
+        return None
+    return (mesh.get_group("model"), mesh_shape(mesh)["model"],
+            mesh.get_local_rank("model"))
+
+
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, added in float32, in x's dtype."""
+    y = x.float() if x.dtype != torch.float32 else x.clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: identity forward; the backward sums the gradient
+    over the model group (each rank's part of a replicated input's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: the sum over the model group forward; identity
+    backward (every rank holds the whole gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RowParallel(torch.autograd.Function):
+    """``x2 @ w`` with ``w``'s rows split over the model group: each rank's
+    partial product in float32, summed over the group, cast to x2's dtype;
+    the backward is the product's (identity for the sum)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, group):
+        ctx.save_for_backward(x2, w)
+        y = head_product(x2, w)
+        dist.all_reduce(y, group=group)
+        return y.to(x2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ w.T, x2.T @ g, None
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """(..., k) x (k, n) -> (..., n) over a row-split ``w`` (see
+    :class:`_RowParallel`)."""
+    lead = x.shape[:-1]
+    return _RowParallel.apply(x.reshape(-1, x.shape[-1]), w, group).reshape(*lead, w.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -55,9 +153,21 @@ def embed_defs(vocab: int, d: int) -> dict:
     return {"embedding": Param((vocab, d), ("vocab", "embed"), scale=0.02)}
 
 
-def apply_embed(params: dict, tokens: torch.Tensor, *, scale: bool = False):
+def apply_embed(params: dict, tokens: torch.Tensor, *, scale: bool = False,
+                vocab: int | None = None):
+    """The rows of ``tokens``; with ``vocab`` split over ``model`` a rank
+    looks up the rows it holds, zeros the others, and the sum over the
+    group completes every row (exactly: one term is not zero)."""
     e = params["embedding"]
-    out = e[tokens.long()]
+    tp = model_split("vocab", vocab)
+    if tp is None:
+        out = e[tokens.long()]
+    else:
+        n = e.shape[0]
+        ids = tokens.long() - tp[2] * n
+        hit = (ids >= 0) & (ids < n)
+        out = ReduceFromModel.apply(e[ids.clamp(0, n - 1)] * hit[..., None].to(e.dtype),
+                                    tp[0])
     if scale:
         out = out * torch.tensor(e.shape[1] ** 0.5, dtype=out.dtype)
     return out
@@ -131,24 +241,44 @@ def fused_cross_entropy(
     x: torch.Tensor,          # (B, S, d) final hidden states
     labels: torch.Tensor,     # (B, S)
     block: int = 512,
+    *,
+    vocab: int | None = None,
 ) -> torch.Tensor:
     """Head projection fused into a seq-chunked CE.
 
     Never materializes the full (B, S, V) f32 logits: one (B, block, V)
     slab lives at a time and is recomputed in the backward
     (``checkpoint``).  The projection keeps the head in the model dtype
-    with f32 accumulation (:func:`head_product`).
+    with f32 accumulation (:func:`head_product`).  With ``vocab`` split
+    over ``model`` a rank's slab holds its vocab columns only: their max
+    (a stabilizer, no gradient), sum of exponentials and gold logit are
+    reduced over the group, so no rank ever holds a full row of logits.
     """
     w = _head_weight(params, embed_params)
     B, S, d = x.shape
     blk = min(block, S)
     if S % blk:
         blk = S
+    tp = model_split("vocab", vocab)
+    if tp is not None:
+        x = CopyToModel.apply(x, tp[0])
 
     def one(xs, ls):
         logits = head_product(xs.reshape(-1, d), w)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ls.reshape(-1, 1).long())[:, 0]
+        if tp is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, ls.reshape(-1, 1).long())[:, 0]
+            return torch.sum(logz - gold)
+        group, _, rank = tp
+        n = logits.shape[1]
+        mx = logits.detach().amax(dim=-1, keepdim=True)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        logz = mx[:, 0] + torch.log(ReduceFromModel.apply(
+            torch.sum(torch.exp(logits - mx), dim=-1), group))
+        ids = ls.reshape(-1, 1).long() - rank * n
+        hit = (ids[:, 0] >= 0) & (ids[:, 0] < n)
+        gold = ReduceFromModel.apply(
+            torch.gather(logits, -1, ids.clamp(0, n - 1))[:, 0] * hit, group)
         return torch.sum(logz - gold)
 
     total = sum(
@@ -203,7 +333,15 @@ ACTS = {
 }
 
 
-def apply_mlp(params: dict, x: torch.Tensor, act: str = "silu"):
+def apply_mlp(params: dict, x: torch.Tensor, act: str = "silu", *,
+              d_ff: int | None = None):
+    """The gated MLP; with ``d_ff`` split over ``model``, column-parallel
+    ``w_gate``/``w_up`` and row-parallel ``w_down``."""
+    tp = model_split("d_ff", d_ff)
+    if tp is not None:
+        x = CopyToModel.apply(x, tp[0])
+        h = ACTS[act](x @ params["w_gate"]) * (x @ params["w_up"])
+        return row_parallel(h, params["w_down"], tp[0])
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     return (ACTS[act](g) * u) @ params["w_down"]

@@ -172,6 +172,29 @@ class ModelBundle(ModelSizing):
                 f"{cfg.name}: only GQA and MLA attention are ported (ROADMAP queue A)"
             )
 
+    def check_model_axis(self, ranks: int) -> None:
+        """Raise ``NotImplementedError`` for a ``model`` axis of ``ranks`` > 1
+        over a family whose layers the port does not split yet: the
+        tensor-parallel layers are the dense decoder's GQA attention, MLP,
+        embedding and head (ROADMAP A10b, rest)."""
+        if ranks < 2:
+            return
+        cfg, what = self.cfg, []
+        if cfg.moe is not None:
+            what.append("MoE experts")
+        if set(cfg.layer_codes()) & {"M", "S"}:
+            what.append("M/S layers (ssm_heads, d_inner)")
+        if cfg.attention is not None and cfg.attention.kind == "mla":
+            what.append("MLA")
+        if self.encdec:
+            what.append("the encoder-decoder")
+        elif cfg.frontend != "none":
+            what.append("the VLM")
+        if what:
+            raise NotImplementedError(
+                f"{cfg.name}: a {ranks}-rank model axis over {', '.join(what)} is not "
+                "ported yet (ROADMAP A10b, rest); a data or pod axis trains it")
+
     # -- defs ----------------------------------------------------------------
     def param_defs(self):
         if self.encdec:

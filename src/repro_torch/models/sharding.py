@@ -1,18 +1,49 @@
-"""Parameter definitions and their materialization as tensors.
+"""Logical-axis sharding, parameter definitions and their materialization.
 
-Counterpart of the ``Param`` / ``materialize`` / ``stack_defs`` half of
-``repro/models/sharding.py``.  The port runs on one device, so there is no
-mesh and no logical-axis rule table: the axes stay on each ``Param`` only
-so that the defs read like the reference's.  Pytrees are plain nested
-dicts and lists, the same shapes as the reference's, so carrying weights
-across is a tree map (:mod:`repro_torch.convert`).
+Counterpart of ``repro/models/sharding.py``.  Tensors are annotated with
+*logical* axis names ("batch", "heads", "d_ff", "vocab", ...) and a
+swappable rule table (:data:`DEFAULT_RULES`, overlaid by ``rules``) maps
+those to mesh axes (:func:`spec_for`).  A rule is dropped for a tensor
+dimension it does not divide (kv_heads = 2 over a 4-way ``model`` axis:
+the kv heads are replicated) and for axes absent from the mesh.  Specs
+are the port's own :class:`PartitionSpec`, a plain tuple; a mesh is a
+:class:`torch.distributed.device_mesh.DeviceMesh` or, where only the axis
+sizes matter (the specs), any ``{axis: size}`` mapping.
+
+The reference realizes a spec by handing it to XLA, whose SPMD
+partitioner inserts the collectives.  The port realizes it by hand:
+:func:`local_shape`, :func:`shard_of` (a rank's slice of a full tensor),
+:func:`gather_full`, and the packed collectives the training step and the
+ZeRO-3 window source use (:func:`all_gather_leaves`,
+:func:`reduce_scatter_leaves`).  So the reference's ``shard(x, *axes)``
+and ``shard_defs`` (``with_sharding_constraint``) have no counterpart as
+constraints: at each of their call sites the port places the explicit
+collective instead — Megatron's two operators over the ``model`` group
+in ``models/layers.py`` and ``models/attention.py``, the ZeRO-3 window
+gathers and gradient reduce-scatters in ``models/transformer.py``
+(:class:`~repro_torch.models.transformer.GatheredWindows`), the data
+reduction in ``train/train_step.py``.  ``donor_extend`` and
+``_policy_specs`` compute specs over a donor axis; nothing realizes a
+peer or remote tier yet (ROADMAP A10c).
+
+Pytrees are plain nested dicts and lists, the same shapes as the
+reference's, so carrying weights across is a tree map
+(:mod:`repro_torch.convert`); a :class:`PartitionSpec` is a leaf.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
+import math
+import threading
+from typing import Mapping, Sequence
 
 import torch
+import torch.distributed as dist
+
+log = logging.getLogger("repro_torch.models.sharding")
 
 DTYPES = {
     "float32": torch.float32,
@@ -28,6 +59,412 @@ def torch_dtype(dtype) -> torch.dtype:
     return DTYPES[str(dtype)]
 
 
+# ---------------------------------------------------------------------------
+# Rules and specs
+# ---------------------------------------------------------------------------
+
+#: default rules — the reference's baseline: TP over the fast 'model'
+#: axis, DP over 'data'+'pod', no FSDP, no sequence parallelism.
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "seq": (),
+    "kv_seq": (),
+    "embed": (),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": (),
+    "d_ff": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "expert_cap": (),
+    "lora": (),
+    "ssm_heads": ("model",),
+    "d_inner": ("model",),
+    "state": (),
+    "conv": (),
+    "layers": (),
+    "fsdp": (),       # extra param-dim sharding axis; () = ZeRO off
+}
+
+
+class PartitionSpec(tuple):
+    """One entry per leading tensor dim: None (whole), a mesh axis name,
+    or a tuple of names (split over their product, the first the major
+    one).  Trailing whole dims are dropped, as the reference's are."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{axis: size}`` of a ``DeviceMesh`` with named dims or of a
+    mapping; ``{}`` for None."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: dict[str, tuple[str, ...]] = dict(DEFAULT_RULES)
+
+
+_CTX = _Ctx()
+
+
+def _overlay(rules) -> dict[str, tuple[str, ...]]:
+    return {**DEFAULT_RULES, **{
+        k: tuple(v) if isinstance(v, (list, tuple)) else v
+        for k, v in rules.items()
+    }}
+
+
+@contextlib.contextmanager
+def use_sharding(mesh, rules: Mapping[str, Sequence[str]] | None = None):
+    """Install mesh + rules for the layers' model-axis collectives (the
+    reference's trace-time constraint resolution)."""
+    old_mesh, old_rules = _CTX.mesh, _CTX.rules
+    _CTX.mesh = mesh
+    if rules is not None:
+        _CTX.rules = _overlay(rules)
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = old_mesh, old_rules
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def current_rules() -> dict[str, tuple[str, ...]]:
+    return _CTX.rules
+
+
+def spec_for(
+    shape: Sequence[int],
+    axes: Sequence[str | None],
+    mesh=None,
+    rules: Mapping[str, Sequence[str]] | None = None,
+) -> PartitionSpec:
+    """PartitionSpec for ``shape`` under the rules, divisibility-checked.
+
+    ``rules`` is an OVERLAY on DEFAULT_RULES — callers pass only the
+    overrides (e.g. {"seq": ("model",)}) without losing the TP rules.
+    """
+    mesh = mesh if mesh is not None else _CTX.mesh
+    rules = _CTX.rules if rules is None else _overlay(rules)
+    if mesh is None:
+        return P()
+    mesh_axes = mesh_shape(mesh)
+    used: set[str] = set()
+    out = []
+    for dim, name in zip(shape, axes):
+        assigned: list[str] = []
+        if name:
+            size = 1
+            for m in rules.get(name, ()):
+                if m not in mesh_axes or m in used:
+                    continue
+                if dim % (size * mesh_axes[m]) != 0:
+                    continue
+                assigned.append(m)
+                size *= mesh_axes[m]
+        used.update(assigned)
+        out.append(tuple(assigned) if len(assigned) > 1
+                   else (assigned[0] if assigned else None))
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def fsdp_extend(
+    spec: PartitionSpec,
+    shape: Sequence[int],
+    mesh,
+    fsdp_axes: Sequence[str],
+    logical_axes: Sequence[str | None] | None = None,
+    prefer_stack: bool = False,
+) -> PartitionSpec:
+    """ZeRO-style extra sharding: place ``fsdp_axes`` on the first dim the
+    base spec leaves unsharded and that they divide, so that per-rank
+    residency of params and optimizer state scales with the data axis.
+
+    The stacked ``layers`` dim is skipped when any other dim qualifies (a
+    window of a layer stays a slice of every rank's shard);
+    ``prefer_stack=True`` flips that preference (donor-axis streaming
+    wants whole layers on the donor slices).
+    """
+    mesh_axes = mesh_shape(mesh)
+    fsdp_axes = [a for a in fsdp_axes if a in mesh_axes]
+    if not fsdp_axes:
+        return spec
+    size = math.prod(mesh_axes[a] for a in fsdp_axes)
+    if any(a in spec_axes(spec) for a in fsdp_axes):
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    candidates = [
+        i for i, dim in enumerate(shape)
+        if entries[i] is None and dim % size == 0 and dim >= size
+    ]
+    layer = [
+        i for i in candidates
+        if logical_axes and i < len(logical_axes)
+        and logical_axes[i] == "layers"
+    ]
+    non_layer = [i for i in candidates if i not in layer]
+    ordered = layer + non_layer if prefer_stack else non_layer + layer
+    if not ordered:
+        return spec
+    entries[ordered[0]] = tuple(fsdp_axes) if len(fsdp_axes) > 1 else fsdp_axes[0]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+def donor_extend(
+    spec: PartitionSpec,
+    shape: Sequence[int],
+    mesh,
+    donor_axes: Sequence[str],
+    logical_axes: Sequence[str | None] | None = None,
+    prefer_stack: bool = False,
+) -> PartitionSpec:
+    """Extend ``spec`` over the donor axes (peer/remote realization): the
+    mechanics of :func:`fsdp_extend`; ``prefer_stack=True`` targets the
+    stacked ``layers`` dim first, so each streamed window is one layer."""
+    return fsdp_extend(spec, shape, mesh, donor_axes, logical_axes, prefer_stack)
+
+
+def spec_axes(spec: PartitionSpec) -> set[str]:
+    """Every mesh-axis name a PartitionSpec references (tuples flattened)."""
+    out: set[str] = set()
+    for e in spec:
+        out.update(e if isinstance(e, tuple) else [e])
+    out.discard(None)
+    return out
+
+
+def defs_to_specs(
+    defs,
+    mesh,
+    rules=None,
+    fsdp_axes: Sequence[str] = (),
+    donor_axes: Sequence[str] = (),
+    donor_prefer_stack: bool = False,
+):
+    """Param-def pytree -> PartitionSpec pytree (the reference's
+    NamedShardings without their memory kind, which the
+    :class:`~repro_torch.api.Runtime` realizes per role).  ``donor_axes``
+    is applied after ``fsdp_axes``, so the two compose onto different
+    dims."""
+    def one(p: Param):
+        spec = spec_for(p.shape, p.axes, mesh, rules)
+        if fsdp_axes:
+            spec = fsdp_extend(spec, p.shape, mesh, fsdp_axes, p.axes)
+        if donor_axes:
+            spec = donor_extend(spec, p.shape, mesh, donor_axes, p.axes,
+                                prefer_stack=donor_prefer_stack)
+        return spec
+
+    return tree_map(one, defs)
+
+
+def _policy_specs(defs, mesh, rules, role, policy, fsdp_axes: Sequence[str] = ()):
+    """The PartitionSpecs realizing ``policy``'s placement of ``role``:
+    the rules, ``fsdp_axes`` and, for a peer/remote tier, the donor mesh
+    axes that would hold the bytes.  Raises
+    :class:`~repro_torch.core.placement.DonorAxisError` when the mesh
+    cannot realize the tier.  Reached through
+    :meth:`repro_torch.api.Runtime.specs`."""
+    from repro_torch.core.placement import Strategy, donor_axes_for
+
+    pl = policy.placement(role)
+    donor = donor_axes_for(mesh_shape(mesh), pl.tier)
+    specs = defs_to_specs(
+        defs, mesh, rules, fsdp_axes=fsdp_axes, donor_axes=donor,
+        donor_prefer_stack=pl.strategy is Strategy.STREAM,
+    )
+    if donor:
+        local = sum(1 for s in tree_leaves(specs) if not spec_axes(s) & set(donor))
+        if local:
+            log.warning(
+                "policy %s/%s: %d of %d tensors could not be donor-sharded over "
+                "%s (no divisible free dim) and stay in local memory — donor-pool "
+                "capacity accounting is optimistic for them",
+                policy.name, role.value, local, len(tree_leaves(specs)), donor)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Realizing a spec over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def shard_dim(spec: PartitionSpec, axis: str) -> int | None:
+    """The dim whose spec entry names ``axis``; None when none does."""
+    for i, e in enumerate(spec):
+        if axis in entry_axes(e):
+            return i
+    return None
+
+
+def local_shape(shape: Sequence[int], spec: PartitionSpec, mesh) -> tuple[int, ...]:
+    """The shape of one rank's shard of a ``shape`` tensor under ``spec``."""
+    sizes = mesh_shape(mesh)
+    out = list(shape)
+    for i, e in enumerate(spec):
+        n = math.prod(sizes[a] for a in entry_axes(e))
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split over {e!r} ({n})")
+        out[i] //= n
+    return tuple(out)
+
+
+def shard_of(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """This rank's slice of the full tensor ``x`` under ``spec`` (a view):
+    along a dim split over axes (a1, a2, ...) the shard index is the
+    row-major index of the rank's coordinates on them."""
+    sizes = mesh_shape(mesh)
+    for i, e in enumerate(spec):
+        idx = 0
+        for a in entry_axes(e):
+            idx = idx * sizes[a] + mesh.get_local_rank(a)
+        n = math.prod(sizes[a] for a in entry_axes(e))
+        if n > 1:
+            part = x.shape[i] // n
+            x = x.narrow(i, idx * part, part)
+    return x
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    buf = x.new_empty((n, *x.shape))
+    dist.all_gather(list(buf.unbind(0)), x.contiguous(), group=group)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return buf.movedim(0, dim).reshape(shape)
+
+
+def gather_full(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """The full tensor from each rank's shard ``x`` under ``spec``: an
+    all-gather over every axis it names (the minor axis of a tuple entry
+    first)."""
+    sizes = mesh_shape(mesh)
+    for i, e in enumerate(spec):
+        for a in reversed(entry_axes(e)):
+            if sizes[a] > 1:
+                x = _gather_dim(x, i, mesh.get_group(a), sizes[a])
+    return x
+
+
+#: byte alignment of each leaf in a packed buffer (any dtype views it)
+_ALIGN = 16
+
+
+def padded(nbytes: int) -> int:
+    """``nbytes`` rounded up to the packing alignment."""
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+#: the most bytes one packed collective carries: a longer list of leaves
+#: goes in buckets of consecutive leaves, so the pack, its receive buffer
+#: and (reducing) the f32 copy stay this size whatever the tree's
+BUCKET_BYTES = 256 << 20
+
+
+def _buckets(xs, idx: list[int], per_elem: int | None = None) -> list[list[int]]:
+    """``idx`` cut into runs of consecutive leaves of at most
+    :data:`BUCKET_BYTES` each (a larger leaf alone); ``per_elem``: the
+    bytes an element counts (its own size by default)."""
+    out, cur, size = [], [], 0
+    for i in idx:
+        nb = xs[i].numel() * (per_elem or xs[i].element_size())
+        if cur and size + nb > BUCKET_BYTES:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += nb
+    return out + ([cur] if cur else [])
+
+
+def all_gather_leaves(xs: Sequence[torch.Tensor], dims: Sequence[int | None], mesh,
+                      axis: str, outs: Sequence[torch.Tensor] | None = None) -> list:
+    """Each ``xs[i]`` gathered over ``axis`` along ``dims[i]`` (None: kept
+    as it is) by one all-gather of the leaves' packed bytes a bucket
+    (:data:`BUCKET_BYTES`).  ``outs``: tensors of the gathered shapes to
+    write into (a window source's slot views); else new tensors."""
+    n, group = mesh_shape(mesh)[axis], mesh.get_group(axis)
+    res = list(xs)
+    for idx in _buckets(xs, [i for i, d in enumerate(dims) if d is not None]):
+        sizes = [xs[i].numel() * xs[i].element_size() for i in idx]
+        flat = torch.zeros(sum(padded(b) for b in sizes), dtype=torch.uint8,
+                           device=xs[idx[0]].device)
+        off = 0
+        for i, nb in zip(idx, sizes):
+            flat[off:off + nb].copy_(xs[i].contiguous().reshape(-1).view(torch.uint8))
+            off += padded(nb)
+        buf = flat.new_empty((n, flat.numel()))
+        dist.all_gather(list(buf.unbind(0)), flat, group=group)
+        off = 0
+        for i, nb in zip(idx, sizes):
+            x, d = xs[i], dims[i]
+            part = buf[:, off:off + nb].view(x.dtype).view(n, *x.shape).movedim(0, d)
+            if outs is not None:
+                outs[i].view(*x.shape[:d], n, *x.shape[d:]).copy_(part)
+                res[i] = outs[i]
+            else:
+                res[i] = part.reshape(*x.shape[:d], n * x.shape[d], *x.shape[d + 1:])
+            off += padded(nb)
+    return res
+
+
+def reduce_scatter_leaves(xs: Sequence[torch.Tensor], dims: Sequence[int | None], mesh,
+                          axis: str) -> list:
+    """The f32 sums over ``axis`` of the ranks' ``xs``: a leaf with a dim
+    comes back as this rank's shard of its sum along that dim (one
+    reduce-scatter a bucket of them, :data:`BUCKET_BYTES` of f32), a
+    leaf without one whole (one all-reduce a bucket of those)."""
+    n, group = mesh_shape(mesh)[axis], mesh.get_group(axis)
+    res: list = [None] * len(xs)
+    for idx in _buckets(xs, [i for i, d in enumerate(dims) if d is not None], 4):
+        rows = []
+        for i in idx:
+            x, d = xs[i].float(), dims[i]
+            rows.append(x.reshape(*x.shape[:d], n, x.shape[d] // n, *x.shape[d + 1:])
+                        .movedim(d, 0).reshape(n, -1))
+        send = torch.cat(rows, dim=1)
+        out = send.new_empty(send.shape[1])
+        dist.reduce_scatter(out, list(send.unbind(0)), group=group)
+        for i, part in zip(idx, out.split([r.shape[1] for r in rows])):
+            shape = list(xs[i].shape)
+            shape[dims[i]] //= n
+            res[i] = part.view(shape)
+    for idx in _buckets(xs, [i for i, d in enumerate(dims) if d is None], 4):
+        flat = torch.cat([xs[i].float().reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, part in zip(idx, flat.split([xs[i].numel() for i in idx])):
+            res[i] = part.view(xs[i].shape)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Param:
     """Declarative parameter: shape + logical axes + init scale.
@@ -54,7 +491,7 @@ def tree_map(fn, tree, *rest):
     """
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
@@ -64,7 +501,7 @@ def tree_leaves(tree) -> list:
     """Leaves in the order :func:`tree_map` visits them."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
         return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 

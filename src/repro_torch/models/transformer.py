@@ -46,7 +46,16 @@ from repro_torch.models.layers import (
     fused_cross_entropy,
     norm_defs,
 )
-from repro_torch.models.sharding import Param, stack_defs, tree_leaves, tree_map
+from repro_torch.models.sharding import (
+    Param,
+    all_gather_leaves,
+    mesh_shape,
+    padded,
+    reduce_scatter_leaves,
+    stack_defs,
+    tree_leaves,
+    tree_map,
+)
 
 #: layer codes ported so far
 LAYER_CODES = ("F", "L", "G", "C", "M", "S")
@@ -61,6 +70,13 @@ def _check_code(code: str) -> None:
         raise NotImplementedError(
             f"layer code {code!r} is not ported yet (ROADMAP queue A)"
         )
+
+
+def _dense_ff(cfg: ArchConfig) -> int:
+    """The width of a dense layer's MLP."""
+    if cfg.moe is not None and cfg.moe.dense_d_ff:
+        return cfg.moe.dense_d_ff
+    return cfg.d_ff
 
 
 def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
@@ -78,10 +94,7 @@ def _layer_defs(cfg: ArchConfig, code: str, layer_idx: int) -> dict:
     if cfg.moe is not None and cfg.moe.is_moe_layer(layer_idx):
         defs["moe"] = moe_mod.moe_defs(d, cfg.moe)
     else:
-        ff = cfg.d_ff
-        if cfg.moe is not None and cfg.moe.dense_d_ff:
-            ff = cfg.moe.dense_d_ff
-        defs["mlp"] = mlp_defs(d, ff)
+        defs["mlp"] = mlp_defs(d, _dense_ff(cfg))
     return defs
 
 
@@ -168,7 +181,7 @@ def _apply_layer_train(cfg, code, lp, x, emb0, shared):
     if "moe" in lp:
         out, aux = moe_mod.apply_moe(lp["moe"], h, cfg.moe, cfg.act)
         return x + out, aux
-    return x + apply_mlp(lp["mlp"], h, cfg.act), None
+    return x + apply_mlp(lp["mlp"], h, cfg.act, d_ff=_dense_ff(cfg)), None
 
 
 def _attn_step(params, h, cache, lengths, spec, code, mode, new_lens):
@@ -282,7 +295,7 @@ def _run_stages_train(cfg, params, x, remat: str):
 
 
 # ---------------------------------------------------------------------------
-# Training over windows of a host-placed params tree
+# Training over windows of a host-placed or ZeRO-3-sharded params tree
 # ---------------------------------------------------------------------------
 
 class ParamViews:
@@ -302,6 +315,85 @@ class ParamViews:
 
     def finish(self) -> None:
         pass
+
+
+class GatheredWindows:
+    """ZeRO-3's window source: the windows of a params tree whose leaves
+    are this rank's shards over the mesh's ``data`` axis, each gathered
+    whole into one of two device slots when the step asks for it — the forward sweep, then the backward's re-fetch, last window
+    first — by one all-gather of the window's packed bytes
+    (:func:`~repro_torch.models.sharding.all_gather_leaves`); and
+    :meth:`reduce`, which reduce-scatters a window's gradients into the
+    rank's shards (a leaf the axis leaves whole is all-reduced), what the
+    reference's ``shard_defs`` inside its scan bodies does.  The device
+    holds the shards plus at most two gathered windows
+    (:attr:`peak_bytes`) and the all-gather's receive buffer of one.
+
+    ``dims`` has the windows' structure: per leaf the dim ``data`` splits,
+    or None for a leaf every rank holds whole (used as it is).
+    """
+
+    #: the device slots; a window's slot is free again two windows later
+    DEPTH = 2
+
+    def __init__(self, windows: list, dims: list, mesh):
+        self.windows, self.n_windows, self.mesh = windows, len(windows), mesh
+        n = mesh_shape(mesh)["data"]
+        self._leaves = [tree_leaves(w) for w in windows]
+        # dims in each window's own leaf order (dict entries match by key)
+        self._dims = [tree_leaves(tree_map(lambda _, d: d, w, dw))
+                      for w, dw in zip(windows, dims, strict=True)]
+        self._offsets, self.window_bytes = [], []
+        for ls, ds in zip(self._leaves, self._dims, strict=True):
+            offs, end = [], 0
+            for t, d in zip(ls, ds, strict=True):
+                offs.append(None if d is None else end)
+                if d is not None:
+                    end += padded(n * t.numel() * t.element_size())
+            self._offsets.append(offs)
+            self.window_bytes.append(end)
+        self._n = n
+        self._slots: list[torch.Tensor] | None = None
+        self._held: dict[int, int] = {}
+        #: the most gathered bytes held at once; the windows gathered
+        self.peak_bytes, self.gathers = 0, 0
+
+    def begin(self, reverse: bool = False) -> None:
+        self._held.clear()
+
+    def window(self, i: int):
+        """Window ``i`` whole: its split leaves gathered into slot ``i %
+        DEPTH`` (the window that held it before is done with)."""
+        slot = i % self.DEPTH
+        leaves, dims = self._leaves[i], self._dims[i]
+        if self._slots is None:
+            dev = self._leaves[0][0].device
+            self._slots = [torch.empty(max(self.window_bytes), dtype=torch.uint8,
+                                       device=dev) for _ in range(self.DEPTH)]
+        outs = []
+        for t, d, off in zip(leaves, dims, self._offsets[i]):
+            if d is None:
+                outs.append(None)
+                continue
+            shape = list(t.shape)
+            shape[d] *= self._n
+            nbytes = t.numel() * t.element_size() * self._n
+            outs.append(self._slots[slot][off:off + nbytes].view(t.dtype).view(shape))
+        got = all_gather_leaves(leaves, dims, self.mesh, "data", outs)
+        self._held[slot] = self.window_bytes[i]
+        self.peak_bytes = max(self.peak_bytes, sum(self._held.values()))
+        self.gathers += 1
+        it = iter(got)
+        return tree_map(lambda _: next(it), self.windows[i])
+
+    def reduce(self, i: int, grads: list) -> list:
+        """Window ``i``'s gradients (whole leaves, this rank's rows) ->
+        float32 sums over ``data``: each split leaf's shard, each whole
+        leaf whole."""
+        return reduce_scatter_leaves(grads, self._dims[i], self.mesh, "data")
+
+    def finish(self) -> None:
+        self._held.clear()
 
 
 def _drop_saved(t):
@@ -332,8 +424,9 @@ def lm_loss_windowed(source, tokens, labels, grads, cfg: ArchConfig, *,
     embedding, each stacked index of each stage with Zamba-2's shared
     block in each one that applies it, the tail): a
     :class:`~repro_torch.core.placement.HostStream` over a streamed host
-    tree (``params=host:stream``), or :class:`ParamViews` of a RESIDENT
-    one (``params=host``).  Every layer runs as ``remat="full"`` does:
+    tree (``params=host:stream``), :class:`ParamViews` of a RESIDENT
+    one (``params=host``), or :class:`GatheredWindows` of a ZeRO-3
+    rank's shards.  Every layer runs as ``remat="full"`` does:
     the forward sweep keeps only each window's input (``x`` and ``aux``;
     its graph saves nothing, so no saved tensor points into a staging slot
     the next window overwrites), and the backward sweep asks for the
@@ -344,13 +437,19 @@ def lm_loss_windowed(source, tokens, labels, grads, cfg: ArchConfig, *,
     ``hbm_resident``, and so does the embedding output that every ``S``
     layer reads, so the values are bit for bit those of :func:`lm_loss`
     under ``remat="full"`` and ``torch.autograd.grad``.  The loss and the
-    metrics come back detached.
+    metrics come back detached.  A source with a ``reduce(i, grads)``
+    method (:class:`GatheredWindows`, ZeRO-3) maps each window's
+    gradients to what ``grads`` holds before they are written (its
+    shards, reduced over the data axis).
     """
     stages = [codes for (codes, count, _) in cfg.stages() for _ in range(count)]
     gw = param_windows(cfg, grads)
+    reduce = getattr(source, "reduce", None)
     written: set[int] = set()
 
     def put(i, gs):
+        if reduce is not None:
+            gs = reduce(i, list(gs))
         for dst, g in zip(tree_leaves(gw[i]), gs, strict=True):
             if id(dst) in written:
                 dst.add_(g)
@@ -363,7 +462,7 @@ def lm_loss_windowed(source, tokens, labels, grads, cfg: ArchConfig, *,
 
     source.begin()
     with torch.no_grad():
-        x0 = _embed(source.window(0)["embed"], tokens, extra_embeds)
+        x0 = _embed(source.window(0)["embed"], tokens, extra_embeds, cfg.vocab)
     emb0 = x0 if "S" in cfg.layer_pattern else None
     x, aux = x0, x0.new_zeros((), dtype=torch.float32)
     inputs = []
@@ -385,7 +484,7 @@ def lm_loss_windowed(source, tokens, labels, grads, cfg: ArchConfig, *,
         h = apply_norm(tw["final_norm"], xl, cfg.norm)
         if extra_embeds is not None:
             h = h[:, extra_embeds.shape[1]:]
-        ce = fused_cross_entropy(tw["head"], tw.get("embed"), h, labels)
+        ce = fused_cross_entropy(tw["head"], tw.get("embed"), h, labels, vocab=cfg.vocab)
         loss = ce + aux_weight * al
     dx, daux, *gs = torch.autograd.grad(loss, [xl, al] + t_leaves)
     put(n - 1, gs)
@@ -422,7 +521,7 @@ def lm_loss_windowed(source, tokens, labels, grads, cfg: ArchConfig, *,
         put(1 + k, got[2:])
     w, leaves = _live(source.window(0))
     with torch.enable_grad():
-        x0r = _embed(w["embed"], tokens, extra_embeds)
+        x0r = _embed(w["embed"], tokens, extra_embeds, cfg.vocab)
     put(0, torch.autograd.grad(x0r, leaves, dx))
     source.finish()
     return loss.detach(), {"ce": ce.detach(), "aux": aux.detach()}
@@ -526,10 +625,11 @@ def param_windows(cfg, params) -> list[dict]:
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def _embed(embed_params, tokens, extra_embeds):
+def _embed(embed_params, tokens, extra_embeds, vocab=None):
     """The token embedding, with a frontend's stub embeddings (B,
-    S_front, d) prepended in its dtype when given."""
-    x = apply_embed(embed_params, tokens)
+    S_front, d) prepended in its dtype when given; ``vocab`` (the
+    training paths) lets a ``model`` axis split the lookup."""
+    x = apply_embed(embed_params, tokens, vocab=vocab)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
@@ -555,12 +655,13 @@ def lm_loss(params, tokens, labels, cfg: ArchConfig, *, extra_embeds=None,
     ``extra_embeds`` (B, S_front, d) go in front of the tokens and their
     positions are dropped before the head: the labels cover the text.
     """
-    x = _embed(params["embed"], tokens, extra_embeds)
+    x = _embed(params["embed"], tokens, extra_embeds, cfg.vocab)
     x, aux = _run_stages_train(cfg, params, x, remat)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if extra_embeds is not None:
         x = x[:, extra_embeds.shape[1]:]
-    loss = fused_cross_entropy(params["head"], params["embed"], x, labels)
+    loss = fused_cross_entropy(params["head"], params["embed"], x, labels,
+                               vocab=cfg.vocab)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 

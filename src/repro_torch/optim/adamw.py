@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.sharding import tree_leaves, tree_map
 from repro_torch.models.transformer import leaf_windows
@@ -67,22 +68,43 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.square(x.to(torch.float32, memory_format=torch.contiguous_format)))
+
+
+def global_norm(tree, axes=None, mesh=None) -> torch.Tensor:
     """The f32 L2 norm over every leaf.  Each leaf is summed in its logical
     order (a contiguous f32 copy), so equal values give the same norm
     whatever their memory layout: a tied embedding's gradient comes out of
     autograd as its head product's transpose, and a gradient written into
-    a fresh tree does not."""
-    return torch.sqrt(sum(
-        torch.sum(torch.square(x.to(torch.float32, memory_format=torch.contiguous_format)))
-        for x in tree_leaves(tree)
-    ))
+    a fresh tree does not.
+
+    On a mesh, ``axes`` (a tree like ``tree``) names per leaf the mesh
+    axes it is sharded over: the squared sums of the leaves sharded over
+    the same axes are added and all-reduced over those axes, and a leaf
+    every rank holds whole counts once, so the norm is the whole tree's."""
+    if axes is None:
+        return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
+    groups: dict[tuple, list] = {}
+    tree_map(lambda x, ax: groups.setdefault(tuple(ax), []).append(_square_sum(x)),
+             tree, axes)
+    total = None
+    for ax in sorted(groups):
+        part = sum(groups[ax])
+        for a in ax:
+            dist.all_reduce(part, group=mesh.get_group(a))
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params, grads, state: dict, cfg: AdamWConfig, *, streams=None,
-                  in_place: bool = False):
+                  in_place: bool = False, norm_axes=None, mesh=None):
     """One AdamW step -> (new params, state, {"grad_norm", "lr"}).
+
+    On a mesh every tree holds this rank's shards (the params as the
+    optimizer shards them) and ``norm_axes`` the axes each leaf is sharded
+    over, for the exact :func:`global_norm`.
 
     ``state``'s master and moments are updated in place; its ``step`` is
     replaced.  Every scalar stays a device tensor: no host sync.
@@ -96,7 +118,7 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig, *, streams=None,
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm_axes, mesh)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

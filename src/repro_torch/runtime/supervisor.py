@@ -20,7 +20,7 @@ policy: it returns actions; the :class:`repro_torch.serve.scheduler.Server`
 owns the side effects.
 
 Left out until its prerequisite is ported: ``rescale`` onto a new mesh
-(ROADMAP A10).
+(ROADMAP A10b, rest).
 """
 
 from __future__ import annotations

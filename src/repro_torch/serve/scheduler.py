@@ -59,7 +59,8 @@ written in place, or the params or a streamed source written: at the
 build on a card, at the step's first run after it eagerly.
 
 Left out, each named in ROADMAP: ``adopt_spilled``, ``requeue_hook`` and
-``ServeConfig.pool`` (disaggregated serving, A13) and ``rules`` (A10).
+``ServeConfig.pool`` (disaggregated serving, A13) and ``rules`` (serving
+under a mesh, A10b, rest).
 """
 
 from __future__ import annotations

@@ -50,7 +50,7 @@ def render(recs: list[dict]) -> str:
             f"| {rl['collective_s'] * 1e3:.1f} | {rl['dominant']} "
             f"| {rl['useful_ratio']:.2f} | {rl['roofline_fraction']:.1%} "
             f"| {rl['bw_fraction']:.1%} | {rl['model_bytes'] / 1e9:.1f} |")
-    out.append("\nNo multi-pod table: the port's dry run has no mesh yet (ROADMAP A10).")
+    out.append("\nNo multi-pod table: the port's dry run has no mesh yet (ROADMAP A10b, rest).")
     return "\n".join(out)
 
 

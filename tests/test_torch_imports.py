@@ -72,6 +72,8 @@ def test_packages_import_without_building_or_jax():
         "import repro_torch.tools.policy_smoke\n"
         "import repro_torch.launch.mesh, repro_torch.optim.compression\n"
         "import repro_torch.train.pipeline_parallel, repro_torch.examples.train_e2e\n"
+        "import repro_torch.benchmarks.bench_pingpong, repro_torch.benchmarks.bench_internode\n"
+        "import repro_torch.benchmarks.bench_collectives, repro_torch.tools.whatif_scale\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._LIBS and not _build.BUILD_LOG\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"

@@ -9,12 +9,13 @@ and ``--compress-pod-grads``, and the end-to-end example.
 * olmo-1b-smoke with ``compress_pod_grads=True`` over two ranks, 30
   steps: the loss falls by more than 0.2 (``tests/test_distributed.py``);
 * ``compress_pod_grads`` on one device is the reference's no-op;
-* ``check_ported`` still refuses a ``data``/``model`` axis of several
-  ranks (ROADMAP A10);
+* ``check_ported`` takes a ``data``/``model`` axis of several ranks since
+  ROADMAP A10b (``tests/test_torch_mesh_train.py``) and still refuses a
+  donor axis (A10c), a ``model`` axis over a family without tensor-parallel
+  layers (A10b, rest) and an encoder-decoder's ZeRO-3 over ``data`` (A7c);
 * ``launch.train --mesh 2x1x1 --compress-pod-grads --device cpu`` under
-  ``torchrun --standalone`` with two ranks; ``--mesh 1x2x1`` and
-  ``--donor 2`` refused naming A10, ``--mesh 2x1x1`` without torchrun
-  refused;
+  ``torchrun --standalone`` with two ranks; ``--donor 2`` refused naming
+  A10c, a mesh of several ranks without torchrun refused;
 * ``examples.train_e2e --tiny --device cpu`` learns and resumes.
 """
 
@@ -182,9 +183,24 @@ def test_compression_without_a_pod_axis_is_a_no_op():
 
 @pytest.mark.parametrize("axes", [{"data": 2}, {"model": 2}, {"pod": 2, "data": 2}])
 def test_check_ported_refuses_data_and_model_axes(axes):
+    """What a data/model mesh still refuses: a donor axis beside it, a
+    model axis over MoE layers, ZeRO-3 of an encoder-decoder over data."""
     mesh = types.SimpleNamespace(mesh_dim_names=tuple(axes), shape=tuple(axes.values()))
-    with pytest.raises(NotImplementedError, match="A10"):
-        TrainConfig().check_ported(mesh)
+    TrainConfig().check_ported(mesh, ModelBundle(smoke_config("granite-8b")))
+    donor = types.SimpleNamespace(mesh_dim_names=(*axes, "donor"), shape=(*axes.values(), 2))
+    with pytest.raises(NotImplementedError, match="A10c"):
+        TrainConfig().check_ported(donor)
+    llama4 = ModelBundle(smoke_config("llama4-maverick-400b-a17b"))
+    seamless = ModelBundle(smoke_config("seamless-m4t-medium"))
+    if "model" in axes:
+        for bundle in (llama4, seamless):
+            with pytest.raises(NotImplementedError, match="A10b, rest"):
+                TrainConfig().check_ported(mesh, bundle)
+    else:
+        TrainConfig().check_ported(mesh, llama4)
+        with pytest.raises(NotImplementedError, match="A7c"):
+            TrainConfig().check_ported(mesh, seamless)
+        TrainConfig(zero_stage=1).check_ported(mesh, seamless)
     TrainConfig(compress_pod_grads=True).check_ported(
         types.SimpleNamespace(mesh_dim_names=("pod", "data"), shape=(4, 1)))
 
@@ -210,10 +226,10 @@ def test_launcher_trains_two_pod_ranks_under_torchrun(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "1x2x1"], "A10"),
-    (["--mesh", "4x2"], "A10"),
-    (["--donor", "2"], "A10"),
-    (["--remote-donor", "2"], "A10"),
+    (["--mesh", "1x2x1"], "torchrun"),
+    (["--mesh", "4x2"], "torchrun"),
+    (["--donor", "2"], "A10c"),
+    (["--remote-donor", "2"], "A10c"),
     (["--mesh", "2x1x1"], "torchrun"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, match, monkeypatch, tmp_path):

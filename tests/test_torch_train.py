@@ -318,17 +318,17 @@ def test_prefetcher_yields_the_stream_and_closes():
 
 
 def test_train_config_refuses_what_needs_a_mesh():
-    """Sharding rules, other FSDP axes or ZeRO stages, and a ``data`` axis
-    of several ranks are ROADMAP A10.  ``compress_pod_grads`` is ported
-    (``tests/test_torch_pod_train.py``): it is refused only beside such a
-    mesh."""
-    for kw in (dict(rules={"batch": "data"}), dict(fsdp_axes=("pod", "data")),
-               dict(zero_stage=1)):
-        with pytest.raises(NotImplementedError, match="A10"):
-            make_train_step(None, TrainConfig(**kw))
+    """Since the mesh slice (ROADMAP A10b) rules, ZeRO-1 and a ``data`` axis
+    of several ranks train (``tests/test_torch_mesh_train.py``); FSDP over
+    another axis than ``data`` is still ROADMAP A10b, rest, a donor axis
+    A10c."""
     data2 = types.SimpleNamespace(mesh_dim_names=("data",), shape=(2,))
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_train_step(None, TrainConfig(compress_pod_grads=True), data2)
+    TrainConfig(rules={"seq": ()}, zero_stage=1, compress_pod_grads=True).check_ported(data2)
+    with pytest.raises(NotImplementedError, match="A10b, rest"):
+        TrainConfig(fsdp_axes=("pod", "data")).check_ported()
+    with pytest.raises(NotImplementedError, match="A10c"):
+        TrainConfig().check_ported(
+            types.SimpleNamespace(mesh_dim_names=("donor", "data"), shape=(2, 1)))
 
 
 # ---------------------------------------------------------------------------
