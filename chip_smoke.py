@@ -60,6 +60,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    against 32 x the decode steps or prefill dispatches; then the same
    requests through an eager server on the same weights, greedy tokens
    identical for every request, both runs' tok/s printed;
+   (4h, right after phase 4) the same yi-6b serving the same requests
+   through the graphs on a one-rank NCCL (data, model) = (1, 1) mesh with ``one_rank=True``: every
+   serving collective (each layer's attention and MLP all-reduce, the
+   embedding's, the logits' gather over ``model``, the packed result's
+   gather over ``data``) runs over a one-rank group inside the graphs;
+   greedy tokens identical to phase 4's (or the phase fails), the
+   collectives a replay against 2 a layer + 3 (decode) and + 2 (prefill),
+   the NCCL kernels in a decode replay's trace, the decode EWMA beside
+   phase 4's, peak memory, whether the decode ran as a graph (several
+   cards' ranks are held to the reference on the CPU through gloo);
    (4b) granite-8b at full width and depth (36 layers, 8.05 B params) the
    same way, its first 4 requests also through an eager server;
    (4c) the ring-cache layers: a C layer's decode through the prefill
@@ -180,7 +190,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    sliding window 1024, its bound over the window's work only; the causal
    mask) in bf16 and at 6e's repro-100m shape in f32 (bound at the f32
    CUDA-core peak), beside the plain version, SDPA (backend named) and
-   the bound;
+   the bound; (7f, right after 4h) ``flash_decode`` and ``flash_prefill`` at
+   the local shapes of a ``model`` axis one card cannot reach through a
+   mesh (yi-6b at ``model`` 2, 4 and 8 — at 8 a rank's 4 query heads on
+   one of the 4 replicated kv heads of a B = 8 cache, through
+   ``kv_head``, one kernel and no copy in the trace — and granite-8b at
+   8), bf16, each held to its plain version at ``TOL`` (prefill on the
+   live rows) and timed beside it, SDPA and its bound;
 8. Mamba-2 serving.  (a) the SSD scan kernel against its plain versions
    (the chunked oracle and the literal recurrence) in bfloat16 and float32
    at the mamba2-780m serving shape (B 8, T 256, H 48, P 64, N 128) with a
@@ -766,14 +782,15 @@ def phase_smoke_parity():
 
 
 def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False,
-                   before=None):
+                   before=None, **server_kw):
     """Serve greedy requests through ``Server`` on the card.  The kernels'
     counts are reset just before the server is built, so its warm-up and
     capture belong to the run; ``before(server)`` runs once it is built,
     before the requests arrive.  Returns (server, requests, wall seconds,
     launches): for a graphed server each kernel's launches per replay x
     the replays of its graph, for an eager one the wrappers' counts; the
-    build's audits of its decode and prefill steps must be ``ok``."""
+    build's audits of its decode and prefill steps must be ``ok``.
+    ``server_kw`` (``mesh``, ``one_rank``) go to the ``Server``."""
     import torch
     from repro_torch.serve import Request, Server
     from repro_torch.serve.engine import KERNELS
@@ -781,7 +798,7 @@ def serve_requests(bundle, params, scfg, prompts, new_tokens, *, eager=False,
     for fn in KERNELS.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    server = Server(bundle, scfg, params, device="cuda", eager=eager)
+    server = Server(bundle, scfg, params, device="cuda", eager=eager, **server_kw)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
     if before is not None:
@@ -905,6 +922,167 @@ def phase_full():
         raise AssertionError(f"eager decode launches {elaunches}")
     same_tokens(cfg.name, reqs, ereqs)
     return launches, st, [int(n) for n in plens], server, eager, [r.out_tokens for r in reqs]
+
+
+def phase_mesh_serve(yi_tokens, phase4_ewma_s):
+    """4h: phase 4's yi-6b (full width and depth, bf16, weights of seed 0)
+    serving phase 4's 16 requests through the CUDA graphs on a one-rank
+    NCCL (data, model) = (1, 1) mesh with ``one_rank=True``: every
+    serving collective runs over a one-rank group (the all-reduces of each
+    layer's attention and MLP outputs and of the embedding, the logits'
+    gather over ``model``, the packed result's gather over ``data``),
+    captured in the graphs.  Over one rank they compute the identity, so
+    the greedy tokens must be phase 4's (``yi_tokens``) for every request;
+    anything else raises.  Prints the decode EWMA beside phase 4's
+    (``phase4_ewma_s``), the peak memory, the collectives a replay runs
+    against the count expected (2 a layer + 3 a decode replay, 2 a layer
+    + 2 a prefill replay) and the NCCL kernels in one decode replay's
+    trace, and whether the decode ran as a graph.  Returns the serving
+    kernels' launches (several cards' data and model ranks run on the CPU
+    through gloo: ``tests/test_torch_mesh_serve.py``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.model_zoo import ModelBundle
+    from repro_torch.serve import ServeConfig
+
+    cfg = get_config("yi-6b")
+    bundle, L = ModelBundle(cfg), cfg.n_layers
+    log(f"== phase 4h: {cfg.name} bfloat16 ({L} layers) serving phase 4's requests on a "
+        "one-rank NCCL (data, model) = (1, 1) mesh, one_rank=True, through the CUDA graphs")
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "mesh-serve-store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for((1, 1), ("data", "model"))
+        params = bundle.init_params(torch.Generator(device="cuda").manual_seed(0))
+        scfg = ServeConfig(batch_slots=YI["B"], max_len=YI["Smax"], prefill_chunk=YI["chunk"])
+        prompts, _ = dense_prompts(cfg.vocab)
+        server, reqs, _, launches = serve_requests(bundle, params, scfg, prompts, 64,
+                                                   mesh=mesh, one_rank=True)
+        eng, st = server.engine, server.stats()
+        diff = [r.rid for r, want in zip(reqs, yi_tokens) if r.out_tokens != want]
+        if diff:
+            raise AssertionError(f"4h: tokens differ from phase 4's for requests {diff}")
+        log(f"  greedy tokens identical to phase 4's (mesh=None) for all {len(reqs)} requests")
+        want = {"decode": 2 * L + 3, "prefill": 2 * L + 2}
+        got = {g: sum(eng.graph_collectives[g].values()) for g in want}
+        log(f"  collectives a replay: {eng.graph_collectives} -> {got}, expected {want} "
+            f"(2 a layer, the embedding's all-reduce, the logits' gather, and the decode's "
+            f"gather over data)")
+        if got != want:
+            raise AssertionError(f"4h: collectives a replay {got}, expected {want}")
+        if launches["decode_attention"] != L * st["decode_steps"] or (
+                launches["prefill_attention"] != L * st["prefill_dispatches"]):
+            raise AssertionError(f"4h: launches {launches} for {st['decode_steps']} steps, "
+                                 f"{st['prefill_dispatches']} dispatches")
+        ewma = eng.measured_step_s        # before the traced replay feeds it
+        inside, _ = traced_window("4h decode replay", server.engine.decode)
+        nccl = [e["name"] for e in inside if e.get("cat") == "kernel"
+                and "nccl" in e.get("name", "").lower()]
+        log(f"  one decode replay's trace: {len(nccl)} NCCL kernels "
+            f"({sorted(set(nccl))[:4]}): NCCL runs a collective of one rank "
+            "as a copy or nothing, so the count above is the port's, at capture")
+        log(f"  decode ran as a CUDA graph: {eng.graphed and 'decode' in eng._graphs} "
+            f"({st['decode_replays']} replays of {st['decode_steps']} steps); decode step "
+            f"EWMA {ewma * 1e3:.3f} ms against phase 4's "
+            f"{phase4_ewma_s * 1e3:.3f} ms ({ewma / phase4_ewma_s:.3f}x); "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del server, reqs, params, eng
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"== phase 4h took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def one_launch(label, fn):
+    """The card's records of one call of ``fn`` hold one kernel and no
+    copy: a head read in place, never a copy of the cache's head slice."""
+    inside, _ = traced_window(label, fn)
+    recs = [e.get("name", "?") for e in inside if e.get("cat") in ("kernel", "gpu_memcpy")]
+    kernels = [e for e in inside if e.get("cat") == "kernel"]
+    if len(recs) != 1 or len(kernels) != 1:
+        raise AssertionError(f"7f {label}: one kernel and no copy expected, the trace "
+                             f"holds {recs}")
+    log(f"  {label} through kv_head: one kernel, no copy ({recs[0][:60]})")
+
+
+#: 7f: the serving kernels at the local shapes of a model axis one card
+#: cannot reach through a mesh: (label, query heads, KV heads in the
+#: cache, the one KV head attended or None) a rank, 8 slots x 2048, D 128
+TP_SHAPES = (("yi-6b model 2", 16, 2, None), ("yi-6b model 4", 8, 1, None),
+             ("yi-6b model 8", 4, 4, 3), ("granite-8b model 8", 4, 1, None))
+
+
+def phase_tp_kernels():
+    """7f: ``flash_decode`` and ``flash_prefill`` at :data:`TP_SHAPES` in
+    bfloat16, each held to its plain version with ``check_close`` at
+    ``TOL`` (prefill on the live rows, as phase 2) and timed beside its
+    plain version, SDPA and its bound.  yi-6b at ``model`` 8 replicates
+    its 4 kv heads (8 does not divide them): a rank's 4 query heads attend
+    one of them, read in place through ``kv_head`` on the B = 8 cache of
+    all 4 (checked for heads 0 and 3, timed for 3).  These launches
+    compare and time the kernels: none is the main path's."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.decode_attention import KEY_TILE, flash_decode, num_splits
+    from repro_torch.kernels.flash_attention import flash_prefill
+
+    log("== phase 7f: the serving kernels at tensor-parallel local shapes (bfloat16)")
+    t_phase = time.perf_counter()
+    y, dt, dn = YI, torch.bfloat16, "bfloat16"
+    B, D, Smax, Sn = y["B"], y["D"], y["Smax"], y["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lens = [1, 2048, 1000, 37, 64, 65, 1999, 513]
+    offs, nls = [0, 256, 1792, 777, 1, 0, 1500, 1024], [256, 256, 256, 100, 0, 1, 256, 0]
+    hbm, bf16, _ = peaks()
+    out = {}
+    for label, Hq, Hc, head in TP_SHAPES:
+        q, kv, L = decode_inputs(B, Hq, Hc, D, Smax, lens, dt, gen, copies=4)
+        k, v = kv[0]
+        for j in ([0, head] if head is not None else [None]):
+            got = flash_decode(q, k, v, L, kv_head=j)
+            torch.cuda.synchronize()
+            e_dec = check_close(f"decode {label} B{B} Hq{Hq} cache heads {Hc} kv_head {j}",
+                                got, ref.decode_attention(q, k, v, L, kv_head=j), dn)
+        qp, srcs = prefill_inputs(B, Hq, Hc, D, Smax, Sn, dt, gen, copies=4)
+        q_pos, k_pos = prefill_positions(offs, nls, Smax, Sn, [(0, 3), (B - 1, 1022)])
+        rows = live_mask(q_pos, k_pos).any(-1)[:, None, :].expand(B, Hq, Sn)
+        kc, vc, kn, vn = srcs[0]
+        for j in ([0, head] if head is not None else [None]):
+            h = slice(None) if j is None else slice(j, j + 1)
+            got = flash_prefill(qp, kc, vc, q_pos, k_pos, k_new=kn, v_new=vn, kv_head=j)
+            torch.cuda.synchronize()
+            want = ref.prefill_attention(qp, torch.cat([kc[:, h], kn[:, h]], 2),
+                                         torch.cat([vc[:, h], vn[:, h]], 2), q_pos, k_pos)
+            e_pre = check_close(f"prefill {label} B{B} Hq{Hq} cache heads {Hc} kv_head {j}",
+                                got, want, dn, rows)
+        if head is not None:
+            one_launch(f"decode {label}", lambda: flash_decode(q, k, v, L, kv_head=head))
+            one_launch(f"prefill {label}", lambda: flash_prefill(
+                qp, kc, vc, q_pos, k_pos, k_new=kn, v_new=vn, kv_head=head))
+        dec = decode_record(q, kv, L, kv_head=head)
+        pre = prefill_record(qp, srcs, *prefill_positions(offs, [Sn] * B, Smax, Sn),
+                             kv_head=head)
+        Hkv = 1 if head is not None else Hc
+        for what, rec, err in (("decode", dec, e_dec), ("prefill", pre, e_pre)):
+            bound = max(rec["bytes"] / hbm, rec["flops"] / bf16) * 1e3
+            out[(label, what)] = dict(rec, bound_ms=bound, max_abs_err=err)
+            log(f"  {what} {label}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                f"SDPA {rec['library_ms']:.4f} ms, bound {bound:.4f} ms "
+                f"({rec['bytes']} bytes, {rec['flops']} flops): {bound / rec['ms']:.3f} of "
+                f"the bound, {rec['ms'] / rec['library_ms']:.2f}x SDPA; max_abs_err {err:.3e}")
+        log(f"  decode {label}: {num_splits(B, Hkv, Smax, KEY_TILE[dt], sm_count(0))} "
+            f"blocks a (row, KV head) x {B * Hkv} rows on {sm_count(0)} SMs")
+    log(f"== phase 7f took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def phase_granite_full():
@@ -1965,11 +2143,13 @@ def time_ms(fn, inputs, reps=3, iters=10, by_kernel=None):
     return statistics.median(per)
 
 
-def decode_record(q, kv, L):
+def decode_record(q, kv, L, kv_head=None):
     """The decode kernel at one shape: its device ms, its plain version's
     and SDPA's over the copies ``kv`` of the cache (cycled, past L2), and
     what the call must move and compute for the live keys ``L`` a row
-    (``live``: their count)."""
+    (``live``: their count).  ``kv_head``: every query head attends that
+    one head of the cache (a replicated cache's head slice; SDPA reads
+    the slice as a view)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -1979,25 +2159,29 @@ def decode_record(q, kv, L):
     Hkv, Smax = kv[0][0].shape[1:3]
     dec_in = [(q, k, v, L) for k, v in kv]
     mask = (torch.arange(Smax, device="cuda")[None, :] < L[:, None])[:, None, None, :]
-    sd_in = [(q[:, :, None], k, v, mask) for k, v in kv]
+    heads = slice(None) if kv_head is None else slice(kv_head, kv_head + 1)
+    Hkv = Hkv if kv_head is None else 1
+    sd_in = [(q[:, :, None], k[:, heads], v[:, heads], mask) for k, v in kv]
     keys = int(L.clamp(0, Smax).sum())
     isz = q.element_size()
     return dict(
-        ms=time_ms(flash_decode, dec_in),
-        plain_ms=time_ms(ref.decode_attention, dec_in, iters=4),
+        ms=time_ms(lambda *a: flash_decode(*a, kv_head=kv_head), dec_in),
+        plain_ms=time_ms(lambda *a: ref.decode_attention(*a, kv_head=kv_head), dec_in,
+                         iters=4),
         library_ms=time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mm, enable_gqa=True), sd_in),
         bytes=2 * keys * Hkv * D * isz + 2 * q.numel() * isz + L.numel() * 4,
         flops=4 * keys * Hq * D, live=keys)
 
 
-def prefill_record(q, srcs, q_pos, k_pos, **kw):
+def prefill_record(q, srcs, q_pos, k_pos, kv_head=None, **kw):
     """The prefill kernel at one shape (mask ``kw``): its device ms over the
     copies ``srcs`` of (cache k, v, chunk k, v), its plain version's and
     SDPA's over cache ++ chunk, and what the call must move (each live key
     once) and compute (``live``: the live (query, key) pairs).  Chunk k, v
     None: one key source (a ``C`` layer's decode, the new key already in
-    its ring)."""
+    its ring).  ``kv_head``: every query head attends that one head of
+    both sources (the plain version and SDPA over the head's slice)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -2006,6 +2190,10 @@ def prefill_record(q, srcs, q_pos, k_pos, **kw):
     Hq, D = q.shape[1], q.shape[3]
     Hkv = srcs[0][0].shape[1]
     pre_in = [(q, kc, vc, q_pos, k_pos, kn, vn) for kc, vc, kn, vn in srcs]
+    if kv_head is not None:
+        h, Hkv = slice(kv_head, kv_head + 1), 1
+        srcs = [(kc[:, h], vc[:, h], None if kn is None else kn[:, h],
+                 None if vn is None else vn[:, h]) for kc, vc, kn, vn in srcs]
     cat_in = [(q, kc, vc, q_pos, k_pos) if kn is None else
               (q, torch.cat([kc, kn], 2), torch.cat([vc, vn], 2), q_pos, k_pos)
               for kc, vc, kn, vn in srcs[:2]]
@@ -2014,7 +2202,8 @@ def prefill_record(q, srcs, q_pos, k_pos, **kw):
     pairs = int(live.sum())
     isz = q.element_size()
     return dict(
-        ms=time_ms(lambda *a: flash_prefill(*a[:5], k_new=a[5], v_new=a[6], **kw), pre_in),
+        ms=time_ms(lambda *a: flash_prefill(*a[:5], k_new=a[5], v_new=a[6], kv_head=kv_head,
+                                            **kw), pre_in),
         plain_ms=time_ms(lambda *a: ref.prefill_attention(*a, **kw), cat_in, reps=3,
                          iters=2),
         library_ms=time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
@@ -4196,6 +4385,12 @@ def phase_placed_serving():
                 f"{staged / 2**30:.2f} GiB of device staging slots; windows a step "
                 f"{ {k: v.n_windows for k, v in eng.feed.streams().items()} } "
                 f"(planner stream_chunks {L})")
+            held = {"capture": eng._stream} | {
+                f"{k} {kind}": getattr(v, attr) for k, v in eng.feed.streams().items()
+                for kind, attr in (("copy", "_copy_stream"), ("write-back", "_wb_stream"))}
+            log(f"  {name}: streams { {k: hex(v.cuda_stream) for k, v in held.items()} }; "
+                "torch.cuda.graph's default capture stream "
+                f"{hex(getattr(torch.cuda.graph.default_capture_stream, 'cuda_stream', 0))}")
         mapped = sum(t.numel() * t.element_size()
                      for t in tree_leaves(eng.params) + tree_leaves(eng.caches)
                      if t.is_cuda and getattr(t, "_host_arena", None) is not None)
@@ -6167,6 +6362,10 @@ def main() -> int:
     audit_replays("yi-6b hbm_resident (phase 4)", server)
     del server, eager, servers
     torch.cuda.empty_cache()
+    for name, n in phase_mesh_serve(yi_tokens, measured["graphs"]).items():
+        if name in ("decode_attention", "prefill_attention"):
+            add_launches(rows, name, n)
+    phase_tp_kernels()
     phase_granite_full()
     t4c = time.perf_counter()
     ring_recs, ring_errs = phase_ring_kernels()

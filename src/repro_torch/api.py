@@ -43,6 +43,13 @@ and the rule overlay; :meth:`Runtime.specs` returns a role's
 mesh, as the reference's.  The training step realizes the specs
 (``train/train_step.py``); a peer or remote tier still raises at
 construction: its realization over a donor axis is ROADMAP A10c.
+Serving on a mesh (ported with ROADMAP A10b, serving half):
+:meth:`Runtime.auto` takes ``mesh=``/``rules=`` and prices the phase over
+the mesh's ranks (``num_chips``, as the reference's), and
+:meth:`Runtime.shard` cuts this rank's shard of a full tree, which
+:meth:`Runtime.realize` places as on one device, so every local placement
+(``hbm_resident``, ``kv_host``, ``weights_stream``, the RESIDENT host
+ones) realizes on the rank's shards.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 from typing import Iterable, Mapping, Sequence
 
 import torch
@@ -87,7 +95,14 @@ from repro_torch.core.planner import (
     predict,
 )
 from repro_torch.core.replay import ReplayLog
-from repro_torch.models.sharding import DEFAULT_RULES, _policy_specs, mesh_shape, tree_leaves
+from repro_torch.models.sharding import (
+    DEFAULT_RULES,
+    _policy_specs,
+    mesh_shape,
+    shard_of,
+    tree_leaves,
+    tree_map,
+)
 
 log = logging.getLogger("repro_torch.api")
 
@@ -212,16 +227,26 @@ class Runtime:
         system: SystemSpec | None = None,
         candidates: Iterable[PlacementPolicy | str] | None = None,
         require_fit: bool = False,
+        mesh=None,
+        rules: Mapping | None = None,
         **phase_kw,
     ) -> "Runtime":
         """Planner-selected Runtime for ``phase`` (``"train"``,
-        ``"decode"``, ``"prefill"`` or ``"serve"``); ``phase_kw`` are the
-        workload knobs of :meth:`plan_phase`.  The candidate set defaults
-        to the registry restricted to the tiers this device realizes."""
-        rt = cls(bundle, device, None, system=system)
+        ``"decode"``, ``"prefill"`` or ``"serve"``) on ``mesh`` (None: one
+        device) under the ``rules`` overlay; ``phase_kw`` are the workload
+        knobs of :meth:`plan_phase`.  The candidate set defaults to the
+        registry restricted to the tiers this device realizes."""
+        rt = cls(bundle, device, None, system=system, mesh=mesh, rules=rules)
         rt.plan_phase(phase, candidates=candidates, require_fit=require_fit,
                       **phase_kw)
         return rt
+
+    @property
+    def num_chips(self) -> int:
+        """The ranks the mesh spans (1 without one): the serve-side
+        profiles price one rank's share of the bytes, as the reference's."""
+        sizes = mesh_shape(self.mesh)
+        return int(math.prod(sizes.values())) if sizes else 1
 
     # -- degraded-tier bookkeeping -----------------------------------------
     def mark_tier_lost(self, tier: "MemoryTier | str") -> MemoryTier:
@@ -291,10 +316,10 @@ class Runtime:
         elif phase in ("decode", "prefill"):
             shape = ShapeSpec("auto", max_len, batch_slots, "decode")
             if phase == "decode":
-                prof = self.bundle.decode_workload(shape, num_chips=1)
+                prof = self.bundle.decode_workload(shape, num_chips=self.num_chips)
             else:
                 prof = self.bundle.prefill_workload(
-                    shape, chunk_tokens=prefill_chunk, num_chips=1)
+                    shape, chunk_tokens=prefill_chunk, num_chips=self.num_chips)
             prof = _scale_kv(prof, kv_utilization)
             best, preds = plan(prof, cand, self.system, require_fit=require_fit,
                                **allow)
@@ -327,11 +352,11 @@ class Runtime:
         ``batch_slots * prefill_chunk``).  When nothing fits, the
         least-HBM decode prediction, unless ``require_fit``."""
         shape = ShapeSpec("serve", max_len, batch_slots, "decode")
-        dec_prof = _scale_kv(self.bundle.decode_workload(shape, num_chips=1),
+        dec_prof = _scale_kv(self.bundle.decode_workload(shape, num_chips=self.num_chips),
                              kv_utilization)
         pre_prof = _scale_kv(
             self.bundle.prefill_workload(shape, chunk_tokens=prefill_chunk,
-                                         num_chips=1),
+                                         num_chips=self.num_chips),
             kv_utilization,
         )
         _, dec_preds = plan(dec_prof, cand, self.system, **self._allow_flags())
@@ -408,6 +433,24 @@ class Runtime:
             defs = self.bundle.param_defs()
         return _policy_specs(defs, self.mesh, self._rules, role, policy or self.policy,
                              fsdp_axes=fsdp_axes)
+
+    def shard(self, tree, role: Role | str, defs=None):
+        """This rank's shard of the full tree ``tree`` under ``role``'s
+        specs (:meth:`specs`; ``defs`` as there): each leaf's
+        :func:`~repro_torch.models.sharding.shard_of`, copied into its own
+        storage where it is a part (so the full tensor can be freed), the
+        leaf itself where the spec keeps it whole.  ``tree`` without a
+        mesh."""
+        specs = self.specs(role, defs)
+        if specs is None:
+            return tree
+
+        def one(x, spec):
+            part = shard_of(x, spec, self.mesh)
+            return part if part.shape == x.shape else part.clone(
+                memory_format=torch.contiguous_format)
+
+        return tree_map(one, tree, specs)
 
     def realize(self, tree, role: Role | str, *, policy: PlacementPolicy | None = None):
         """``tree`` under the policy's placement of ``role``
@@ -581,7 +624,7 @@ class Runtime:
         if cached is not None:
             return cached
         prof = self.bundle.decode_workload(
-            ShapeSpec("serve", max_len, batch_slots, "decode"), num_chips=1)
+            ShapeSpec("serve", max_len, batch_slots, "decode"), num_chips=self.num_chips)
         est = predict(prof, self.policy, self.system).step_s
         self._step_estimates[key] = est
         return est

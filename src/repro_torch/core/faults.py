@@ -279,12 +279,16 @@ def corrupt_tree(tree):
     return tree
 
 
-def verify_spill(rows, checksum: float | None, rid: int) -> None:
+def verify_spill(rows, checksum: float | None, rid: int, *, agree=None) -> None:
     """Raise :class:`SpillCorruptionError` when ``rows`` no longer match
     the checksum taken at spill time (``checksum=None`` skips — spills are
-    only checksummed when verification is enabled)."""
-    if checksum is None:
-        return
-    got = checksum_tree(rows)
-    if got != checksum:
+    only checksummed when verification is enabled, and on a mesh only the
+    rank that holds the rows has them).  ``agree`` (the serving mesh's
+    ``Ranks.all_ok``) turns each rank's verdict into one every rank
+    takes, so all of them replay the request or none does."""
+    got = None if checksum is None else checksum_tree(rows)
+    ok = got == checksum
+    if agree is not None:
+        ok = agree(ok)
+    if not ok:
         raise SpillCorruptionError(rid, checksum, got)  # repro: lint-disable=injected-fault-raise

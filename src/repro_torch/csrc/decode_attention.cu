@@ -163,11 +163,11 @@ __device__ __forceinline__ void fetch_tile(uint4 (&kr)[LOADS], uint4 (&vr)[LOADS
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) decode_fma_kernel(
     const T* __restrict__ q,          // (B, Hq, D)
-    const T* __restrict__ k,          // (B, Hkv, Smax, D)
-    const T* __restrict__ v,          // (B, Hkv, Smax, D)
+    const T* __restrict__ k,          // (B, Hc, Smax, D), from the first head read
+    const T* __restrict__ v,          // (B, Hc, Smax, D)
     const int* __restrict__ lengths,  // (B,)
     T* __restrict__ out,              // (B, Hq, D)
-    int Hq, int Hkv, int Smax, float scale) {
+    int Hq, int Hkv, int Hc, int Smax, float scale) {
   constexpr int BK = Tile<T>::BK;
   constexpr int KP = D + (sizeof(T) == 2 ? 2 : 1);   // padded K row: no bank conflicts
   constexpr int VEC = 16 / sizeof(T);                // elements per 16-byte load
@@ -196,8 +196,8 @@ __global__ void __launch_bounds__(NT) decode_fma_kernel(
   split_tiles(L, BK, s, gridDim.x, t_lo, t_hi);
 
   const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
-  const T* kb = k + ((size_t)b * Hkv + h) * (size_t)Smax * D;
-  const T* vb = v + ((size_t)b * Hkv + h) * (size_t)Smax * D;
+  const T* kb = k + ((size_t)b * Hc + h) * (size_t)Smax * D;
+  const T* vb = v + ((size_t)b * Hc + h) * (size_t)Smax * D;
 
   for (int e = tid; e < G * D; e += NT) q_s[e / D][e % D] = to_f(qb[e]) * scale;
   if (tid < MAXG) {
@@ -341,8 +341,8 @@ struct DecSmem {
 template <int D>
 __global__ void __launch_bounds__(NT) decode_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ lengths, bf16* __restrict__ out, int Hq, int Hkv, int Smax,
-    float scale) {
+    const int* __restrict__ lengths, bf16* __restrict__ out, int Hq, int Hkv, int Hc,
+    int Smax, float scale) {
   using S = DecSmem<D>;
   constexpr int RB = S::RB, BK = S::BK, NB = 2;      // a warp: 16 keys, two n-blocks
   extern __shared__ __align__(128) unsigned char smem[];
@@ -357,8 +357,8 @@ __global__ void __launch_bounds__(NT) decode_mma_kernel(
   int t_lo, t_hi;
   split_tiles(L, BK, s, gridDim.x, t_lo, t_hi);
   const int n = t_hi - t_lo;
-  const bf16* kb = k + ((size_t)b * Hkv + h) * (size_t)Smax * D;
-  const bf16* vb = v + ((size_t)b * Hkv + h) * (size_t)Smax * D;
+  const bf16* kb = k + ((size_t)b * Hc + h) * (size_t)Smax * D;
+  const bf16* vb = v + ((size_t)b * Hc + h) * (size_t)Smax * D;
   // tile t_lo + i into stage i % ST; keys at or past L zero-filled
   auto load_kv = [&](int i) {
     const uint32_t st = kv_addr + (i % ST) * 2 * BK * RB;
@@ -503,14 +503,14 @@ cudaError_t launch_cluster(void (*kernel)(Params...), int ns, int Hkv, int B, in
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* lengths,
-                     void* out, int B, int Hq, int Hkv, int Smax, int NS, int dtype,
-                     float scale, cudaStream_t st) {
+                     void* out, int B, int Hq, int Hkv, int Hc, int Smax, int NS,
+                     int dtype, float scale, cudaStream_t st) {
   const int* len = static_cast<const int*>(lengths);
   if (dtype == 0) {
     return launch_cluster(decode_fma_kernel<float, D>, NS, Hkv, B, 0, st,
                           static_cast<const float*>(q), static_cast<const float*>(k),
                           static_cast<const float*>(v), len, static_cast<float*>(out), Hq,
-                          Hkv, Smax, scale);
+                          Hkv, Hc, Smax, scale);
   }
   static bool sized = false;   // one attribute call per instantiation
   if (!sized) {
@@ -522,7 +522,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* le
   return launch_cluster(decode_mma_kernel<D>, NS, Hkv, B, DecSmem<D>::bytes, st,
                         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                         static_cast<const bf16*>(v), len, static_cast<bf16*>(out), Hq, Hkv,
-                        Smax, scale);
+                        Hc, Smax, scale);
 }
 
 }  // namespace
@@ -530,21 +530,25 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* le
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  NS blocks (one cluster, 1..8) share
-// each (row, KV head).  Returns cudaGetLastError() after the launch, or
+// each (row, KV head).  k and v point at the first KV head read of row 0;
+// a row of the cache holds Hc >= Hkv heads (Hc > Hkv: the kernel reads Hkv
+// of them in place, a head slice of a cache whose heads are replicated
+// over a model axis).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape the kernel does not take.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* lengths, void* out, int B, int Hq, int Hkv,
-                            int Smax, int D, int NS, int dtype, float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG || Smax <= 0 || NS <= 0 ||
-      NS > MAX_SPLITS || B > 65535 || Hkv > 65535 ||
+                            int Hc, int Smax, int D, int NS, int dtype, float scale,
+                            void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG || Hc < Hkv || Smax <= 0 ||
+      NS <= 0 || NS > MAX_SPLITS || B > 65535 || Hkv > 65535 ||
       (D != 16 && D != 32 && D != 64 && D != 128) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch_d<16>(q, k, v, lengths, out, B, Hq, Hkv, Smax, NS, dtype, scale, st);
-    case 32: return (int)launch_d<32>(q, k, v, lengths, out, B, Hq, Hkv, Smax, NS, dtype, scale, st);
-    case 64: return (int)launch_d<64>(q, k, v, lengths, out, B, Hq, Hkv, Smax, NS, dtype, scale, st);
-    default: return (int)launch_d<128>(q, k, v, lengths, out, B, Hq, Hkv, Smax, NS, dtype, scale, st);
+    case 16: return (int)launch_d<16>(q, k, v, lengths, out, B, Hq, Hkv, Hc, Smax, NS, dtype, scale, st);
+    case 32: return (int)launch_d<32>(q, k, v, lengths, out, B, Hq, Hkv, Hc, Smax, NS, dtype, scale, st);
+    case 64: return (int)launch_d<64>(q, k, v, lengths, out, B, Hq, Hkv, Hc, Smax, NS, dtype, scale, st);
+    default: return (int)launch_d<128>(q, k, v, lengths, out, B, Hq, Hkv, Hc, Smax, NS, dtype, scale, st);
   }
 }
 

@@ -101,14 +101,14 @@ __device__ __forceinline__ bool live_pair(int qp, int kp, int kind, int window,
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) prefill_kernel(
     const T* __restrict__ q,         // (B, Hq, Sq, D)
-    const T* __restrict__ kc,        // (B, Hkv, Sc, D)  prior cache
+    const T* __restrict__ kc,        // (B, Hc, Sc, D)  prior cache, from the first head read
     const T* __restrict__ vc,
-    const T* __restrict__ kn,        // (B, Hkv, Sn, D)  chunk keys
+    const T* __restrict__ kn,        // (B, Hc, Sn, D)  chunk keys
     const T* __restrict__ vn,
     const int* __restrict__ q_pos,   // (B, Sq)
     const int* __restrict__ k_pos,   // (B, Sc + Sn)
     T* __restrict__ out,             // (B, Hq, Sq, D)
-    int Hq, int Hkv, int Sq, int Sc, int Sn, int kind, int window, int chunk,
+    int Hq, int Hkv, int Hc, int Sq, int Sc, int Sn, int kind, int window, int chunk,
     float scale) {
   constexpr int KP = D + (sizeof(T) == 2 ? 2 : 1);   // padded K row
   constexpr int VEC = 16 / sizeof(T);
@@ -138,10 +138,10 @@ __global__ void __launch_bounds__(NT) prefill_kernel(
   const int warp = tid / 32, lane = tid % 32;
 
   const T* qb = q + ((size_t)b * Hq + hq) * (size_t)Sq * D;
-  const T* kcb = kc + ((size_t)b * Hkv + hk) * (size_t)Sc * D;
-  const T* vcb = vc + ((size_t)b * Hkv + hk) * (size_t)Sc * D;
-  const T* knb = kn + ((size_t)b * Hkv + hk) * (size_t)Sn * D;
-  const T* vnb = vn + ((size_t)b * Hkv + hk) * (size_t)Sn * D;
+  const T* kcb = kc + ((size_t)b * Hc + hk) * (size_t)Sc * D;
+  const T* vcb = vc + ((size_t)b * Hc + hk) * (size_t)Sc * D;
+  const T* knb = kn + ((size_t)b * Hc + hk) * (size_t)Sn * D;
+  const T* vnb = vn + ((size_t)b * Hc + hk) * (size_t)Sn * D;
 
   for (int e = tid; e < BQ * D; e += NT) {
     const int i = e / D;
@@ -263,7 +263,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(
 template <typename T>
 void launch_t(const void* q, const void* kc, const void* vc, const void* kn,
               const void* vn, const void* q_pos, const void* k_pos, void* out,
-              int B, int Hq, int Hkv, int Sq, int Sc, int Sn, int D, int kind,
+              int B, int Hq, int Hkv, int Hc, int Sq, int Sc, int Sn, int D, int kind,
               int window, int chunk, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   const T* q_ = static_cast<const T*>(q);
@@ -276,7 +276,7 @@ void launch_t(const void* q, const void* kc, const void* vc, const void* kn,
   T* o_ = static_cast<T*>(out);
 #define REPRO_PREFILL_LAUNCH(DD)                                              \
   prefill_kernel<T, DD><<<grid, NT, 0, stream>>>(q_, kc_, vc_, kn_, vn_, qp_, \
-                                                 kp_, o_, Hq, Hkv, Sq, Sc, Sn, \
+                                                 kp_, o_, Hq, Hkv, Hc, Sq, Sc, Sn, \
                                                  kind, window, chunk, scale)
   switch (D) {
     case 16: REPRO_PREFILL_LAUNCH(16); break;
@@ -371,7 +371,7 @@ __global__ void __launch_bounds__(T_NT, 2) prefill_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ kc, const bf16* __restrict__ vc,
     const bf16* __restrict__ kn, const bf16* __restrict__ vn,
     const int* __restrict__ q_pos, const int* __restrict__ k_pos, bf16* __restrict__ out,
-    int B, int Hq, int Hkv, int HB, int Sq, int Sc, int Sn, int kind, int window,
+    int B, int Hq, int Hkv, int Hc, int HB, int Sq, int Sc, int Sn, int kind, int window,
     int chunk, float scale) {
   using L = PfSmem<D>;
   constexpr int RB = L::RB, BK = T_BK, ST = T_ST, NB = BK / 8, NT = T_NT, PER_ROW = D / 8;
@@ -397,10 +397,10 @@ __global__ void __launch_bounds__(T_NT, 2) prefill_mma_kernel(
   const int hq = hq0 + warp / wph;
   const int i0 = (gridDim.x - 1 - blockIdx.x) * QB;
   const int iw = i0 + (warp % wph) * 16;                  // this warp's first query
-  const bf16* kcb = kc + ((size_t)b * Hkv + hk) * (size_t)Sc * D;
-  const bf16* vcb = vc + ((size_t)b * Hkv + hk) * (size_t)Sc * D;
-  const bf16* knb = kn + ((size_t)b * Hkv + hk) * (size_t)Sn * D;
-  const bf16* vnb = vn + ((size_t)b * Hkv + hk) * (size_t)Sn * D;
+  const bf16* kcb = kc + ((size_t)b * Hc + hk) * (size_t)Sc * D;
+  const bf16* vcb = vc + ((size_t)b * Hc + hk) * (size_t)Sc * D;
+  const bf16* knb = kn + ((size_t)b * Hc + hk) * (size_t)Sn * D;
+  const bf16* vnb = vn + ((size_t)b * Hc + hk) * (size_t)Sn * D;
   const int* kpb = k_pos + (size_t)b * Sk;
 
   // the block's Q rows: row r belongs to warp r / 16
@@ -608,8 +608,8 @@ int heads_per_block(int G) {
 template <int D>
 cudaError_t launch_mma(const void* q, const void* kc, const void* vc, const void* kn,
                        const void* vn, const void* q_pos, const void* k_pos, void* out,
-                       int B, int Hq, int Hkv, int Sq, int Sc, int Sn, int kind, int window,
-                       int chunk, float scale, cudaStream_t stream) {
+                       int B, int Hq, int Hkv, int Hc, int Sq, int Sc, int Sn, int kind,
+                       int window, int chunk, float scale, cudaStream_t stream) {
   const size_t smem = PfSmem<D>::bytes((Sc + Sn + T_BK - 1) / T_BK);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;   // too many key tiles to list
   static bool configured = false;
@@ -624,19 +624,19 @@ cudaError_t launch_mma(const void* q, const void* kc, const void* vc, const void
       static_cast<const bf16*>(q), static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
       static_cast<const bf16*>(kn), static_cast<const bf16*>(vn),
       static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), static_cast<bf16*>(out),
-      B, Hq, Hkv, hb, Sq, Sc, Sn, kind, window, chunk, scale);
+      B, Hq, Hkv, Hc, hb, Sq, Sc, Sn, kind, window, chunk, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* kc, const void* vc, const void* kn,
                         const void* vn, const void* q_pos, const void* k_pos, void* out,
-                        int B, int Hq, int Hkv, int Sq, int Sc, int Sn, int D, int kind,
-                        int window, int chunk, float scale, cudaStream_t stream) {
+                        int B, int Hq, int Hkv, int Hc, int Sq, int Sc, int Sn, int D,
+                        int kind, int window, int chunk, float scale, cudaStream_t stream) {
   switch (D) {
 #define REPRO_PREFILL_MMA(DD)                                                            \
   case DD:                                                                             \
-    return launch_mma<DD>(q, kc, vc, kn, vn, q_pos, k_pos, out, B, Hq, Hkv, Sq, Sc, Sn, \
-                          kind, window, chunk, scale, stream);
+    return launch_mma<DD>(q, kc, vc, kn, vn, q_pos, k_pos, out, B, Hq, Hkv, Hc, Sq, Sc,  \
+                          Sn, kind, window, chunk, scale, stream);
     REPRO_PREFILL_MMA(16)
     REPRO_PREFILL_MMA(32)
     REPRO_PREFILL_MMA(64)
@@ -662,24 +662,27 @@ size_t smem_bytes(int D, int Sk) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; kind: 0 causal, 1 sliding, 2 chunked.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a shape the kernel does not take.
+// kc/vc/kn/vn point at the first KV head read of row 0; a row of each
+// source holds Hc >= Hkv heads (Hc > Hkv: the kernel reads Hkv of them in
+// place, a head slice of a cache whose heads are replicated over a model
+// axis).  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
 int prefill_attention_launch(const void* q, const void* kc, const void* vc,
                              const void* kn, const void* vn, const void* q_pos,
                              const void* k_pos, void* out, int B, int Hq,
-                             int Hkv, int Sq, int Sc, int Sn, int D, int dtype,
+                             int Hkv, int Hc, int Sq, int Sc, int Sn, int D, int dtype,
                              int kind, int window, int chunk, float scale,
                              void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sc < 0 || Sn < 0 ||
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hc < Hkv || Sq <= 0 || Sc < 0 || Sn < 0 ||
       Sc + Sn <= 0 || (D != 16 && D != 32 && D != 64 && D != 128) ||
       (dtype != 0 && dtype != 1) || kind < 0 || kind > 2 ||
       (kind == 2 && chunk <= 0) || Hq > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)launch_bf16(q, kc, vc, kn, vn, q_pos, k_pos, out, B, Hq, Hkv, Sq, Sc, Sn,
+    return (int)launch_bf16(q, kc, vc, kn, vn, q_pos, k_pos, out, B, Hq, Hkv, Hc, Sq, Sc, Sn,
                             D, kind, window, chunk, scale, s);
-  launch_t<float>(q, kc, vc, kn, vn, q_pos, k_pos, out, B, Hq, Hkv, Sq, Sc, Sn, D, kind,
+  launch_t<float>(q, kc, vc, kn, vn, q_pos, k_pos, out, B, Hq, Hkv, Hc, Sq, Sc, Sn, D, kind,
                   window, chunk, scale, s);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,11 @@ shared memory in the same launch.  The host's only work per call is the
 output's allocation and the launch: the split count comes from the SM
 count, read once per device, and no scratch or counter outlives a call,
 so the launch can be captured in a CUDA graph.
+
+``kv_head`` serves a cache whose KV heads are replicated over a ``model``
+axis: every query head of the call attends that one head of each row,
+which the kernel reads in place (the cache's row stride is an argument),
+so the head slice, not contiguous when B > 1, is never copied.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ def _launcher():
     if _fn is None:
         launch = _build.load("decode_attention").decode_attention_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        launch.argtypes = [P] * 5 + [I] * 7 + [ctypes.c_float, P]
+        launch.argtypes = [P] * 5 + [I] * 8 + [ctypes.c_float, P]
         launch.restype = I
         _fn = launch
     return _fn
@@ -91,9 +96,13 @@ def flash_decode(
     lengths: torch.Tensor,  # (B,) int32 valid entries per row
     *,
     scale: float | None = None,
+    kv_head: int | None = None,
 ) -> torch.Tensor:
     """Launch the decode kernel on ``q``'s device and current stream.
-    ``lengths`` is clamped to [0, Smax]; a row of length 0 comes out 0."""
+    ``lengths`` is clamped to [0, Smax]; a row of length 0 comes out 0.
+    With ``kv_head`` every query head attends head ``kv_head`` of the
+    cache alone, read in place: the plain version's
+    ``k_cache[:, kv_head:kv_head + 1]``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on CUDA tensors, got {q.device}")
     if q.dtype not in DTYPE_CODES:
@@ -104,7 +113,12 @@ def flash_decode(
             f"v {tuple(v_cache.shape)}: want (B,Hq,D), (B,Hkv,Smax,D) x2"
         )
     B, Hq, D = q.shape
-    _, Hkv, Smax, _ = k_cache.shape
+    _, Hc, Smax, _ = k_cache.shape
+    Hkv, offset = Hc, 0
+    if kv_head is not None:
+        if not 0 <= kv_head < Hc:
+            raise ValueError(f"kv_head {kv_head} outside the cache's {Hc} heads")
+        Hkv, offset = 1, kv_head * Smax * D * k_cache.element_size()
     if k_cache.shape[0] != B or k_cache.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} does not match cache {tuple(k_cache.shape)}")
     if D not in SUPPORTED_D:
@@ -123,8 +137,9 @@ def flash_decode(
     ns = num_splits(B, Hkv, Smax, KEY_TILE[q.dtype], _build.sm_count(q.device))
     with torch.cuda.device(q.device):
         status = launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, Hq, Hkv, Smax, D, ns, DTYPE_CODES[q.dtype], scale,
+            q.data_ptr(), k_cache.data_ptr() + offset, v_cache.data_ptr() + offset,
+            lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, Hc, Smax, D, ns,
+            DTYPE_CODES[q.dtype], scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(status, "decode_attention")

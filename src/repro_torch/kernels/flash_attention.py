@@ -308,7 +308,7 @@ def _launcher():
         lib = _build.load("prefill_attention")
         fn = lib.prefill_attention_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 8 + [I] * 11 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 8 + [I] * 12 + [ctypes.c_float, P]
         fn.restype = I
         _fn = fn
     return _fn
@@ -327,12 +327,16 @@ def flash_prefill(
     window: int = 0,
     chunk: int = 0,
     scale: float | None = None,
+    kv_head: int | None = None,
 ) -> torch.Tensor:
     """Launch the prefill kernel on ``q``'s device and current stream.
 
     Key index ``j < Sc`` is read from ``k``/``v`` and ``j >= Sc`` from
     ``k_new``/``v_new``; without a second source (``k_new=None``) this is
-    the one-source function of the reference, with ``Sn = 0``.
+    the one-source function of the reference, with ``Sn = 0``.  With
+    ``kv_head`` every query head attends head ``kv_head`` of both sources
+    alone (a cache whose KV heads are replicated over a ``model`` axis),
+    read in place: the plain version's ``k[:, kv_head:kv_head + 1]``.
     """
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill runs on CUDA tensors, got {q.device}")
@@ -349,18 +353,25 @@ def flash_prefill(
             f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
     B, Hq, Sq, D = q.shape
-    _, Hkv, Sc, _ = k.shape
+    _, Hc, Sc, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if k_new is None:
         k_new, v_new, Sn = k, v, 0
     else:
         Sn = k_new.shape[2]
-        if k_new.shape != (B, Hkv, Sn, D) or v_new.shape != k_new.shape:
+        if k_new.shape != (B, Hc, Sn, D) or v_new.shape != k_new.shape:
             raise ValueError(
                 f"chunk keys {tuple(k_new.shape)} / values {tuple(v_new.shape)} "
-                f"do not match (B, Hkv, Sn, D) = ({B}, {Hkv}, Sn, {D})"
+                f"do not match (B, Hkv, Sn, D) = ({B}, {Hc}, Sn, {D})"
             )
+    Hkv, off_c, off_n = Hc, 0, 0
+    if kv_head is not None:
+        if not 0 <= kv_head < Hc:
+            raise ValueError(f"kv_head {kv_head} outside the cache's {Hc} heads")
+        Hkv = 1
+        off_c = kv_head * Sc * D * k.element_size()
+        off_n = kv_head * Sn * D * k.element_size()
     if D not in SUPPORTED_D:
         raise ValueError(f"head dim {D} not in {SUPPORTED_D}")
     if Hq % Hkv:
@@ -383,10 +394,10 @@ def flash_prefill(
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(),
+            q.data_ptr(), k.data_ptr() + off_c, v.data_ptr() + off_c,
+            k_new.data_ptr() + off_n, v_new.data_ptr() + off_n,
             q_pos.data_ptr(), k_pos.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Sc, Sn, D, DTYPE_CODES[q.dtype],
+            B, Hq, Hkv, Hc, Sq, Sc, Sn, D, DTYPE_CODES[q.dtype],
             MASK_KINDS[kind], int(window), int(chunk), scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -153,11 +153,14 @@ def attention(
     )
 
 
-def decode_attention(q, k_cache, v_cache, lengths, *, scale=None):
-    """(B, Hq, D) single-token decode against a padded KV cache."""
+def decode_attention(q, k_cache, v_cache, lengths, *, scale=None, kv_head=None):
+    """(B, Hq, D) single-token decode against a padded KV cache; with
+    ``kv_head`` every query head attends that one head of the cache (read
+    in place by the kernel, a slice in the plain version)."""
     if _route(q) == "cuda":
-        return flash_decode(q, k_cache, v_cache, lengths, scale=scale)
-    return ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+        return flash_decode(q, k_cache, v_cache, lengths, scale=scale, kv_head=kv_head)
+    return ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale,
+                                kv_head=kv_head)
 
 
 def prefill_attention(
@@ -167,19 +170,27 @@ def prefill_attention(
     window: int = 0,
     chunk: int = 0,
     scale: float | None = None,
+    kv_head: int | None = None,
 ):
     """(B, Hq, Sq, D) chunk queries vs the keys ``k ++ k_new``.
 
     With ``k_new``/``v_new`` absent this is the reference's one-source
     signature, ``k``/``v`` already holding cache ++ chunk.  The model
     passes the prior cache as ``k``/``v`` and the chunk's own keys as
-    ``k_new``/``v_new``; ``k_pos`` covers both, cache slots first.
+    ``k_new``/``v_new``; ``k_pos`` covers both, cache slots first.  With
+    ``kv_head`` every query head attends that one head of both sources
+    (read in place by the kernel, a slice in the plain version).
     """
     if _route(q) == "cuda":
         return flash_prefill(
             q, k, v, q_pos, k_pos, k_new=k_new, v_new=v_new,
-            kind=kind, window=window, chunk=chunk, scale=scale,
+            kind=kind, window=window, chunk=chunk, scale=scale, kv_head=kv_head,
         )
+    if kv_head is not None:
+        heads = slice(kv_head, kv_head + 1)
+        k, v = k[:, heads], v[:, heads]
+        if k_new is not None:
+            k_new, v_new = k_new[:, heads], v_new[:, heads]
     if k_new is not None:
         k = torch.cat([k, k_new], dim=2)
         v = torch.cat([v, v_new], dim=2)

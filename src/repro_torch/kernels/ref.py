@@ -193,8 +193,13 @@ def decode_attention(
     lengths: torch.Tensor,    # (B,) valid entries per batch row
     *,
     scale: float | None = None,
+    kv_head: int | None = None,
 ) -> torch.Tensor:
-    """Single-token decode against a (possibly padded) KV cache."""
+    """Single-token decode against a (possibly padded) KV cache; with
+    ``kv_head`` against that one head of it (a slice)."""
+    if kv_head is not None:
+        k_cache = k_cache[:, kv_head:kv_head + 1]
+        v_cache = v_cache[:, kv_head:kv_head + 1]
     out = attention(
         q[:, :, None, :], k_cache, v_cache,
         kind="bidirectional", scale=scale, k_lengths=lengths,

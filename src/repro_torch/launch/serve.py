@@ -11,6 +11,22 @@ otherwise a registered name, the ``role=tier[:strategy]`` grammar or JSON),
 ``--preempt`` turns on planner-priced preemption (on a card the spill
 tier is pinned host memory).  The reference's ``pools=`` directive
 (disaggregated serving) is ROADMAP A13.
+
+``--mesh`` is read as the reference's serving launcher reads it: the
+axes are ``("data", "model")[-len(dims):]``, so ``2x2`` is (data, model),
+``2`` is a ``model`` axis of 2, and a mesh of one rank (``1x1``, the
+default) is no mesh.  A mesh of several ranks serves one process a rank
+under ``torchrun`` (gloo with ``--device cpu``, nccl on cards, each rank
+driving ``cuda:<LOCAL_RANK>``): every rank draws the same weights and
+requests and keeps its shards (``batch`` on ``data``, Megatron over
+``model``), e.g.
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch yi-6b --smoke --device cpu --mesh 2x2
+
+Only rank 0 logs the results (each request's tokens, then the rates).
+The reference's ``--donor`` and ``--remote-donor`` axes are not taken
+(ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -21,10 +37,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.placement import registered_policies
+from repro_torch.launch.train import join_mesh, rank_device
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.serve import (
     QueueFullError,
@@ -72,15 +90,47 @@ def main(argv=None) -> dict:
                     help="price placements on a measured hardware model: load "
                          "this calibration.json, or calibrate on the device and "
                          "save it there (spec-sheet constants otherwise)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="e.g. 2x2 -> (data, model); 2 -> model; a mesh of several "
+                         "ranks runs under torchrun, one process a rank (donor axes, "
+                         "the reference's --donor/--remote-donor: ROADMAP A10c)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
+    mesh = join_mesh(args.mesh, *parse_mesh(args.mesh), device)
+    try:
+        out = _serve(args, device, mesh)
+        if mesh is not None:
+            dist.barrier()      # without it a gloo rank can abort at exit
+        return out
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``--mesh``'s shape and axis names, as the reference's serving
+    launcher reads them: the trailing ones of ``("data", "model")``."""
+    dims = tuple(int(x) for x in spec.split("x"))
+    if len(dims) > 2:
+        raise SystemExit(f"--mesh {spec}: serving takes (data, model) or (model,)")
+    return dims, ("data", "model")[-len(dims):]
+
+
+def _serve(args: argparse.Namespace, device: torch.device, mesh) -> dict:
+    rank = dist.get_rank() if mesh is not None else 0
     if args.calibration:
         from repro_torch.core.calibration import load_or_calibrate
 
+        # on a mesh rank 0 calibrates and writes the file; the others load it
+        if rank:
+            dist.barrier()
         cal = load_or_calibrate(args.calibration, activate=True, device=device)
-        log.info("calibrated hardware model active:\n%s", cal.summary())
+        if mesh is not None and not rank:
+            dist.barrier()
+        if not rank:
+            log.info("calibrated hardware model active:\n%s", cal.summary())
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     bundle = ModelBundle(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -97,10 +147,13 @@ def main(argv=None) -> dict:
         ),
         params,
         device=device,
+        mesh=mesh,
     )
-    log.info("serving under placement policy %s", server.policy.name)
+    if rank == 0:
+        log.info("serving under placement policy %s%s", server.policy.name,
+                 f" on the mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}" if mesh else "")
     rng = np.random.default_rng(args.seed)
-    pending = [
+    requests = [
         Request(
             rid=rid,
             prompt=rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32),
@@ -112,6 +165,7 @@ def main(argv=None) -> dict:
         )
         for rid in range(args.requests)
     ]
+    pending = list(requests)
     t0 = time.perf_counter()
     # a bounded queue takes the stream as it drains
     while pending or server.has_work():
@@ -126,6 +180,10 @@ def main(argv=None) -> dict:
     tp = server.throughput()
     total = tp["decode_tokens"]
     st = server.stats()
+    if rank:
+        return tp
+    for req in requests:
+        log.info("request %d tokens %s", req.rid, " ".join(map(str, req.out_tokens)))
     log.info(
         "served %d requests, %d tokens in %.2fs -> %.1f tok/s on %s | "
         "prefill %.1f tok/s | decode %.1f tok/s | %d preemptions, %d promotions, "

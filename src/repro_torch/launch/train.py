@@ -143,25 +143,34 @@ def rank_device(device: torch.device) -> torch.device:
     return dev
 
 
-def make_mesh(args: argparse.Namespace, device: torch.device):
-    """The run's mesh: None on one process with every axis of size 1;
-    else the mesh over the process group of torchrun's environment
-    (initialized here).  Raises naming ROADMAP A10c for a donor axis."""
-    dims, axes = parse_mesh(args.mesh)
-    if args.donor > 1 or args.remote_donor > 1:
-        raise SystemExit(f"--donor {args.donor} --remote-donor {args.remote_donor}: "
-                         "donor axes (the peer and remote placements) are ROADMAP A10c")
+def join_mesh(spec: str, dims: tuple[int, ...], axes: tuple[str, ...],
+              device: torch.device):
+    """The mesh of ``dims`` over ``axes`` (``spec`` is the ``--mesh`` text
+    it came from): None on one process with every axis of size 1; else the
+    mesh over the process group of torchrun's environment (initialized
+    here: nccl on cards, gloo on the CPU).  Exits when the processes do
+    not match the mesh."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if math.prod(dims) == 1 and world == 1:
         return None
     if math.prod(dims) != world:
-        raise SystemExit(f"--mesh {args.mesh} needs {math.prod(dims)} processes, this "
+        raise SystemExit(f"--mesh {spec} needs {math.prod(dims)} processes, this "
                          f"run has {world}: start it under torchrun --nproc-per-node "
                          f"{math.prod(dims)}")
     if not dist.is_initialized():
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                                 init_method="env://")
     return make_mesh_for(dims, axes)
+
+
+def make_mesh(args: argparse.Namespace, device: torch.device):
+    """The run's mesh (:func:`join_mesh` of ``--mesh`` read as the
+    reference's training launcher reads it).  Raises naming ROADMAP A10c
+    for a donor axis."""
+    if args.donor > 1 or args.remote_donor > 1:
+        raise SystemExit(f"--donor {args.donor} --remote-donor {args.remote_donor}: "
+                         "donor axes (the peer and remote placements) are ROADMAP A10c")
+    return join_mesh(args.mesh, *parse_mesh(args.mesh), device)
 
 
 def train(args: argparse.Namespace) -> dict:

@@ -172,33 +172,54 @@ def _gqa_project(params, x, spec, positions, code):
     return rope(q, positions, th), rope(k, positions, th), v
 
 
-def _local_heads(params, spec: AttentionSpec, tp) -> dict:
-    """The layer's params as a rank of a ``model`` axis that splits the
-    query heads computes on: ``w_q``/``w_o`` are its shards already;
-    ``w_k``/``w_v`` too when the kv heads split, else (the divisibility
-    drop replicates them) the contiguous kv heads its query heads map to,
-    sliced so that the GQA group stays whole.  A replicated leaf a rank
-    uses in part (those slices, the q/k norms over its heads) passes
-    :class:`~repro_torch.models.layers.CopyToModel`, which sums its
-    gradient over the group.  Raises ``NotImplementedError`` when the
-    rank's query heads straddle GQA groups."""
-    group, m, rank = tp
-    out = dict(params)
-    for k in ("q_norm", "k_norm"):
-        if k in out:
-            out[k] = CopyToModel.apply(out[k], group)
+def _kv_head(spec: AttentionSpec, tp) -> int | None:
+    """The one kv head a rank's query heads map to when the divisibility
+    drop replicates the kv heads over a ``model`` axis that splits the
+    query heads (``rank * hq // g``); None when the kv heads split too.
+    Raises ``NotImplementedError`` when the rank's query heads straddle
+    GQA groups."""
+    _, m, rank = tp
     if model_split("kv_heads", spec.n_kv_heads) is not None:
-        return out
+        return None
     hq, g = spec.n_heads // m, spec.n_heads // spec.n_kv_heads
     if g % hq:
         raise NotImplementedError(
             f"{spec.n_heads} query heads over a {m}-rank model axis put {hq} on a "
             f"rank, which straddle the GQA groups of {g} around the "
             f"{spec.n_kv_heads} replicated kv heads: not ported (ROADMAP A10b, rest)")
-    j = rank * hq // g
-    for k in ("w_k", "w_v"):
-        out[k] = CopyToModel.apply(params[k], group)[:, j:j + 1]
+    return rank * hq // g
+
+
+def _local_heads(params, spec: AttentionSpec, tp) -> dict:
+    """The layer's params as a rank of a ``model`` axis that splits the
+    query heads computes on in training: ``w_q``/``w_o`` are its shards
+    already; ``w_k``/``w_v`` too when the kv heads split, else (the
+    divisibility drop replicates them) the kv head its query heads map to
+    (:func:`_kv_head`), sliced so that the GQA group stays whole.  A
+    replicated leaf a rank uses in part (those slices, the q/k norms over
+    its heads) passes :class:`~repro_torch.models.layers.CopyToModel`,
+    which sums its gradient over the group."""
+    group = tp[0]
+    out = dict(params)
+    for k in ("q_norm", "k_norm"):
+        if k in out:
+            out[k] = CopyToModel.apply(out[k], group)
+    j = _kv_head(spec, tp)
+    if j is not None:
+        for k in ("w_k", "w_v"):
+            out[k] = CopyToModel.apply(params[k], group)[:, j:j + 1]
     return out
+
+
+def _attn_out(o: torch.Tensor, w_o: torch.Tensor, tp) -> torch.Tensor:
+    """The block output of the heads' outputs ``o`` (B, H, S, k): one
+    device's ``_merge_heads``, or under a ``model`` axis that splits the
+    heads ``w_o``'s row-parallel product, which sums them over the
+    group."""
+    if tp is None:
+        return _merge_heads(o, w_o)
+    B, H, S, k = o.shape
+    return row_parallel(o.transpose(1, 2).reshape(B, S, H * k), w_o.reshape(H * k, -1), tp[0])
 
 
 def gqa_train(params, x, spec: AttentionSpec, code: str):
@@ -217,11 +238,7 @@ def gqa_train(params, x, spec: AttentionSpec, code: str):
         q, k, v,
         kind=_mask_kind(code), window=spec.window, chunk=spec.chunk,
     )
-    if tp is None:
-        return _merge_heads(o, params["w_o"])
-    B, H, S, k = o.shape
-    return row_parallel(o.transpose(1, 2).reshape(B, S, H * k),
-                        params["w_o"].reshape(H * k, -1), tp[0])
+    return _attn_out(o, params["w_o"], tp)
 
 
 def _ring_positions(offsets: torch.Tensor, size: int) -> torch.Tensor:
@@ -273,6 +290,16 @@ def _append_kv(cache, k_new, v_new, offsets, new_lens):
         buf[bidx, :, slot] = torch.where(take[:, :, None, None], fresh, old)
 
 
+def _serve_heads(spec: AttentionSpec):
+    """(tp, kv head) of a serving step: the ``model`` split of the query
+    heads (None on one device) and, where the kv heads are replicated over
+    it, the one kv head this rank's query heads attend (:func:`_kv_head`).
+    Every rank projects and writes every kv head it holds, so a
+    replicated cache equals one device's."""
+    tp = model_split("heads", spec.n_heads)
+    return tp, (None if tp is None else _kv_head(spec, tp))
+
+
 def gqa_prefill(params, x, cache, spec: AttentionSpec, code: str):
     """Whole-prompt attention + cache fill from position 0.
 
@@ -280,14 +307,16 @@ def gqa_prefill(params, x, cache, spec: AttentionSpec, code: str):
     """
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
+    tp, j = _serve_heads(spec)
     q, k, v = _gqa_project(params, x, spec, positions, code)
+    heads = slice(None) if j is None else slice(j, j + 1)
     o = ops.attention(
-        q, k, v,
+        q, k[:, heads], v[:, heads],
         kind=_mask_kind(code), window=spec.window, chunk=spec.chunk,
     )
     zeros = torch.zeros((B,), dtype=torch.int32, device=x.device)
     _append_kv(cache, k, v, zeros, zeros + S)
-    return _merge_heads(o, params["w_o"])
+    return _attn_out(o, params["w_o"], tp)
 
 
 def gqa_prefill_at(
@@ -302,8 +331,13 @@ def gqa_prefill_at(
     the *old* cache and the chunk as two key sources — no concatenation —
     and the append comes after it.  Rows with ``new_lens == 0`` are
     untouched.  Returns the block output; ``cache`` is updated in place.
+    Under a ``model`` axis a rank attends its own query heads (with the
+    one kv head they map to where the kv heads are replicated, read in
+    place by the kernel) and ``w_o``'s row-parallel product sums the
+    heads over the group.
     """
     B, S, _ = x.shape
+    tp, kv_head = _serve_heads(spec)
     offsets = offsets.to(torch.int32)
     new_lens = new_lens.to(torch.int32)
     j = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -319,10 +353,10 @@ def gqa_prefill_at(
     o = ops.prefill_attention(
         q.contiguous(), cache["k"], cache["v"], positions, kpos,
         k_new=k_chunk, v_new=v_chunk,
-        kind=_mask_kind(code), window=spec.window, chunk=spec.chunk,
+        kind=_mask_kind(code), window=spec.window, chunk=spec.chunk, kv_head=kv_head,
     )
     _append_kv(cache, k_chunk, v_chunk, offsets, new_lens)
-    return _merge_heads(o, params["w_o"])
+    return _attn_out(o, params["w_o"], tp)
 
 
 def gqa_decode(params, x, cache, lengths, spec: AttentionSpec, code: str):
@@ -338,9 +372,11 @@ def gqa_decode(params, x, cache, lengths, spec: AttentionSpec, code: str):
     own chunk, through the chunk-prefill kernel with one query.  (The
     reference masks a ``C`` layer to the first ``lengths % chunk + 1``
     slots, which is the current chunk only while a row is in its first
-    one: ROADMAP C1.)  Returns the block output.
+    one: ROADMAP C1.)  Under a ``model`` axis, as :func:`gqa_prefill_at`.
+    Returns the block output.
     """
     B = x.shape[0]
+    tp, kv_head = _serve_heads(spec)
     positions = lengths[:, None, None]           # (B,1,1) for (B,H,1,dh)
     q, k, v = _gqa_project(params, x, spec, positions, code)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]  # (B,H,D), (B,Hkv,D) x2
@@ -356,14 +392,14 @@ def gqa_decode(params, x, cache, lengths, spec: AttentionSpec, code: str):
         o = ops.prefill_attention(
             q[:, :, None].contiguous(), cache["k"], cache["v"],
             lengths[:, None].contiguous(), _ring_positions(lengths + 1, size),
-            kind="chunked", chunk=spec.chunk,
+            kind="chunked", chunk=spec.chunk, kv_head=kv_head,
         )[:, :, 0]
     else:
         valid = torch.clamp(lengths + 1, max=size)
         o = ops.decode_attention(
-            q.contiguous(), cache["k"], cache["v"], valid.to(torch.int32)
+            q.contiguous(), cache["k"], cache["v"], valid.to(torch.int32), kv_head=kv_head,
         )
-    return _merge_heads(o[:, :, None], params["w_o"])
+    return _attn_out(o[:, :, None], params["w_o"], tp)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,10 @@ them.  ``apply_mlp`` (column-parallel ``w_gate``/``w_up``, row-parallel
 ``fused_cross_entropy`` (logits split on vocab, the max, the sum of
 exponentials and the gold logit reduced over ``model``) take the global
 width of their split dim (``d_ff=``, ``vocab=``); without it, or without
-a mesh, they run whole, as on one device.
+a mesh, they run whole, as on one device.  Serving (forward only) takes
+``apply_head(vocab=)``: each rank's logits of its vocab rows are gathered
+over ``model`` (:func:`gather_vocab`), so the sampler sees whole rows, as
+the reference's XLA gathers them for its sampler.
 """
 
 from __future__ import annotations
@@ -31,7 +34,16 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.sharding import P, Param, current_mesh, mesh_shape, spec_for
+from repro_torch.models.sharding import (
+    COLLECTIVES,
+    P,
+    Param,
+    current_mesh,
+    gather_dim,
+    mesh_shape,
+    one_rank_axes,
+    spec_for,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -41,10 +53,12 @@ from repro_torch.models.sharding import P, Param, current_mesh, mesh_shape, spec
 def model_split(name: str, dim: int | None):
     """(group, ranks, rank) of the current mesh's ``model`` axis when the
     rules split a ``dim``-wide logical axis ``name`` over it; None when
-    that dim stays whole (no mesh, a one-rank axis, ``dim`` None, or the
-    divisibility drop)."""
+    that dim stays whole (no mesh, a one-rank axis unless the context
+    splits over one rank too, ``dim`` None, or the divisibility drop)."""
     mesh = current_mesh()
-    if mesh is None or dim is None or mesh_shape(mesh).get("model", 1) < 2:
+    if mesh is None or dim is None:
+        return None
+    if mesh_shape(mesh).get("model", 1) < 2 and not one_rank_axes():
         return None
     if spec_for((dim,), (name,), mesh) != P("model"):
         return None
@@ -56,6 +70,7 @@ def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``, added in float32, in x's dtype."""
     y = x.float() if x.dtype != torch.float32 else x.clone()
     dist.all_reduce(y, group=group)
+    COLLECTIVES["all_reduce"] += 1
     return y.to(x.dtype)
 
 
@@ -96,6 +111,7 @@ class _RowParallel(torch.autograd.Function):
         ctx.save_for_backward(x2, w)
         y = head_product(x2, w)
         dist.all_reduce(y, group=group)
+        COLLECTIVES["all_reduce"] += 1
         return y.to(x2.dtype)
 
     @staticmethod
@@ -217,15 +233,30 @@ def _head_weight(params: dict, embed_params: dict) -> torch.Tensor:
     return params["unembed"] if "unembed" in params else embed_params["embedding"].T
 
 
-def apply_head(params: dict, embed_params: dict, x: torch.Tensor):
+def gather_vocab(logits: torch.Tensor, tp) -> torch.Tensor:
+    """(N, V/m) logits of a rank's vocab rows -> the whole (N, V) rows,
+    gathered over the ``model`` group ``tp`` (forward only: serving's
+    sampler)."""
+    group, m, _ = tp
+    return gather_dim(logits, 1, group, m)
+
+
+def apply_head(params: dict, embed_params: dict, x: torch.Tensor, *,
+               vocab: int | None = None):
     """Final logits in float32, accumulated in float32.
 
     A tied head reads ``embedding.T`` as a view; see :func:`head_product`.
+    With ``vocab`` split over ``model`` each rank computes the logits of
+    its vocab rows and they are gathered (:func:`gather_vocab`): every
+    rank returns whole rows.
     """
     w = _head_weight(params, embed_params)
     lead = x.shape[:-1]
     logits = head_product(x.reshape(-1, x.shape[-1]), w)
-    return logits.reshape(*lead, w.shape[-1])
+    tp = model_split("vocab", vocab)
+    if tp is not None:
+        logits = gather_vocab(logits, tp)
+    return logits.reshape(*lead, logits.shape[-1])
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

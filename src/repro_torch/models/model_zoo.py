@@ -32,6 +32,7 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.models.multimodal import frontend_embeds, frontend_input_defs
 from repro_torch.models.sharding import (
     Param,
+    local_defs,
     materialize,
     tree_leaves,
     zeros_like_defs,
@@ -193,7 +194,8 @@ class ModelBundle(ModelSizing):
         if what:
             raise NotImplementedError(
                 f"{cfg.name}: a {ranks}-rank model axis over {', '.join(what)} is not "
-                "ported yet (ROADMAP A10b, rest); a data or pod axis trains it")
+                "ported yet (ROADMAP A10b, rest); a data or pod axis trains it, and a "
+                "data axis serves it")
 
     # -- defs ----------------------------------------------------------------
     def param_defs(self):
@@ -229,11 +231,14 @@ class ModelBundle(ModelSizing):
         """Random weights drawn from ``generator``, on its device."""
         return materialize(self.param_defs(), generator, dtype or self.cfg.dtype)
 
-    def init_cache(self, batch: int, max_len: int, dtype=None, device=None):
-        return zeros_like_defs(
-            self.cache_defs(batch, max_len), dtype or self.cfg.dtype,
-            resolve_device(device),
-        )
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None, *,
+                   specs=None, mesh=None):
+        """A zero cache of ``batch`` rows; with a mesh's cache ``specs``
+        this rank's shards of it, made at their local shapes."""
+        defs = self.cache_defs(batch, max_len)
+        if specs is not None:
+            defs = local_defs(defs, specs, mesh)
+        return zeros_like_defs(defs, dtype or self.cfg.dtype, resolve_device(device))
 
     # -- compute entry points ---------------------------------------------
     def train_loss(self, params, batch: dict, *, remat: str = "full"):

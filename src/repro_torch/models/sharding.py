@@ -33,6 +33,7 @@ reference's, so carrying weights across is a tree map
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import logging
@@ -116,6 +117,7 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh = None
         self.rules: dict[str, tuple[str, ...]] = dict(DEFAULT_RULES)
+        self.one_rank = False
 
 
 _CTX = _Ctx()
@@ -129,25 +131,55 @@ def _overlay(rules) -> dict[str, tuple[str, ...]]:
 
 
 @contextlib.contextmanager
-def use_sharding(mesh, rules: Mapping[str, Sequence[str]] | None = None):
+def use_sharding(mesh, rules: Mapping[str, Sequence[str]] | None = None, *,
+                 one_rank: bool = False):
     """Install mesh + rules for the layers' model-axis collectives (the
-    reference's trace-time constraint resolution)."""
-    old_mesh, old_rules = _CTX.mesh, _CTX.rules
-    _CTX.mesh = mesh
+    reference's trace-time constraint resolution).  ``one_rank``: the
+    layers split over a ``model`` axis of one rank too (every collective
+    runs, over one rank), to measure the collectives' cost on one card."""
+    old = _CTX.mesh, _CTX.rules, _CTX.one_rank
+    _CTX.mesh, _CTX.one_rank = mesh, one_rank
     if rules is not None:
         _CTX.rules = _overlay(rules)
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules = old_mesh, old_rules
+        _CTX.mesh, _CTX.rules, _CTX.one_rank = old
 
 
 def current_mesh():
     return _CTX.mesh
 
 
+def one_rank_axes() -> bool:
+    """Does the installed context split over one-rank axes too?"""
+    return _CTX.one_rank
+
+
 def current_rules() -> dict[str, tuple[str, ...]]:
     return _CTX.rules
+
+
+#: per logical axis, the mesh axes the port's layers and reductions
+#: realize a split over (the batch over the data axes, Megatron's four
+#: over ``model``); the defaults' other splits over ``model`` (experts,
+#: ssm_heads, d_inner) are the families
+#: :meth:`~repro_torch.models.model_zoo.ModelBundle.check_model_axis`
+#: refuses
+REALIZED: dict[str, set[str]] = {
+    "batch": {"pod", "data"}, "heads": {"model"}, "kv_heads": {"model"},
+    "d_ff": {"model"}, "vocab": {"model"},
+}
+
+
+def unrealized_rules(rules, mesh) -> dict[str, tuple[str, ...]]:
+    """The rules of the overlay ``rules`` that differ from
+    :data:`DEFAULT_RULES` and split a logical axis over a mesh axis of
+    several ranks that the port does not realize it on (:data:`REALIZED`):
+    what a step on ``mesh`` must refuse."""
+    wide = {a for a, n in mesh_shape(mesh).items() if n > 1}
+    return {k: tuple(v) for k, v in _overlay(rules or {}).items() if k != "fsdp"
+            and tuple(v) != DEFAULT_RULES.get(k) and set(v) & wide - REALIZED.get(k, set())}
 
 
 def spec_for(
@@ -336,6 +368,34 @@ def local_shape(shape: Sequence[int], spec: PartitionSpec, mesh) -> tuple[int, .
     return tuple(out)
 
 
+def local_defs(defs, specs, mesh):
+    """Param-def pytree -> the same defs at one rank's shard shapes
+    (:func:`local_shape`), so a rank makes its shards directly (a cache at
+    its local shape, never at full size followed by a slice)."""
+    return tree_map(lambda p, sp: dataclasses.replace(p, shape=local_shape(p.shape, sp, mesh)),
+                    defs, specs)
+
+
+def batch_block(batch: int, mesh, rules=None) -> tuple[int, int]:
+    """(index, count): this rank's block of a ``batch``-row tensor's
+    rows under the logical ``"batch"`` axis's spec (with its divisibility
+    drop: where the axes do not divide the rows, every rank holds every
+    row and this is (0, 1)); (0, 1) without a mesh."""
+    spec = spec_for((batch,), ("batch",), mesh, rules)
+    index, count = 0, 1
+    sizes = mesh_shape(mesh)
+    for a in entry_axes(spec[0]) if spec else ():
+        index, count = index * sizes[a] + mesh.get_local_rank(a), count * sizes[a]
+    return index, count
+
+
+def slot_owner(slot: int, batch: int, count: int) -> tuple[int, int]:
+    """(block, local index) of global row ``slot`` of ``batch`` rows cut
+    into ``count`` blocks (:func:`batch_block`): the rank whose block index
+    is ``block`` holds it, at ``local index`` of its rows."""
+    return divmod(slot, batch // count)
+
+
 def shard_of(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     """This rank's slice of the full tensor ``x`` under ``spec`` (a view):
     along a dim split over axes (a1, a2, ...) the shard index is the
@@ -352,9 +412,18 @@ def shard_of(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     return x
 
 
-def _gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+#: the collectives :func:`gather_dim` and the layers' Megatron operators
+#: issued, by kind, since the process started: a CUDA graph's capture
+#: counts what one replay runs (``Executor.graph_collectives``)
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``x`` of ``group`` concatenated along ``dim``, in
+    rank order (one all-gather)."""
     buf = x.new_empty((n, *x.shape))
     dist.all_gather(list(buf.unbind(0)), x.contiguous(), group=group)
+    COLLECTIVES["all_gather"] += 1
     shape = list(x.shape)
     shape[dim] *= n
     return buf.movedim(0, dim).reshape(shape)
@@ -368,7 +437,7 @@ def gather_full(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     for i, e in enumerate(spec):
         for a in reversed(entry_axes(e)):
             if sizes[a] > 1:
-                x = _gather_dim(x, i, mesh.get_group(a), sizes[a])
+                x = gather_dim(x, i, mesh.get_group(a), sizes[a])
     return x
 
 

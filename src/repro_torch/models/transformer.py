@@ -232,7 +232,7 @@ def _apply_layer_step(
         # reference: through the capacity they share, a row's output
         # depends on its batch-mates
         return x + moe_mod.apply_moe(lp["moe"], h, cfg.moe, cfg.act)[0]
-    return x + apply_mlp(lp["mlp"], h, cfg.act)
+    return x + apply_mlp(lp["mlp"], h, cfg.act, d_ff=_dense_ff(cfg))
 
 
 def _layer_slices(stage_params, count: int) -> list:
@@ -627,8 +627,8 @@ def param_windows(cfg, params) -> list[dict]:
 
 def _embed(embed_params, tokens, extra_embeds, vocab=None):
     """The token embedding, with a frontend's stub embeddings (B,
-    S_front, d) prepended in its dtype when given; ``vocab`` (the
-    training paths) lets a ``model`` axis split the lookup."""
+    S_front, d) prepended in its dtype when given; ``vocab`` lets a
+    ``model`` axis split the lookup."""
     x = apply_embed(embed_params, tokens, vocab=vocab)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -666,9 +666,11 @@ def lm_loss(params, tokens, labels, cfg: ArchConfig, *, extra_embeds=None,
 
 
 def _tail_logits(cfg, feed, x):
+    """The last position's logits, whole rows on every rank of a ``model``
+    axis that splits the vocab (gathered, ``apply_head(vocab=)``)."""
     top = feed.top("tail")
     x = apply_norm(top["final_norm"], x, cfg.norm)
-    return apply_head(top["head"], top.get("embed"), x)[:, 0]
+    return apply_head(top["head"], top.get("embed"), x, vocab=cfg.vocab)[:, 0]
 
 
 def lm_prefill(params, tokens, caches, cfg: ArchConfig, *, extra_embeds=None,
@@ -684,7 +686,7 @@ def lm_prefill(params, tokens, caches, cfg: ArchConfig, *, extra_embeds=None,
     feed = feed or ResidentFeed(params, caches)
     front = 0 if extra_embeds is None else extra_embeds.shape[1]
     feed.begin(None, front + tokens.shape[1])
-    x = _embed(feed.top("embed")["embed"], tokens, extra_embeds)
+    x = _embed(feed.top("embed")["embed"], tokens, extra_embeds, cfg.vocab)
     lengths = torch.full((tokens.shape[0],), x.shape[1], dtype=torch.int32,
                          device=x.device)
     x = _run_stages_step(cfg, feed, x, lengths, "prefill")
@@ -703,7 +705,7 @@ def lm_prefill_at(params, tokens, caches, offsets, new_lens, cfg: ArchConfig, *,
     """
     feed = feed or ResidentFeed(params, caches)
     feed.begin(offsets, new_lens)
-    x = apply_embed(feed.top("embed")["embed"], tokens)
+    x = apply_embed(feed.top("embed")["embed"], tokens, vocab=cfg.vocab)
     x = _run_stages_step(cfg, feed, x, offsets, "prefill_at", new_lens)
     last = torch.clamp(new_lens.long() - 1, 0, tokens.shape[1] - 1)
     x = torch.gather(x, 1, last[:, None, None].expand(-1, 1, x.shape[-1]))
@@ -719,6 +721,6 @@ def lm_decode_step(params, tokens, caches, lengths, cfg: ArchConfig, *,
     """
     feed = feed or ResidentFeed(params, caches)
     feed.begin(lengths, 1)
-    x = apply_embed(feed.top("embed")["embed"], tokens)
+    x = apply_embed(feed.top("embed")["embed"], tokens, vocab=cfg.vocab)
     x = _run_stages_step(cfg, feed, x, lengths, "decode")
     return _tail_logits(cfg, feed, x), caches

@@ -19,8 +19,9 @@ the steps) → ``evacuate`` (migrate off the presumed-degraded far tier) →
 policy: it returns actions; the :class:`repro_torch.serve.scheduler.Server`
 owns the side effects.
 
-Left out until its prerequisite is ported: ``rescale`` onto a new mesh
-(ROADMAP A10b, rest).
+:meth:`Supervisor.rescale` reshards a training state onto a new mesh
+(elastic restart): every leaf gathered whole from its shards, then the
+new mesh's shard cut from it.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ import dataclasses
 import logging
 from typing import TYPE_CHECKING, Any, Callable
 
+import torch
+
+from repro_torch.models.sharding import gather_full, shard_of, tree_map
 from repro_torch.runtime.straggler import StepTimeMonitor, StragglerConfig
 
 if TYPE_CHECKING:  # checkpointer imports runtime.retry: keep the cycle lazy
@@ -199,3 +203,23 @@ class Supervisor:
                     data_iter.restore(manifest["extra"]["data"])
         self.ckpt.wait()
         return state, step
+
+    # -- elastic -----------------------------------------------------------
+    @staticmethod
+    def rescale(state, specs, mesh, new_mesh, new_specs) -> Any:
+        """Reshard ``state`` (this rank's shards under ``specs`` on
+        ``mesh``) onto ``new_mesh`` under ``new_specs`` — the reference's
+        device_put of the full state onto another mesh's shardings.  Each
+        leaf is gathered whole over ``mesh`` (every rank of it takes part;
+        None: the state is whole already), then the new mesh's shard of it
+        is cut (``new_mesh`` None: the whole leaf) into storage of its own.
+        Spec trees match the state by key.  A rank outside ``new_mesh``
+        (onto fewer ranks) holds nothing afterwards and gets None."""
+        full = state if mesh is None else tree_map(
+            lambda x, sp: gather_full(x, sp, mesh), state, specs)
+        if new_mesh is None:
+            return full
+        if new_mesh.get_coordinate() is None:
+            return None
+        return tree_map(lambda x, sp: shard_of(x, sp, new_mesh).clone(
+            memory_format=torch.contiguous_format), full, new_specs)

@@ -14,8 +14,8 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   (:meth:`_decode_step`), and so is one chunked-prefill dispatch over
   fixed ``tokens``/``new_lens``/``offsets`` buffers
   (:meth:`_prefill_step`).  On the card each is warmed up eagerly on a
-  side stream (which also builds every kernel and sets its shared-memory
-  attributes) and captured once per Executor, at (``batch_slots``,
+  stream of the Executor's own (which also builds every kernel and sets
+  its shared-memory attributes) and captured on it, once per Executor, at (``batch_slots``,
   ``max_len``) and (``batch_slots``, ``prefill_chunk``); every step then
   replays its graph.  A failed capture or replay raises: there is no
   fallback to the eager path.  ``eager=True`` runs the same functions
@@ -101,6 +101,31 @@ The reference compiles its two steps ahead of time (``_build_steps``:
   pay a profiler start): :meth:`Executor.audit_dispatch` does that for one
   replay or restore, for ``tools/audit.py --transfer-audit`` and
   ``chip_smoke.py``.
+
+* **A ``data`` x ``model`` mesh** (ported with ROADMAP A10b, serving
+  half; the reference's ``Executor(..., mesh)`` under ``DEFAULT_RULES``):
+  each rank holds its shards of the params (``Runtime.shard``, then
+  ``Runtime.realize``) and of the cache, made at their local shapes from
+  ``Runtime.specs(Role.KV_CACHE, cache_defs)``, and its steps run on its
+  rows of the slots (``batch`` on ``data``: :func:`~repro_torch.models.
+  sharding.batch_block`; where ``data`` does not divide the slots every
+  rank runs every row) and its query heads, kv heads, ``d_ff`` columns
+  and vocab rows (Megatron over ``model``, :mod:`repro_torch.models.
+  layers`).  The serve state stays global on every rank, as the
+  reference's is replicated: the decode step samples its rows, gathers
+  the packed ``(2, rows)`` result over ``data`` into ``out`` and advances
+  the whole state from it, so every rank's scheduler sees the same tokens
+  and one fetch a step remains.  The collectives (an all-reduce of each
+  layer's attention and MLP outputs and of the embedding, the logits'
+  gather over ``model``, the ``data`` gather) are captured in the graphs;
+  each group ran one collective eagerly first (:meth:`Executor.
+  _warm_groups`).  A slot's rows live on the ``data`` rank that owns it
+  (:func:`~repro_torch.models.sharding.slot_owner`): a spill copies them
+  there and a non-owner holds nothing.  ``one_rank=True`` splits over
+  one-rank axes too, so one card runs every collective (the counterpart
+  of ``make_train_step(one_rank=)``).  Decisions the serving loop takes
+  on a rank's own clock or calibration are taken on rank 0 and broadcast
+  (:class:`Ranks`).
 """
 
 from __future__ import annotations
@@ -109,10 +134,12 @@ import collections
 import contextlib
 import gc
 import logging
+import math
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.analysis.transfer_audit import StepTarget
@@ -135,7 +162,19 @@ from repro_torch.kernels.kv_stream import kv_write_back
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.sharding import tree_leaves, tree_map
+from repro_torch.models.sharding import (
+    COLLECTIVES,
+    batch_block,
+    gather_dim,
+    mesh_shape,
+    slot_owner,
+    spec_axes,
+    spec_for,
+    tree_leaves,
+    tree_map,
+    unrealized_rules,
+    use_sharding,
+)
 from repro_torch.runtime.retry import MIGRATION_RETRY, retry_call
 from repro_torch.serve import sampling as sampling_mod
 from repro_torch.serve.state import DeviceState, SlotTable, Uploader
@@ -153,6 +192,86 @@ WARMUP_RUNS = 3
 
 def _launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+#: the mesh axes serving realizes (the reference's launcher builds no other)
+SERVE_AXES = ("data", "model")
+
+
+def check_serve_mesh(bundle, mesh, rules=None) -> None:
+    """Raise ``NotImplementedError`` by name for a mesh the port does not
+    serve on: a donor axis (the peer and remote placements, ROADMAP A10c)
+    or another axis than ``data``/``model``; rules that split a logical
+    axis over a mesh axis of several ranks the layers do not realize it
+    on (``seq``, ``kv_seq``, ``embed``: ROADMAP A10b, rest); a ``model``
+    axis of several ranks over MoE, SSM, MLA, the encoder-decoder or the
+    VLM (:meth:`~repro_torch.models.model_zoo.ModelBundle.check_model_axis`)."""
+    axes = mesh_shape(mesh)
+    other = {a: n for a, n in axes.items() if a not in SERVE_AXES}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other}: serving takes a (data, model) mesh; donor axes (the "
+            "peer and remote placements) are ROADMAP A10c")
+    odd = unrealized_rules(rules, mesh)
+    if odd:
+        raise NotImplementedError(
+            f"rules {odd} over mesh axes {axes}: the port serves the slots over 'data' "
+            "and heads, kv_heads, d_ff and vocab over 'model' only (ROADMAP A10b, rest)")
+    bundle.check_model_axis(axes.get("model", 1))
+
+
+class Ranks:
+    """How the ranks of a serving mesh agree.  Every rank runs the same
+    loop on the same requests and so takes the same decisions, but a
+    decision that reads what only one rank sees (its clock, its measured
+    step EWMA, its calibration) is taken on the mesh's first rank and
+    broadcast (:meth:`share`), and a verdict each rank takes on its own
+    rows (a spill's checksum, on its owner) is reduced (:meth:`all_ok`):
+    ranks that decided apart would deadlock in the next collective.  Both
+    run over the mesh's axis groups in turn, so a mesh over some of the
+    processes' ranks agrees among its own.  One rank (no mesh, or a mesh
+    of one) shares nothing."""
+
+    def __init__(self, mesh, device):
+        sizes = mesh_shape(mesh)
+        self.device = device
+        self.many = math.prod(sizes.values()) > 1 if sizes else False
+        #: this rank's index on the mesh, row-major (0 without one)
+        self.rank = 0
+        for axis, n in sizes.items():
+            self.rank = self.rank * n + mesh.get_local_rank(axis)
+        # the minor axis first: then the major one spreads what its first
+        # coordinate's ranks hold
+        self._groups = [mesh.get_group(a) for a, n in reversed(sizes.items()) if n > 1]
+
+    def share(self, value):
+        """The first rank's ``value`` (anything pickle takes), on every
+        rank."""
+        box = [value]
+        for group in self._groups:
+            dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                       group=group, device=self.device)
+        return box[0]
+
+    def pick(self, value, choices):
+        """The first rank's ``value``, one of ``choices``, on every rank:
+        its index in one one-element broadcast a group (no pickle, one
+        collective where :meth:`share` takes two)."""
+        if not self.many:
+            return value
+        index = torch.tensor([choices.index(value)], device=self.device)
+        for group in self._groups:
+            dist.broadcast(index, src=dist.get_global_rank(group, 0), group=group)
+        return choices[int(index.item())]
+
+    def all_ok(self, ok: bool) -> bool:
+        """True on every rank iff ``ok`` on every rank."""
+        if not self.many:
+            return ok
+        flag = torch.tensor([int(ok)], device=self.device)
+        for group in self._groups:
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        return bool(flag.item())
 
 
 class PlacedFeed(tf_mod.ResidentFeed):
@@ -321,45 +440,73 @@ class PlacedDecoderFeed(PlacedFeed, encdec_mod.DecoderFeed):
 class Executor:
     """Decode/prefill dispatches over one model bundle.
 
-    ``cfg`` is the scheduler's ``ServeConfig`` (the shape fields and
-    ``policy`` are read here).  ``params`` must already lie on ``device``;
-    they are realized under the policy (a streamed copy in pinned host
-    memory under ``weights_stream``).  On a CUDA device the steps are
-    captured as CUDA graphs here, unless ``eager``.
+    ``cfg`` is the scheduler's ``ServeConfig`` (the shape fields,
+    ``policy`` and ``rules`` are read here).  ``params`` must already lie
+    on ``device``; they are realized under the policy (a streamed copy in
+    pinned host memory under ``weights_stream``), on a ``mesh`` this
+    rank's shards of them (``params`` are the full weights, as every rank
+    drew them).  On a CUDA device the steps are captured as CUDA graphs
+    here, unless ``eager``.  ``one_rank``: on a mesh, split over its
+    one-rank axes too (see the module's docstring).
     """
 
-    def __init__(self, bundle, cfg, params, device=None, *, eager: bool = False):
+    def __init__(self, bundle, cfg, params, device=None, *, eager: bool = False,
+                 mesh=None, one_rank: bool = False):
         self.bundle = bundle
         self.cfg = cfg
         self.device = resolve_device(device)
         B, C = cfg.batch_slots, max(int(cfg.prefill_chunk), 1)
+        #: the mesh, the rule overlay and the one-rank switch the steps
+        #: install (``use_sharding``)
+        self.mesh, self.rules, self.one_rank = mesh, getattr(cfg, "rules", None), one_rank
+        if mesh is not None:
+            check_serve_mesh(bundle, mesh, self.rules)
+        self.ranks = Ranks(mesh, self.device)
         if cfg.policy is not None:
-            self.runtime = Runtime(bundle, self.device, cfg.policy)
+            self.runtime = Runtime(bundle, self.device, cfg.policy, mesh=mesh,
+                                   rules=self.rules)
         else:
             self.runtime = Runtime.auto(
                 bundle, self.device, phase="serve", batch_slots=B,
-                max_len=cfg.max_len, prefill_chunk=C,
+                max_len=cfg.max_len, prefill_chunk=C, mesh=mesh, rules=self.rules,
+                log_table=self.ranks.rank == 0,
             )
-            log.info("planner picked %s for %s (%d slots x %d ctx, prefill chunk %d)",
-                     self.runtime.policy.name, bundle.cfg.name, B, cfg.max_len, C)
+            # the pick reads this rank's calibration: rank 0's serves them all
+            self.runtime.policy = self.ranks.share(self.runtime.policy)
+            if self.ranks.rank == 0:
+                log.info("planner picked %s for %s (%d slots x %d ctx, prefill chunk %d)",
+                         self.runtime.policy.name, bundle.cfg.name, B, cfg.max_len, C)
         # the injected-fault schedule lives on the runtime, so its realize
         # and migrate sites and this executor's sites consult one plan
         faults = getattr(cfg, "faults", None)
         if faults:
             self.runtime.faults = faults
-        self.params = self.runtime.realize(params, Role.PARAMS)
-        # a host-placed cache is made in host memory, never on the card
+        self.params = self.runtime.realize(self.runtime.shard(params, Role.PARAMS),
+                                           Role.PARAMS)
+        #: this rank's block of the slots, rows ``self.rows`` (every row
+        #: where the slots are not split over ``data``)
+        self.block, self.blocks = batch_block(B, mesh, self.rules)
+        n = B // self.blocks
+        self.rows = slice(self.block * n, (self.block + 1) * n)
+        #: does the decode step gather its rows' results over ``data``?
+        self.gathers_data = "data" in spec_axes(spec_for((B,), ("batch",), mesh, self.rules)) \
+            and (self.blocks > 1 or one_rank)
+        #: the cache's specs over the mesh (None without one)
+        self.cache_specs = self.runtime.specs(Role.KV_CACHE, bundle.cache_defs(B, cfg.max_len))
+        # a host-placed cache is made in host memory, never on the card,
+        # and a rank makes its shards at their local shapes
+        local = {} if mesh is None else {"specs": self.cache_specs, "mesh": mesh}
         caches = bundle.init_cache(
             B, cfg.max_len, device="cpu" if self.policy.placement(Role.KV_CACHE).on_host
-            else self.device)
+            else self.device, **local)
         self.caches = self.runtime.realize(caches, Role.KV_CACHE)
         # slot extract/insert slice the batch axis; every cache family
         # stacks layers first, batch second: verify rather than assume
         for leaf in tree_leaves(self.caches):
-            if leaf.ndim < 2 or leaf.shape[1] != B:
+            if leaf.ndim < 2 or leaf.shape[1] != n:
                 raise ValueError(
                     "cache leaf does not carry the batch on axis 1: shape "
-                    f"{tuple(leaf.shape)} with batch_slots={B}")
+                    f"{tuple(leaf.shape)} with {n} of batch_slots={B} on this rank")
         #: the serve state's fixed buffers (the decode graph's inputs)
         self.state = DeviceState(B, self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -382,12 +529,18 @@ class Executor:
             "migration_retries": 0, "evacuations": 0, "decode_replay_prefills": 0,
         }
         self.graphed = self.device.type == "cuda" and not eager
+        #: the stream the steps warm up and are captured on, drawn at each
+        #: build (:meth:`_capture_stream`)
+        self._stream = None
         #: False once the bundle's ``prefill_at`` raised NotImplementedError
         #: (admission then replays the decode step)
         self.supports_chunked_prefill = True
         #: per graph, the kernel launches one replay makes (counted while
         #: capturing: the wrappers' counters tick at capture, not replay)
         self.graph_launches: dict[str, dict[str, int]] = {}
+        #: per graph, the collectives one replay runs, by kind (counted
+        #: while capturing, :data:`~repro_torch.models.sharding.COLLECTIVES`)
+        self.graph_collectives: dict[str, dict[str, int]] = {}
         #: the kernel launches the graph replays made, by kernel, across
         #: every build (each replay adds its graph's ``graph_launches``)
         self.replay_launches: collections.Counter = collections.Counter()
@@ -402,12 +555,15 @@ class Executor:
         #: instead of allocating (pinning) anew; emptied when the host tier
         #: is lost
         self._spill_pool: list = []
-        #: the last slot moves, newest last: ("spill" | "restore", "host" |
-        #: "device" (where the parked rows lie), bytes, wall seconds)
+        #: the last slot moves, newest last: ("spill" | "restore" | "carry"
+        #: (parked rows received from another data rank), "host" | "device"
+        #: (where the parked rows lie), bytes, wall seconds)
         self.moves: collections.deque = collections.deque(maxlen=4096)
         #: the last migrations, newest last: (what, policy after, migrate
         #: wall seconds, rebuild wall seconds)
         self.migration_log: collections.deque = collections.deque(maxlen=256)
+        if self.graphed and mesh is not None:
+            self._warm_groups()
         self._build_steps(live=False)
 
     @property
@@ -416,25 +572,48 @@ class Executor:
         return self.runtime.policy
 
     # -- the steps the graphs capture ---------------------------------------
+    def _sharding(self):
+        """The mesh, rules and one-rank switch the layers read while a step
+        runs (nothing without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_sharding(self.mesh, self.rules, one_rank=self.one_rank)
+
+    def _warm_groups(self) -> None:
+        """One collective on each of the mesh's groups, eagerly: a
+        communicator's first collective sets it up and cannot be captured
+        in a CUDA graph."""
+        for axis in mesh_shape(self.mesh):
+            flag = torch.zeros(1, device=self.device)
+            dist.all_reduce(flag, group=self.mesh.get_group(axis))
+        self._sync()
+
     @torch.no_grad()
     def _decode_step(self, handed_back: dict | None = None) -> None:
-        """One decode step over every slot, reading and writing only the
-        fixed buffers and the caches.  ``handed_back`` receives the caches
-        the model returned (the movement audit's in-place check)."""
+        """One decode step over this rank's slots, reading and writing only
+        the fixed buffers and the caches; on a ``data`` split the packed
+        results of every rank's rows are gathered into ``out``, and every
+        rank advances the whole serve state from them.  ``handed_back``
+        receives the caches the model returned (the movement audit's
+        in-place check)."""
         s = self.state
-        logits, caches = self.bundle.decode_step(
-            self.params, {"tokens": s["tokens"], "lengths": s["lengths"]},
-            self.caches, feed=self.feed,
-        )
+        mine = {k: t[self.rows] for k, t in s.buffers.items()}
+        with self._sharding():
+            logits, caches = self.bundle.decode_step(
+                self.params, {"tokens": mine["tokens"], "lengths": mine["lengths"]},
+                self.caches, feed=self.feed,
+            )
         # greedy rows (temp == 0) take the plain argmax
-        next_tok = sampling_mod.sample_tokens(logits, s)            # (B,)
-        stopped = sampling_mod.hit_stop(next_tok, s["stop"])
-        active = s["active"]
-        self.out[0].copy_(next_tok)
-        self.out[1].copy_(stopped & active)
+        next_tok = sampling_mod.sample_tokens(logits, mine)         # (rows,)
+        stopped = sampling_mod.hit_stop(next_tok, mine["stop"])
+        packed = torch.stack([next_tok, (stopped & mine["active"]).to(torch.int32)])
+        if self.gathers_data:
+            packed = gather_dim(packed, 1, self.mesh.get_group("data"), self.blocks)
+        self.out.copy_(packed)
         # inactive rows keep their token/length so idle slots and freshly
         # prefilled slots ride through untouched
-        s["tokens"].copy_(torch.where(active[:, None], next_tok[:, None],
+        active = s["active"]
+        s["tokens"].copy_(torch.where(active[:, None], self.out[0][:, None],
                                       s["tokens"]))
         s["lengths"].add_(active.to(torch.int32))
         if handed_back is not None:
@@ -442,13 +621,15 @@ class Executor:
 
     @torch.no_grad()
     def _prefill_step(self, handed_back: dict | None = None) -> None:
-        """One chunked-prefill dispatch over the fixed prefill inputs
-        (``handed_back``: as :meth:`_decode_step`)."""
+        """One chunked-prefill dispatch over this rank's rows of the fixed
+        prefill inputs (``handed_back``: as :meth:`_decode_step`)."""
         p = self.prefill_in
-        _, caches = self.bundle.prefill_at(
-            self.params, {"tokens": p["tokens"], "new_lens": p["new_lens"]},
-            self.caches, p["offsets"], feed=self.feed,
-        )
+        with self._sharding():
+            _, caches = self.bundle.prefill_at(
+                self.params, {"tokens": p["tokens"][self.rows],
+                              "new_lens": p["new_lens"][self.rows]},
+                self.caches, p["offsets"][self.rows], feed=self.feed,
+            )
         if handed_back is not None:
             handed_back["caches"] = caches
 
@@ -467,7 +648,8 @@ class Executor:
         #: the layer feed of the steps (None: views of resident trees)
         self.feed = (feed_cls(self.bundle, self.params, self.caches,
                               stream_params=stream_params, stream_kv=stream_kv,
-                              batch_slots=self.cfg.batch_slots, device=self.device)
+                              batch_slots=self.rows.stop - self.rows.start,
+                              device=self.device)
                      if stream_params or stream_kv else None)
         # the first decode step after a build pays set-up: the watchdog and
         # the runtime's step EWMA skip it
@@ -477,8 +659,9 @@ class Executor:
             return
         for graph in self._graphs.values():
             graph.reset()
-        self._graphs, self.graph_launches = {}, {}
+        self._graphs, self.graph_launches, self.graph_collectives = {}, {}, {}
         restore = self._snapshot() if live else None
+        self._stream = self._capture_stream()
         self._graphs["decode"] = self._capture("decode", self._decode_step, restore)
         if self.supports_chunked_prefill:
             try:
@@ -589,9 +772,41 @@ class Executor:
             self._sync()
         return restore
 
+    def _host_streams(self) -> dict[str, torch.cuda.Stream]:
+        """The copy and write-back streams of the feed's host streams."""
+        out = {}
+        for role, st in (self.feed.streams().items() if self.feed is not None else ()):
+            out[f"{role} copy"], out[f"{role} write-back"] = st._copy_stream, st._wb_stream
+        return out
+
+    def _capture_stream(self) -> torch.cuda.Stream:
+        """A stream of PyTorch's pool that none of the feed's host streams
+        is.  ``torch.cuda.Stream()`` hands the pool's 32 streams a device
+        out in turn, and ``torch.cuda.graph``'s default capture stream is
+        one of them: a write-back or copy stream drawn later could be it,
+        and its work would be captured in line with the layers."""
+        taken = {s.cuda_stream for s in self._host_streams().values()}
+        for _ in range(2 * len(taken) + 1):
+            stream = torch.cuda.Stream(self.device)
+            if stream.cuda_stream not in taken:
+                return stream
+        raise RuntimeError(f"no stream of the pool besides the host streams' {len(taken)}")
+
+    def _check_streams(self) -> None:
+        """Raise unless the capture stream and each host stream's copy and
+        write-back streams are distinct streams: a copy or write-back on
+        the stream a step is captured on runs in line with the layers."""
+        held = {"capture": self._stream, **self._host_streams()}
+        ids = collections.Counter(s.cuda_stream for s in held.values())
+        shared = [name for name, s in held.items() if ids[s.cuda_stream] > 1]
+        if shared:
+            raise RuntimeError(f"streams {shared} are one stream: the steps would run "
+                               "their copies or write-backs in line")
+
     def _capture(self, name: str, step, restore=None) -> torch.cuda.CUDAGraph:
-        """Warm ``step`` up on a side stream (the last warm-up is the
-        build's movement audit of it, :meth:`_audit`), then capture it.
+        """Warm ``step`` up on the executor's own stream (the last warm-up
+        is the build's movement audit of it, :meth:`_audit`), then capture
+        it there.
 
         A new Executor warms up on its all-idle state (rows that are
         inactive or take no new tokens), which changes nothing a request
@@ -599,7 +814,8 @@ class Executor:
         the warm-ups wrote before the capture.  A failed capture raises
         from here."""
         dev = self.device
-        side = torch.cuda.Stream(dev)
+        self._check_streams()
+        side = self._stream
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS - 1):
@@ -615,11 +831,12 @@ class Executor:
         # the collector off while capturing
         gc.collect()
         before = _launch_counts()
+        collectives = collections.Counter(COLLECTIVES)
         graph = torch.cuda.CUDAGraph()
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=side):
                 step()
         finally:
             if enabled:
@@ -627,6 +844,7 @@ class Executor:
         after = _launch_counts()
         self.graph_launches[name] = {k: after[k] - before[k] for k in after
                                      if after[k] > before[k]}
+        self.graph_collectives[name] = dict(COLLECTIVES - collectives)
         self.counters["captures"] += 1
         return graph
 
@@ -776,18 +994,26 @@ class Executor:
 
     # -- preemption: slot spill / restore ---------------------------------
     def slot_bytes(self) -> int:
-        """Bytes of one cache slot's rows — what a preemption spill moves
-        (each way)."""
-        B = self.cfg.batch_slots
-        return sum(t.numel() * t.element_size() // B for t in tree_leaves(self.caches))
+        """Bytes of one cache slot's rows on its owner — what a preemption
+        spill moves (each way)."""
+        return sum(t.numel() * t.element_size() // t.shape[1] for t in tree_leaves(self.caches))
+
+    def owns(self, i: int) -> int | None:
+        """Slot ``i``'s row in this rank's cache, or None when another
+        ``data`` rank holds it (:func:`~repro_torch.models.sharding.
+        slot_owner`)."""
+        block, row = slot_owner(i, self.cfg.batch_slots, self.blocks)
+        return row if block == self.block else None
 
     def summable(self, rows):
         """Parked rows as the device reads them, for a checksum: pinned
         host rows on a card through the card's mapped view of them (summed
-        on the card over PCIe, no copy); otherwise the rows themselves.
-        The rows stay where they were parked until promoted, so the sums
-        at spill and at promotion run on the same device over the same
-        bytes."""
+        on the card over PCIe, no copy); otherwise the rows themselves
+        (None on a rank that does not own the slot).  The rows stay where
+        they were parked until promoted, so the sums at spill and at
+        promotion run on the same device over the same bytes."""
+        if rows is None:
+            return None
         leaves = tree_leaves(rows)
         arena = getattr(leaves[0], "_host_arena", None)
         return mapped_tree(rows) if arena is not None and arena.pinned else rows
@@ -811,14 +1037,19 @@ class Executor:
         """Copy slot ``i``'s cache rows out onto ``spill_to`` (the
         planner-priced spill tier) after the device's last work, and wait
         for the copies: the rows are consistent when this returns.  The
-        cache itself is not touched.  Counted in ``spill_s``."""
+        cache itself is not touched.  Counted in ``spill_s``.  On a
+        ``data`` split only the rank that owns the slot copies; the others
+        return None (they hold nothing of it)."""
         if self.runtime.faults:
             self.runtime.faults.check("extract")
+        row = self.owns(i)
+        if row is None:
+            return None
         t0 = time.perf_counter()
         rows = self._spill_rows(spill_to)
         self._sync()
         for dst, src in zip(tree_leaves(rows), tree_leaves(self.caches)):
-            dst.copy_(src[:, i:i + 1], non_blocking=True)
+            dst.copy_(src[:, row:row + 1], non_blocking=True)
         self._sync()
         dt = time.perf_counter() - t0
         self.counters["spill_s"] += dt
@@ -826,12 +1057,46 @@ class Executor:
                            self.slot_bytes(), dt))
         return rows
 
+    def carry_rows(self, rows, spilled_from: int, i: int):
+        """Rows parked from slot ``spilled_from`` (``rows`` on the rank that
+        held it, None elsewhere), on the rank that holds slot ``i``: where
+        another ``data`` rank holds ``i``, each leaf goes there over the
+        ``data`` group (a device tensor on a card: NCCL sends from the
+        card), and the parking rank's host rows return to its spill pool.
+        Every rank calls it; what a rank gets is what :meth:`insert_slot`
+        takes from it."""
+        src, _ = slot_owner(spilled_from, self.cfg.batch_slots, self.blocks)
+        dst, _ = slot_owner(i, self.cfg.batch_slots, self.blocks)
+        if src == dst or self.block not in (src, dst):
+            return rows if self.block == src else None
+        group = self.mesh.get_group("data")
+        self._sync()
+        if self.block == src:
+            peer = dist.get_global_rank(group, dst)
+            for t in tree_leaves(rows):
+                dist.send(t.to(self.device).contiguous(), dst=peer, group=group)
+            if getattr(tree_leaves(rows)[0], "_host_arena", None) is not None:
+                self._spill_pool.append(rows)
+            return None
+        peer = dist.get_global_rank(group, src)
+        t0 = time.perf_counter()
+        got = tree_map(lambda t: torch.empty(t[:, :1].shape, dtype=t.dtype,
+                                             device=self.device), self.caches)
+        for t in tree_leaves(got):
+            dist.recv(t, src=peer, group=group)
+        self.moves.append(("carry", "device", self.slot_bytes(), time.perf_counter() - t0))
+        return got
+
     def insert_slot(self, i: int, rows) -> None:
         """Copy parked rows back into slot ``i`` of the same cache buffers
         (promotion), in place, so the captured graphs stay valid; the
         move is value for value.  Rows parked in host memory for a card
         must be pinned (a pageable spill raises).  Host rows return to the
-        spill pool.  Counted in ``restore_s``."""
+        spill pool.  Counted in ``restore_s``.  ``rows`` None (a rank that
+        does not own the slot) copies nothing."""
+        if rows is None:
+            return
+        row = self.owns(i)
         t0 = time.perf_counter()
         leaves = tree_leaves(rows)
         host = getattr(leaves[0], "_host_arena", None) is not None
@@ -841,11 +1106,11 @@ class Executor:
                                "memory must land pinned")
         self._sync()
         if "insert" in self.audit_reports or self._auditing:
-            self._insert_rows(i, rows)
+            self._insert_rows(row, rows)
         else:
             # the build's movement audit of the insert is its first restore
             self._audit_first("insert", lambda out: out.update(
-                caches=self._insert_rows(i, rows)))
+                caches=self._insert_rows(row, rows)))
         self._sync()
         if host:
             self._spill_pool.append(rows)
@@ -853,11 +1118,11 @@ class Executor:
         self.counters["restore_s"] += dt
         self.moves.append(("restore", "host" if host else "device", self.slot_bytes(), dt))
 
-    def _insert_rows(self, i: int, rows):
-        """Copy ``rows`` into slot ``i`` of every cache leaf, in place;
+    def _insert_rows(self, row: int, rows):
+        """Copy ``rows`` into row ``row`` of every cache leaf, in place;
         returns the caches."""
         for dst, src in zip(tree_leaves(self.caches), tree_leaves(rows)):
-            dst[:, i:i + 1].copy_(src, non_blocking=True)
+            dst[:, row:row + 1].copy_(src, non_blocking=True)
         return self.caches
 
     # -- live re-placement -------------------------------------------------
@@ -898,7 +1163,8 @@ class Executor:
             rt.plan_phase("serve", batch_slots=self.cfg.batch_slots,
                           max_len=self.cfg.max_len, prefill_chunk=self.cfg.prefill_chunk,
                           kv_utilization=occupancy, log_table=False)
-            target = rt.policy
+            # the pick reads this rank's calibration: rank 0's moves them all
+            target = self.ranks.share(rt.policy)
         else:
             target = parse_policy(policy)
         rt.policy = old

@@ -58,9 +58,23 @@ an ``Executor`` build's movement audit finds the cache copied instead of
 written in place, or the params or a streamed source written: at the
 build on a card, at the step's first run after it eagerly.
 
+**A mesh** (ported with ROADMAP A10b, serving half): ``Server(...,
+mesh=)`` serves on a ``data`` x ``model`` mesh under ``ServeConfig.rules``
+(an overlay of the default rules, as the reference's), one process a
+rank, each running this same loop on the same requests.  The executor
+runs each rank's rows and heads and gathers the tokens, so every rank's
+table advances alike and takes the same decisions.  The decisions that
+read what one rank alone sees are taken on rank 0 and broadcast
+(:class:`~repro_torch.serve.engine.Ranks`): the watchdog's escalation
+(a step's wall time), preemption (the measured decode-step EWMA), the
+planner's pick at construction and at a replan (the rank's calibration),
+a deadline's expiry (the clock); a spill's integrity verdict, taken on
+the rank that holds its rows, is reduced over the ranks.  The asyncio
+:class:`Scheduler` (arrivals on each rank's own event loop) raises on a
+mesh of several ranks.  Only rank 0 logs the requests' events.
+
 Left out, each named in ROADMAP: ``adopt_spilled``, ``requeue_hook`` and
-``ServeConfig.pool`` (disaggregated serving, A13) and ``rules`` (serving
-under a mesh, A10b, rest).
+``ServeConfig.pool`` (disaggregated serving, A13).
 """
 
 from __future__ import annotations
@@ -198,6 +212,8 @@ class ServeConfig:
     #: injected-fault schedule (core.faults.FaultPlan); None = NO_FAULTS.
     #: Lives on the executor's Runtime so every site consults one plan.
     faults: FaultPlan | None = None
+    #: sharding-rule overrides on a mesh (an overlay of ``DEFAULT_RULES``)
+    rules: dict | None = None
     #: checksum spilled rows at park time and verify at promotion; a
     #: mismatch drops the parked rows and replays the request.  Always on
     #: while faults are active.
@@ -214,22 +230,34 @@ class ServeConfig:
             self.policy = parse_policy(self.policy)
 
 
+def _quiet(*args, **kwargs) -> None:
+    """A rank but the first logs no request event."""
+
+
 class Server:
-    """Single-model continuous-batching server on one device.
+    """Single-model continuous-batching server on one device, or on each
+    rank of a ``mesh``.
 
     Composes the scheduler's queue/preemption policy with the
     :class:`Executor` (``server.engine``: params, caches, the device
     state's fixed buffers, the compiled steps, the Runtime) and the
     :class:`SlotTable` (``server.table``).  On the card the steps replay
     CUDA graphs; ``eager=True`` runs them without graphs, to compare the
-    two.
+    two.  On a mesh every rank constructs its Server from the same full
+    ``params`` and feeds it the same requests; ``one_rank`` is the
+    executor's.
     """
 
     def __init__(self, bundle, cfg: ServeConfig, params, device=None, *,
-                 eager: bool = False):
+                 eager: bool = False, mesh=None, one_rank: bool = False):
         self.bundle = bundle
         self.cfg = cfg
-        self.engine = Executor(bundle, cfg, params, device, eager=eager)
+        self.engine = Executor(bundle, cfg, params, device, eager=eager, mesh=mesh,
+                               one_rank=one_rank)
+        #: agreement across a mesh's ranks (one rank: a no-op)
+        self.ranks = self.engine.ranks
+        #: the requests' events are logged by rank 0 only
+        self._info = log.info if self.ranks.rank == 0 else _quiet
         self.device = self.engine.device
         self.table = SlotTable(cfg.batch_slots)
         self._requests: dict[int, Request] = {}
@@ -237,6 +265,12 @@ class Server:
         #: ("spilled", rid) preempted and re-queued
         self._waitq: list[tuple[str, int]] = []
         self._spilled: dict[int, SpilledSequence] = {}
+        #: rid -> the slot its parked rows were spilled from (on a mesh
+        #: that splits the slots over ``data``, the rank holding it parked
+        #: them: ``Executor.carry_rows``); an entry goes with its
+        #: ``_spilled`` one (the record itself mirrors the reference's
+        #: fields)
+        self._spilled_from: dict[int, int] = {}
         self._wait_since: dict[int, int] = {}
         self._tick = 0
         self._replan_band: int | None = None
@@ -464,14 +498,17 @@ class Server:
         ``["expired"]``."""
         now = time.perf_counter()
         freed = False
+        timed = [r for r in self._requests.values()
+                 if not r.done and r.deadline_s is not None and r.submitted_s is not None]
+        # a deadline reads the clock: rank 0's verdicts hold on every rank
+        # (which requests are timed is alike on every rank: no broadcast
+        # without one)
+        late = (self.ranks.share({r.rid for r in timed if now - r.submitted_s > r.deadline_s})
+                if timed else set())
         for req in list(self._requests.values()):
             if req.done:
                 continue
-            expired = (
-                req.deadline_s is not None
-                and req.submitted_s is not None
-                and now - req.submitted_s > req.deadline_s
-            )
+            expired = req.rid in late
             if not (req.cancelled or expired):
                 continue
             why = "cancelled" if req.cancelled else "expired"
@@ -482,14 +519,15 @@ class Server:
             else:
                 self._waitq = [(k, r) for k, r in self._waitq if r != req.rid]
                 self._spilled.pop(req.rid, None)
+                self._spilled_from.pop(req.rid, None)
                 self._requests.pop(req.rid, None)
                 self._wait_since.pop(req.rid, None)
                 self._replaying.pop(req.rid, None)
             req.done = True
             req.finished_s = time.perf_counter()
             self._counters[why] += 1
-            log.info("request %d %s after %d generated token(s)",
-                     req.rid, why, len(req.out_tokens))
+            self._info("request %d %s after %d generated token(s)",
+                       req.rid, why, len(req.out_tokens))
             if req.on_token is not None:
                 req.on_token(req, -1)
         if freed:
@@ -518,8 +556,9 @@ class Server:
                 fresh.append((i, req, req.prompt))
             else:
                 spilled = self._spilled.pop(rid)
+                source = self._spilled_from.pop(rid)
                 try:
-                    self._promote(i, spilled)
+                    self._promote(i, spilled, source)
                 except SpillCorruptionError as e:
                     log.warning("%s", e)
                     self._counters["spill_corruptions"] += 1
@@ -536,27 +575,31 @@ class Server:
     def _verifying(self) -> bool:
         return bool(self.cfg.verify_spills or self.runtime.faults)
 
-    def _promote(self, i: int, spilled: SpilledSequence) -> None:
-        """Copy a spilled sequence's parked rows back into free slot ``i``
-        and resume its mirrors.  With verification on, the parked rows are
+    def _promote(self, i: int, spilled: SpilledSequence, source: int) -> None:
+        """Copy a spilled sequence's parked rows (spilled from slot
+        ``source``) back into free slot ``i`` and resume its mirrors.  With verification on, the parked rows are
         first checked against the checksum they had when parked, summed
         where they lie
         (:class:`~repro_torch.core.faults.SpillCorruptionError` on a
         mismatch: nothing is copied and the slot stays free); a record
         without a checksum then cannot be verified and raises."""
-        if self._verifying() and spilled.checksum is None:
+        held = spilled.rows is not None       # on a data split: its owner
+        if self._verifying() and held and spilled.checksum is None:
             raise RuntimeError(
                 f"spilled rows for rid {spilled.rid} carry no checksum while "
                 "spill verification is on: the promotion cannot be verified")
-        if spilled.checksum is not None:
+        if spilled.checksum is not None or self._verifying():
+            # the owner's verdict holds on every rank
             verify_spill(self.engine.summable(spilled.rows), spilled.checksum,
-                         spilled.rid)
-        self.engine.insert_slot(i, spilled.rows)
+                         spilled.rid, agree=self.ranks.all_ok)
+        # on a data split the rows go to the rank that holds slot i
+        rows = self.engine.carry_rows(spilled.rows, source, i)
+        self.engine.insert_slot(i, rows)
         self.table.resume(i, spilled, self._tick)
         self._wait_since.pop(spilled.rid, None)
         self._counters["promotions"] += 1
-        log.info("promoted rid %d into slot %d after %d ticks spilled",
-                 spilled.rid, i, self._tick - spilled.since_tick)
+        self._info("promoted rid %d into slot %d after %d ticks spilled",
+                   spilled.rid, i, self._tick - spilled.since_tick)
 
     def _remaining(self, i: int) -> int:
         req = self._requests[self.table.slots[i]]
@@ -583,10 +626,11 @@ class Server:
             return
         spill_to, price_s = self.runtime.preemption_price(self.engine.slot_bytes())
         # wait side: the runtime's decode-step price — the measured EWMA
-        # once steps have fed it, the planner's prediction before that
+        # once steps have fed it, the planner's prediction before that;
+        # it reads this rank's steps, so rank 0's verdict holds everywhere
         step_s = self.runtime.decode_step_seconds(self.cfg.batch_slots, self.cfg.max_len)
         natural_wait_s = step_s * min(self._remaining(i) for i in self.table.active_slots())
-        if price_s >= natural_wait_s:
+        if not self.ranks.pick(price_s < natural_wait_s, (False, True)):
             log.debug("preemption not worth it: spill round trip %.3gs >= "
                       "natural slot free in %.3gs", price_s, natural_wait_s)
             return
@@ -601,16 +645,17 @@ class Server:
         rows = self.engine.extract_slot(i, spill_to)
         spilled = self.table.suspend(i, self._tick)
         spilled.rows = rows
+        self._spilled_from[rid] = i
         spilled.tier = spill_to.tier
         faults = self.runtime.faults
-        if self._verifying():
+        if self._verifying() and rows is not None:
             # the parked rows' checksum where they lie, verified there before
             # the promotion's copy back; only with spill verification or
-            # fault injection on
+            # fault injection on (on a data split, on the rows' owner)
             spilled.checksum = checksum_tree(self.engine.summable(rows))
         if faults:
             ev = faults.check("spill")
-            if ev is not None and ev.kind is FaultKind.SPILL_CORRUPT:
+            if ev is not None and ev.kind is FaultKind.SPILL_CORRUPT and rows is not None:
                 spilled.rows = corrupt_tree(spilled.rows)
         spilled.spill_s = time.perf_counter() - t0
         self._spilled[rid] = spilled
@@ -619,8 +664,8 @@ class Server:
         self._requests[rid].preemptions += 1
         self._counters["preemptions"] += 1
         self._sync_state()
-        log.info("preempted rid %d (slot %d, %d tokens resident) -> %s",
-                 rid, i, spilled.length, spill_to.to_str())
+        self._info("preempted rid %d (slot %d, %d tokens resident) -> %s",
+                   rid, i, spilled.length, spill_to.to_str())
 
     # -- live re-placement -------------------------------------------------
     def replan(self, policy=None, *, force: bool = False) -> bool:
@@ -659,6 +704,7 @@ class Server:
         for rid, sp in list(self._spilled.items()):
             if sp.tier is not None and sp.tier in self.runtime.lost_tiers:
                 self._spilled.pop(rid)
+                self._spilled_from.pop(rid, None)
                 self._requeue_fresh(rid)
         self._sync_state()
 
@@ -781,7 +827,9 @@ class Server:
         # the first step after a build pays set-up and is skipped, the
         # rule of the step EWMA)
         if self.watchdog is not None and self.engine._steps_since_build > 1:
-            self._escalate(self.watchdog.observe(decode_dt))
+            # the step's wall time is this rank's: rank 0's verdict holds
+            self._escalate(self.ranks.pick(self.watchdog.observe(decode_dt),
+                                           Watchdog.ACTIONS))
         return len(active)
 
     def run_until_done(self, max_steps: int = 10_000) -> None:
@@ -826,6 +874,11 @@ class Scheduler:
     """
 
     def __init__(self, server: Server, *, step_timeout_s: float | None = 60.0):
+        if server.ranks.many:
+            raise NotImplementedError(
+                "the asyncio Scheduler takes each rank's arrivals on its own event loop, "
+                "so the ranks of a mesh would admit apart and deadlock in the next "
+                "collective: drive a mesh's Servers with step() on the same requests")
         self.server = server
         #: off-thread bound on one server.step(); a step that outlives it
         #: surfaces as ServeHangError.  None = unbounded.

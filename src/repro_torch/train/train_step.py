@@ -94,15 +94,14 @@ from repro_torch.core.warnings_registry import mark
 from repro_torch.launch.mesh import axis_size, mesh_axes_dict
 from repro_torch.models.model_zoo import ModelBundle
 from repro_torch.models.sharding import (
-    DEFAULT_RULES,
     P,
     all_gather_leaves,
-    entry_axes,
+    batch_block,
     reduce_scatter_leaves,
+    unrealized_rules,
     shard_dim,
     shard_of,
     spec_axes,
-    spec_for,
     tree_leaves,
     tree_map,
     use_sharding,
@@ -127,14 +126,6 @@ _OPT_ROLES = {"master": Role.MASTER, "mu": Role.OPT_STATE, "nu": Role.OPT_STATE}
 
 #: mesh axes the training step realizes
 _AXES = ("pod", "data", "model")
-#: per logical axis, the mesh axes the step's layers and reductions
-#: realize a split over: a rule that differs from ``DEFAULT_RULES`` and
-#: splits another over an axis of several ranks raises.  The defaults'
-#: other splits over ``model`` (experts, ssm_heads, d_inner) are the
-#: families :meth:`~repro_torch.models.model_zoo.ModelBundle.check_model_axis`
-#: refuses.
-_REALIZED = {"batch": {"pod", "data"}, "heads": {"model"}, "kv_heads": {"model"},
-             "d_ff": {"model"}, "vocab": {"model"}}
 
 
 def sharded_axes(mesh, one_rank: bool = False) -> set:
@@ -181,10 +172,7 @@ class TrainConfig:
             raise NotImplementedError(
                 f"mesh axes {donor}: donor axes (the peer and remote placements) "
                 "are not ported yet (ROADMAP A10c)")
-        wide = {a for a, n in axes.items() if n > 1}
-        rules = {**DEFAULT_RULES, **(self.rules or {})}
-        odd = {k: tuple(v) for k, v in rules.items() if k != "fsdp"
-               and tuple(v) != DEFAULT_RULES.get(k) and set(v) & wide - _REALIZED.get(k, set())}
+        odd = unrealized_rules(self.rules, mesh)
         if odd or tuple(self.fsdp_axes) not in ((), ("data",)):
             raise NotImplementedError(
                 f"rules {odd or ''} fsdp_axes={tuple(self.fsdp_axes)!r} over mesh axes "
@@ -252,12 +240,7 @@ def batch_shard(global_batch: int, mesh, rules: dict | None = None) -> tuple[int
     divisibility drop), as ``SyntheticLM``'s ``process_index`` and
     ``process_count`` take them; (0, 1) without a mesh.  Ranks along an
     axis the spec leaves out see the same rows."""
-    spec = spec_for((global_batch,), ("batch",), mesh, rules)
-    index, count = 0, 1
-    for a in entry_axes(spec[0]) if spec else ():
-        n = mesh_axes_dict(mesh)[a]
-        index, count = index * n + mesh.get_local_rank(a), count * n
-    return index, count
+    return batch_block(global_batch, mesh, rules)
 
 
 class _Dim:

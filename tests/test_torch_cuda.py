@@ -117,6 +117,39 @@ def test_decode_kernel_every_row_length_one(dtype):
 
 @requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_head", [0, 3])
+def test_kv_head_reads_one_head_of_a_replicated_cache(kv_head, dtype):
+    """yi-6b at ``model`` 8: a rank's 4 query heads attend one of the 4
+    replicated kv heads of a B = 8 cache, read in place (one launch a
+    kernel, the head slice never made contiguous), equal to the plain
+    versions over the slice; the prefill kernel reads the same head of
+    the chunk's keys."""
+    B, Hq, Hc, D, S, Sn = 8, 4, 4, 128, 512, 64
+    q = _randn(B, Hq, D, dtype=dtype, seed=80)
+    k = _randn(B, Hc, S, D, dtype=dtype, seed=81)
+    v = _randn(B, Hc, S, D, dtype=dtype, seed=82)
+    L = torch.tensor([1, 512, 300, 37, 64, 65, 499, 128], dtype=torch.int32, device="cuda")
+    before = (flash_decode.launches, flash_prefill.launches)
+    got = ops.decode_attention(q, k, v, L, kv_head=kv_head)
+    h = slice(kv_head, kv_head + 1)
+    torch.testing.assert_close(got.float(), ref.decode_attention(
+        q, k[:, h].contiguous(), v[:, h].contiguous(), L).float(), **TOL[dtype])
+    qp = _randn(B, Hq, Sn, D, dtype=dtype, seed=83)
+    kn = _randn(B, Hc, Sn, D, dtype=dtype, seed=84)
+    vn = _randn(B, Hc, Sn, D, dtype=dtype, seed=85)
+    off = torch.tensor([0, 448, 100, 7, 200, 300, 1, 64], dtype=torch.int32, device="cuda")
+    q_pos = (off[:, None] + torch.arange(Sn, device="cuda", dtype=torch.int32)).contiguous()
+    r = torch.arange(S, device="cuda", dtype=torch.int32)[None]
+    k_pos = torch.cat([torch.where(r < off[:, None], r, -1), q_pos], 1).contiguous()
+    got = ops.prefill_attention(qp, k, v, q_pos, k_pos, k_new=kn, v_new=vn, kv_head=kv_head)
+    want = ref.prefill_attention(qp, torch.cat([k[:, h], kn[:, h]], 2),
+                                 torch.cat([v[:, h], vn[:, h]], 2), q_pos, k_pos)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert (flash_decode.launches, flash_prefill.launches) == (before[0] + 1, before[1] + 1)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_is_deterministic(dtype):
     """The splits are combined in a fixed order with no atomics and no
     state left between calls: two calls in a row are bit-identical."""
@@ -1216,9 +1249,12 @@ req = server.submit(np.arange(1, 7), max_new_tokens=3)
 server.run_until_done(max_steps=20)
 assert req.done and len(req.out_tokens) == 3
 
-# a step that cannot be captured raises; nothing falls back to eager
-def bad_step(self):
+# a step that cannot be captured raises; nothing falls back to eager (it
+# takes the steps' handed_back argument, which the build's audit passes)
+def bad_step(self, handed_back=None):
     self.state["lengths"].sum().item()
+    if handed_back is not None:
+        handed_back["caches"] = self.caches
 Executor._decode_step = bad_step
 try:
     Executor(tb, cfg, params, "cuda")
@@ -1569,6 +1605,29 @@ def test_kv_host_graphs_write_back_the_same_cache_as_eager_and_hbm():
         assert len(runs[label][1]) == len(runs["graphs"][1])
         for i, (a, b) in enumerate(zip(runs[label][1], runs["graphs"][1])):
             assert torch.equal(a, b), (label, i)
+
+
+@requires_cuda
+def test_capture_stream_is_none_of_the_host_streams():
+    """PyTorch hands the streams of a per-device pool out in turn, so a
+    stream drawn later may be a host stream's copy or write-back stream
+    (the 10b fault of ``chip_smoke.py``: write-backs captured in line).
+    A kv_host server captures its steps on a stream none of its host
+    streams is, wherever the pool's cursor stands, and serves."""
+    pool = {torch.cuda.Stream().cuda_stream for _ in range(256)}
+    assert len(pool) < 256                       # the pool hands its streams out again
+    server = _smoke_server("yi-6b", "kv_host")
+    eng = server.engine
+    host = {s.cuda_stream for s in eng._host_streams().values()}
+    assert len(host) == 2 and eng._stream.cuda_stream not in host
+    # a plain draw meets a host stream within two turns of the pool ...
+    assert any(torch.cuda.Stream().cuda_stream in host for _ in range(2 * len(pool)))
+    # ... a capture stream never does
+    for _ in range(2 * len(pool)):
+        assert eng._capture_stream().cuda_stream not in host
+    eng._check_streams()
+    _serve_tokens(server, _serve_prompts())
+    assert eng.counters["prefill_replays"] > 0
 
 
 # ---------------------------------------------------------------------------
